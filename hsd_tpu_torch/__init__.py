@@ -1,0 +1,14 @@
+"""hsd_tpu_torch — Hierarchical Speculative Decoding in PyTorch on an H100.
+
+The port of the JAX package `hsd_tpu` (which stays as the reference). It
+imports torch and never jax. Layout mirrors the JAX package:
+  verify/   acceptance rules (tokenwise / blockwise / HSD / greedy)
+  models/   the Qwen2/Llama decoder, dense path
+  engine/   KV cache with rollback, speculative and autoregressive loops
+  ops/      quantized linear layers, the hand-written CUDA kernels
+            (csrc/*.cu, built with nvcc at first use) and sampling
+  eval/     synthetic coupled draft/target pairs
+  bridge    carries JAX parameters and caches into the port (tests)
+"""
+
+__version__ = "0.1.0"

@@ -1,0 +1,165 @@
+"""Synthetic coupled draft/target pairs (port of the main-path part of
+`hsd_tpu/eval/synthetic.py`).
+
+    q = softmax(small_int8(x))                    # the draft (0.5B cost)
+    p = softmax(small_bf16(x) + lam * zbig(x))    # the target (14B cost)
+
+`small_int8` is the asymmetric int8 GPTQ image of the bf16 small trunk and
+`zbig` the big model's per-position standardized logits, so every committed
+token pays the full big forward while agreement with the draft is set by
+quantization error (and `lam`). Full-width weights are built natively on
+the device from a seeded torch.Generator.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple, Tuple
+
+import torch
+
+from ..config import ModelConfig
+from ..engine.kvcache import KVCache, init_cache, rollback, select_draft_row
+from ..models import transformer
+from ..models.transformer import (ModelParams, QuantizedEmbedding,
+                                  fuse_params, resolve_device)
+from ..ops.linear import QuantizedLinear, quantize
+
+
+class CoupledCache(NamedTuple):
+    big: KVCache
+    small: KVCache
+
+
+class CoupledParams(NamedTuple):
+    big: ModelParams
+    small: ModelParams
+    lam: float   # weight of the standardized big logits
+
+
+def make_coupled_target(cfg_small: ModelConfig, cfg_big: ModelConfig):
+    """Return `(forward, cache_ops)` for the coupled target, in
+    make_generate's target_forward / target_cache_ops protocol. With
+    skip_head neither trunk applies its head and the first item is None."""
+    if cfg_small.vocab_size != cfg_big.vocab_size:
+        raise ValueError("the coupled pair needs one vocabulary")
+
+    def forward(params: CoupledParams, tokens, cache: CoupledCache,
+                skip_head: bool = False):
+        big_logits, bigc = transformer.forward(cfg_big, params.big, tokens,
+                                               cache.big, skip_head=skip_head)
+        small_logits, smallc = transformer.forward(cfg_small, params.small,
+                                                   tokens, cache.small,
+                                                   skip_head=skip_head)
+        if skip_head:
+            return None, CoupledCache(big=bigc, small=smallc)
+        mu = torch.mean(big_logits, dim=-1, keepdim=True)
+        sd = torch.std(big_logits, dim=-1, keepdim=True, unbiased=False) + 1e-6
+        logits = small_logits + params.lam * (big_logits - mu) / sd
+        return logits, CoupledCache(big=bigc, small=smallc)
+
+    def init(batch, max_len, start, device):
+        return CoupledCache(
+            big=init_cache(cfg_big, batch, max_len, device).replace(
+                start=start.clone()),
+            small=init_cache(cfg_small, batch, max_len, device).replace(
+                start=start.clone()))
+
+    def rb(cache: CoupledCache, new_length):
+        return CoupledCache(big=rollback(cache.big, new_length),
+                            small=rollback(cache.small, new_length))
+
+    def sel(cache: CoupledCache, row):
+        return CoupledCache(big=select_draft_row(cache.big, row),
+                            small=select_draft_row(cache.small, row))
+
+    return forward, (init, rb, sel)
+
+
+def group_size(din: int) -> int:
+    """128 (the GPTQ default) when it divides the in-features, else one group
+    per matrix (tiny test geometries)."""
+    return 128 if din % 128 == 0 else din
+
+
+def _random_q(gen, dev, din: int, dout: int, layers: int, bits: int):
+    """Random symmetric quantized weight stack [layers, ...]: codes uniform
+    over the full int4 (packed) or [-127, 127] int8 range, bf16 scales
+    |N(0,1)| * 1e-2 + 1e-3, one group per 128 input rows. Codes are drawn in
+    place, one layer at a time, so no wider intermediate is ever held."""
+    if bits == 4:
+        qweight = torch.empty((layers, din // 2, dout), dtype=torch.uint8,
+                              device=dev)
+        for layer in qweight:
+            layer.random_(0, 256, generator=gen)   # two uniform nibbles
+    else:
+        qweight = torch.empty((layers, din, dout), dtype=torch.int8,
+                              device=dev)
+        for layer in qweight:
+            layer.random_(-127, 128, generator=gen)
+    g = din // group_size(din)
+    scales = (torch.randn((layers, g, dout), generator=gen, device=dev).abs()
+              * 1e-2 + 1e-3).to(torch.bfloat16)
+    return QuantizedLinear(qweight=qweight, scales=scales, zeros=None)
+
+
+def init_quantized_params(cfg: ModelConfig, seed: int = 0, bits: int = 4,
+                          device=None) -> ModelParams:
+    """Random big-geometry model with quantized weights, built directly in the
+    fused layout (wqkv / wgu) with an int8 embedding and an untied
+    quantized head."""
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    D, Fi, L = cfg.hidden_size, cfg.intermediate_size, cfg.num_layers
+    H, Hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim_
+    layers = dict(
+        ln1=torch.ones((L, D), device=dev),
+        ln2=torch.ones((L, D), device=dev),
+        wqkv=_random_q(gen, dev, D, (H + 2 * Hkv) * hd, L, bits),
+        wo=_random_q(gen, dev, H * hd, D, L, bits),
+        wgu=_random_q(gen, dev, D, 2 * Fi, L, bits),
+        wdown=_random_q(gen, dev, Fi, D, L, bits),
+    )
+    if cfg.attention_bias:
+        layers["bqkv"] = torch.zeros((L, (H + 2 * Hkv) * hd), dtype=cfg.dtype,
+                                     device=dev)
+    codes = torch.empty((cfg.vocab_size, D), dtype=torch.int8, device=dev)
+    codes.random_(-127, 128, generator=gen)
+    embed = QuantizedEmbedding(
+        codes=codes, scale=torch.full((cfg.vocab_size,), 2e-4, device=dev))
+    head = _random_q(gen, dev, D, cfg.vocab_size, 1, bits).layer(0)
+    return ModelParams(embed=embed, layers=layers,
+                       final_norm=torch.ones((D,), device=dev), lm_head=head)
+
+
+def quantize_draft(cfg: ModelConfig, params: ModelParams,
+                   bits: int = 8) -> ModelParams:
+    """Asymmetric GPTQ-style quantization of a small model's stacked matmul
+    weights (the draft is the int8 image of the target's small trunk). The
+    embedding and the tied head stay as they are."""
+    L = dict(params.layers)
+    for name in ("wqkv", "wo", "wgu", "wdown", "wq", "wk", "wv", "wgate",
+                 "wup"):
+        if name in L and not isinstance(L[name], QuantizedLinear):
+            gs = group_size(L[name].shape[-2])
+            per_layer = [quantize(w, bits=bits, group_size=gs) for w in L[name]]
+            L[name] = QuantizedLinear(
+                qweight=torch.stack([w.qweight for w in per_layer]),
+                scales=torch.stack([w.scales for w in per_layer]),
+                zeros=torch.stack([w.zeros for w in per_layer]))
+    return params._replace(layers=L)
+
+
+def build_coupled_pair(seed: int, cfg_small: ModelConfig,
+                       cfg_big: ModelConfig, lam: float,
+                       logit_scale: float = 1.65, big_bits: int = 4,
+                       device=None) -> Tuple[ModelParams, CoupledParams]:
+    """(draft_params, target_params) for the coupled benchmark. logit_scale
+    sharpens the small trunk's logits; lam sets the extra target-only
+    divergence."""
+    dev = resolve_device(device)
+    small = transformer.init_params(cfg_small, seed=seed + 1, device=dev)
+    small = small._replace(
+        embed=(small.embed.float() * logit_scale).to(cfg_small.dtype))
+    small = fuse_params(cfg_small, small)
+    draft = quantize_draft(cfg_small, small, bits=8)
+    big = init_quantized_params(cfg_big, seed=seed, bits=big_bits, device=dev)
+    return draft, CoupledParams(big=big, small=small, lam=float(lam))

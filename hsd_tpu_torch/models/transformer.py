@@ -1,0 +1,267 @@
+"""Unified Qwen2/Llama decoder in PyTorch, dense path (port of
+`hsd_tpu/models/transformer.py`).
+
+Parameters are a plain `ModelParams` with every decoder layer STACKED on a
+leading [L] axis; `forward` loops over layers in Python and selects each
+layer's weights as views. GQA attention with NeoX rotate-half RoPE (optional
+llama3 scaling), optional qkv bias, SwiGLU MLP, RMSNorm in f32, an external
+static KV cache with index-masked attention, an optional [T, T] additive
+attention bias, and per-matmul quantized weights (ops/linear.py).
+Attention logits and softmax are f32; attention itself is plain PyTorch, as
+the JAX main path computes it with an einsum.
+
+MoE, tensor/ring parallelism, per-row `lengths` and staging come with later
+slices.
+"""
+from __future__ import annotations
+
+import math
+from typing import Any, Dict, NamedTuple, Optional
+
+import torch
+import torch.nn.functional as F
+
+from ..config import ModelConfig
+from ..engine.kvcache import KVCache, append_layer_stacked
+from ..ops.linear import (QuantizedLinear, apply_attn_mlp, apply_linear,
+                          apply_mlp, attn_mlp_fusable, rms_norm)
+
+
+class QuantizedEmbedding(NamedTuple):
+    """Per-row int8 embedding: row v dequantizes as codes[v] * scale[v]."""
+
+    codes: torch.Tensor    # [V, D] int8
+    scale: torch.Tensor    # [V] f32 or bf16
+
+
+def quantize_embedding(embed: torch.Tensor) -> QuantizedEmbedding:
+    w = embed.float()
+    scale = torch.clamp(torch.amax(w.abs(), dim=1), min=1e-8) / 127.0
+    codes = torch.clamp(torch.round(w / scale[:, None]), -127, 127)
+    return QuantizedEmbedding(codes=codes.to(torch.int8), scale=scale)
+
+
+class ModelParams(NamedTuple):
+    """Model weights. `layers` values carry a leading [L] axis."""
+
+    embed: Any                  # [V, D] tensor or QuantizedEmbedding
+    layers: Dict[str, Any]
+    final_norm: torch.Tensor    # [D] f32
+    lm_head: Any                # [D, V] / QuantizedLinear / None when tied
+
+
+def resolve_device(device=None) -> torch.device:
+    """Entry points default to the card; with none present they raise
+    rather than run elsewhere. Pass device='cpu' to run on the CPU."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device available; pass device='cpu' to "
+                           "run on the CPU")
+    return dev
+
+
+def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> ModelParams:
+    """Random init from a seeded torch.Generator on the target device."""
+    dev = resolve_device(device)
+    D, Fi, L = cfg.hidden_size, cfg.intermediate_size, cfg.num_layers
+    H, Hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim_
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def dense(shape, scale=None):
+        # shape[0] as in the JAX package: L ** -0.5 for the layer stacks
+        scale = scale if scale is not None else shape[0] ** -0.5
+        w = torch.randn(shape, generator=gen, device=dev, dtype=torch.float32)
+        return (w * scale).to(cfg.dtype)
+
+    layers = dict(
+        ln1=torch.ones((L, D), device=dev),
+        ln2=torch.ones((L, D), device=dev),
+        wq=dense((L, D, H * hd)),
+        wk=dense((L, D, Hkv * hd)),
+        wv=dense((L, D, Hkv * hd)),
+        wo=dense((L, H * hd, D)),
+        wgate=dense((L, D, Fi)),
+        wup=dense((L, D, Fi)),
+        wdown=dense((L, Fi, D)),
+    )
+    if cfg.attention_bias:
+        layers.update(
+            bq=torch.zeros((L, H * hd), dtype=cfg.dtype, device=dev),
+            bk=torch.zeros((L, Hkv * hd), dtype=cfg.dtype, device=dev),
+            bv=torch.zeros((L, Hkv * hd), dtype=cfg.dtype, device=dev))
+    embed = dense((cfg.vocab_size, D), scale=0.02)
+    lm_head = (None if cfg.tie_word_embeddings
+               else dense((D, cfg.vocab_size)))
+    return ModelParams(embed=embed, layers=layers,
+                       final_norm=torch.ones((D,), device=dev),
+                       lm_head=lm_head)
+
+
+def fuse_params(cfg: ModelConfig, params: ModelParams) -> ModelParams:
+    """Fuse q|k|v and gate|up into single matmuls (out-features
+    concatenated), for dense and QuantizedLinear weights alike."""
+    L = dict(params.layers)
+
+    def cat(ws):
+        if isinstance(ws[0], QuantizedLinear):
+            perms = [w.perm for w in ws]
+            if any(p is not None for p in perms) and not all(
+                    p is not None and torch.equal(p, perms[0]) for p in perms):
+                raise ValueError("cannot fuse desc_act projections with "
+                                 "differing g_idx")
+            return QuantizedLinear(
+                qweight=torch.cat([w.qweight for w in ws], dim=-1),
+                scales=torch.cat([w.scales for w in ws], dim=-1),
+                zeros=None if ws[0].zeros is None else
+                torch.cat([w.zeros for w in ws], dim=-1),
+                perm=perms[0])
+        return torch.cat(ws, dim=-1)
+
+    L["wqkv"] = cat([L.pop("wq"), L.pop("wk"), L.pop("wv")])
+    if "bq" in L:
+        L["bqkv"] = torch.cat([L.pop("bq"), L.pop("bk"), L.pop("bv")], dim=-1)
+    L["wgu"] = cat([L.pop("wgate"), L.pop("wup")])
+    return params._replace(layers=L)
+
+
+def rope_tables(positions: torch.Tensor, d: int, theta: float, scaling=None):
+    """(cos, sin) tables [B, T, 1, d/2] for a step's positions, built once
+    per forward; `scaling` is the llama3 (factor, low_freq_factor,
+    high_freq_factor, original_max_position) tuple."""
+    dev = positions.device
+    freqs = 1.0 / (theta ** (torch.arange(0, d, 2, dtype=torch.float32,
+                                          device=dev) / d))
+    if scaling is not None:
+        factor, lo_f, hi_f, orig = scaling
+        wavelen = 2.0 * math.pi / freqs
+        ramp = (orig / wavelen - lo_f) / (hi_f - lo_f)
+        smooth = torch.clamp(ramp, 0.0, 1.0)
+        freqs = (1.0 - smooth) * freqs / factor + smooth * freqs
+    angles = positions[..., None].float() * freqs
+    return torch.cos(angles)[:, :, None, :], torch.sin(angles)[:, :, None, :]
+
+
+def rope_apply(x: torch.Tensor, tables) -> torch.Tensor:
+    """Rotate-half with precomputed tables. x: [B, T, H, d]."""
+    cos, sin = tables
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+def attention(q, k, v, mask, kv_length: int,
+              attn_bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """q: [B,T,H,d]; k, v: [B,S,Hkv,d] (the full cache buffers of a layer);
+    mask: [B,1,1,T,S] validity (causal by cache index and past the left
+    pad). attn_bias, if given, is a [T, T] or [B, T, T] additive bias on the
+    keys written this call, cache slots [kv_length, kv_length + T).
+    GQA runs as a grouped product over [kv_head, rep]: the repeated K/V is
+    never materialized."""
+    B, T, H, d = q.shape
+    S, Hkv = k.shape[1], k.shape[2]
+    rep = H // Hkv
+    qg = q.reshape(B, T, Hkv, rep, d)
+    scores = torch.einsum("btkrd,bskd->bkrts", qg.float(), k.float())
+    scores = scores * (d ** -0.5)
+    if attn_bias is not None:
+        ab = attn_bias if attn_bias.dim() == 3 else attn_bias[None]
+        bias = torch.zeros((B, T, S), dtype=torch.float32, device=q.device)
+        bias[:, :, kv_length:kv_length + T] = ab.float().expand(B, T, T)
+        scores = scores + bias[:, None, None]
+    # large-negative (not -inf) so fully-masked pad rows stay finite
+    scores = torch.where(mask, scores, -1e30)
+    probs = torch.softmax(scores, dim=-1).to(q.dtype)
+    out = torch.einsum("bkrts,bskd->btkrd", probs, v.to(q.dtype))
+    return out.reshape(B, T, H, d)
+
+
+def _embed(cfg: ModelConfig, embed, tokens: torch.Tensor) -> torch.Tensor:
+    if isinstance(embed, QuantizedEmbedding):
+        rows = embed.codes[tokens].float()
+        sc = embed.scale[tokens].float()
+        return (rows * sc[..., None]).to(cfg.dtype)
+    return embed[tokens].to(cfg.dtype)
+
+
+def forward(cfg: ModelConfig, params: ModelParams, tokens: torch.Tensor,
+            cache: KVCache, attn_bias: Optional[torch.Tensor] = None,
+            skip_head: bool = False):
+    """Run the decoder over `tokens` [B, T], appending to `cache` in place.
+
+    Returns (logits [B, T, V] f32, cache with length += T). RoPE positions
+    are the cache index less the row's left pad. With skip_head the final
+    norm and the head are not applied and the first item is the last layer's
+    hidden state [B, T, D] (a prefill needs only the cache).
+    """
+    B, T = tokens.shape
+    H, Hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim_
+    dev = tokens.device
+    length = cache.length
+    q_index = (length + torch.arange(T, device=dev))[None, :].expand(B, T)
+    positions = torch.clamp(q_index - cache.start[:, None], min=0)
+    tables = rope_tables(positions, hd, cfg.rope_theta, cfg.rope_scaling)
+    S = cache.max_len
+    key_pos = torch.arange(S, device=dev)[None, None, None, None, :]
+    mask = ((key_pos <= q_index[:, None, None, :, None])
+            & (key_pos >= cache.start[:, None, None, None, None]))
+
+    x = _embed(cfg, params.embed, tokens)
+    names = params.layers
+    first = next(iter(names.values()))
+    n_layers = (first.qweight if isinstance(first, QuantizedLinear)
+                else first).shape[0]
+    eps = cfg.rms_norm_eps
+
+    def get(name, l):
+        w = names.get(name)
+        if w is None or isinstance(w, QuantizedLinear):
+            return w
+        return w[l]
+
+    k_all, v_all = cache.k, cache.v
+    for l in range(n_layers):
+        def lin(name, h, bias=None, norm=None):
+            return apply_linear(names[name], h, bias, layer=l, norm=norm)
+
+        if "wqkv" in names:
+            qkv = lin("wqkv", x, get("bqkv", l), norm=(names["ln1"][l], eps))
+            q = qkv[..., :H * hd]
+            k = qkv[..., H * hd:(H + Hkv) * hd]
+            v = qkv[..., (H + Hkv) * hd:]
+        else:
+            h = rms_norm(x, names["ln1"][l], eps)
+            q = lin("wq", h, get("bq", l))
+            k = lin("wk", h, get("bk", l))
+            v = lin("wv", h, get("bv", l))
+        q = rope_apply(q.reshape(B, T, H, hd), tables)
+        k = rope_apply(k.reshape(B, T, Hkv, hd), tables)
+        v = v.reshape(B, T, Hkv, hd)
+        append_layer_stacked(k_all, v_all, l, length, k, v)
+        att = attention(q, k_all[l], v_all[l], mask, length, attn_bias)
+        att2 = att.reshape(B, T, H * hd)
+        if "wgu" in names and attn_mlp_fusable(
+                att2, names["wo"], names["wgu"], names["wdown"]):
+            # packed-int4 layer tail at decode/verify rows: one K2 call
+            x = apply_attn_mlp(att2, x, names["wo"], names["wgu"],
+                               names["wdown"], names["ln2"][l], eps, layer=l)
+            continue
+        x = x + lin("wo", att2)
+        if "wgu" in names:
+            x = x + apply_mlp(names["wgu"], names["wdown"], x,
+                              names["ln2"][l], eps, layer=l)
+        else:
+            h = rms_norm(x, names["ln2"][l], eps)
+            ff = F.silu(lin("wgate", h)) * lin("wup", h)
+            x = x + lin("wdown", ff)
+
+    if skip_head:
+        return x, cache.replace(length=length + T)
+    x = rms_norm(x, params.final_norm, eps)
+    if params.lm_head is None:
+        if isinstance(params.embed, QuantizedEmbedding):
+            raise ValueError("a tied head needs a dense embedding")
+        head = params.embed.t()
+    else:
+        head = params.lm_head
+    logits = apply_linear(head, x).float()
+    return logits, cache.replace(length=length + T)

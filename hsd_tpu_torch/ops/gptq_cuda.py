@@ -1,0 +1,307 @@
+"""GPTQ dequantize-and-matmul kernels for the H100: the port's counterpart of
+`hsd_tpu/ops/gptq_pallas.py`.
+
+Four wrappers, one for each Pallas kernel that the speculative-decoding main
+path reaches. Each has:
+  * a plain PyTorch version beside it (`*_plain`), which the wrapper runs
+    only for tensors on the CPU; on a CUDA tensor the wrapper launches the
+    kernel or raises, never the plain version;
+  * a launch counter, `<wrapper>.launches`, raised by one where the wrapper
+    launches its kernel and nowhere else (`reset_launches()` zeroes them);
+  * a note naming the TPU kernel it replaces and what bounds it on the card.
+
+All four launch one template in `csrc/gptq.cu` (see its header for the
+design): a block owns 128 output columns for up to 16 activation rows and a
+share of the weight's rows, streams them once in 128-row tiles, dequantizes
+in registers and accumulates in f32; a second pass sums the shares in order.
+Nothing in that order depends on the row count, so a row's bits do not
+either.
+
+Layouts are those of `ops/linear.QuantizedLinear`: packed int4 is uint8
+[din/2, dout] split-half with nibbles stored as code+8; int8 is [din, dout];
+scales (bf16 or f32, read as they are) and zeros (f32) are [groups, dout].
+Weights are 2-D here: the caller selects a layer of a stacked weight with
+`qweight[l]`, a view.
+"""
+from __future__ import annotations
+
+import functools
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from . import _build
+
+PRO_NONE, PRO_RMS, PRO_SILU = 0, 1, 2
+# Row gate of the fused layer tail (gptq_pallas.attn_mlp_fusion_supported):
+# the tail fuses at decode and verify row counts only.
+TAIL_MAX_ROWS = 32
+
+
+# --------------------------------------------------------------------------
+# plain versions (reference arithmetic; f32 throughout, one rounding at the end)
+
+def dequantize_int4(qweight: torch.Tensor, scales: torch.Tensor,
+                    zeros: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Packed int4 [din/2, dout] -> f32 [din, dout] weight
+    (nibble - 8 - zero) * scale, split-half rows."""
+    b = qweight.to(torch.int32)
+    codes = torch.cat([(b & 15) - 8, (b >> 4) - 8], dim=0).float()
+    return _apply_groups(codes, scales, zeros)
+
+
+def dequantize_int8(qweight: torch.Tensor, scales: torch.Tensor,
+                    zeros: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """int8 codes [din, dout] -> f32 [din, dout] weight (code - zero) * scale."""
+    return _apply_groups(qweight.float(), scales, zeros)
+
+
+def _apply_groups(codes, scales, zeros):
+    din, dout = codes.shape
+    g = scales.shape[0]
+    c = codes.reshape(g, din // g, dout)
+    if zeros is not None:
+        c = c - zeros.float()[:, None, :]
+    return (c * scales.float()[:, None, :]).reshape(din, dout)
+
+
+def _rms_f32(x: torch.Tensor, ln: torch.Tensor, eps: float) -> torch.Tensor:
+    xf = x.float()
+    r = torch.rsqrt(torch.mean(xf * xf, dim=-1, keepdim=True) + eps)
+    return xf * r * ln.float()
+
+
+def int4_ln_matmul_plain(x, qweight, scales, ln, eps):
+    return (_rms_f32(x, ln, eps) @ dequantize_int4(qweight, scales)).to(x.dtype)
+
+
+def int4_matmul_plain(x, qweight, scales, zeros=None):
+    return (x.float() @ dequantize_int4(qweight, scales, zeros)).to(x.dtype)
+
+
+def int8_matmul_plain(x, qweight, scales, zeros=None):
+    return (x.float() @ dequantize_int8(qweight, scales, zeros)).to(x.dtype)
+
+
+def attn_mlp_int4_plain(att, resid, wo, so, wgu, sg, wdown, sd, ln, eps):
+    xp = resid.float() + att.float() @ dequantize_int4(wo, so)   # x' kept f32
+    gu = _rms_f32(xp, ln, eps) @ dequantize_int4(wgu, sg)
+    f = gu.shape[-1] // 2
+    ff = F.silu(gu[:, :f]) * gu[:, f:]
+    return (xp + ff @ dequantize_int4(wdown, sd)).to(resid.dtype)
+
+
+# --------------------------------------------------------------------------
+# launch plumbing
+
+_ACT = (torch.float32, torch.bfloat16)
+
+
+def _check(t: torch.Tensor, name: str, dtypes, shape=None):
+    if not t.is_cuda:
+        raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
+    if t.dtype not in dtypes:
+        raise ValueError(f"{name}: dtype {t.dtype} not in {dtypes}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: must be contiguous")
+    if shape is not None and tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: shape {tuple(t.shape)} != {tuple(shape)}")
+
+
+def _weight(qweight, scales, zeros, packed: bool, din: int, dout: int):
+    _check(qweight, "qweight", (torch.uint8,) if packed else (torch.int8,),
+           (din // 2 if packed else din, dout))
+    _check(scales, "scales", _ACT)
+    if scales.dim() != 2 or scales.shape[1] != dout:
+        raise ValueError(f"scales: shape {tuple(scales.shape)} for dout {dout}")
+    if zeros is not None:
+        _check(zeros, "zeros", (torch.float32,), scales.shape)
+    if dout % 4 == 0 and qweight.data_ptr() % 4:
+        raise ValueError("qweight: rows must start 4-byte aligned")
+
+
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
+
+
+def _bf16(t: Optional[torch.Tensor]) -> int:
+    return int(t is not None and t.dtype == torch.bfloat16)
+
+
+TILE_ROWS, BLOCK_COLS = 128, 128     # csrc/gptq.cu kTile, kCols
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def splits_for(weight_rows: int, dout: int, sms: int) -> int:
+    """Input-dimension splits for a weight: enough blocks for about two per
+    SM. Depends on the weight's shape and the card only, never on the row
+    count, so a row's reduction order (and bits) is the same at any n."""
+    tiles = max(1, weight_rows // TILE_ROWS)   # the kernel rejects < 1 tile
+    col_blocks = -(-dout // BLOCK_COLS)
+    want = min(tiles, max(1, -(-2 * sms // col_blocks)))
+    per_split = -(-tiles // want)
+    return -(-tiles // per_split)
+
+
+def _launch(x, ldx, n, din, qweight, packed, scales, zeros, ln, eps,
+            prologue, resid, out):
+    dout = out.shape[-1]
+    lib = _build.lib("gptq")
+    splits = splits_for(qweight.shape[0], dout, _sm_count(x.device.index or 0))
+    ws = (torch.empty((splits, n, dout), dtype=torch.float32, device=x.device)
+          if splits > 1 else None)
+    inv = (torch.empty((n,), dtype=torch.float32, device=x.device)
+           if prologue == PRO_RMS else None)
+    err = lib.hsd_gptq_matvec(
+        _ptr(x), _bf16(x), ldx, n, din, _ptr(qweight), int(packed), dout,
+        _ptr(scales), _bf16(scales), _ptr(zeros), scales.shape[0], _ptr(ln),
+        float(eps), prologue, _ptr(resid), _bf16(resid), _ptr(out), _bf16(out),
+        splits, _ptr(ws), _ptr(inv),
+        torch.cuda.current_stream(x.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"GPTQ kernel (n={n}, din={din}, dout={dout}, "
+                           f"prologue={prologue}): "
+                           f"{lib.hsd_error_string(err).decode()}")
+
+
+# --------------------------------------------------------------------------
+# K1 — replaces gptq_pallas.gptq_matmul(..., ln=) packed: _kernel_int4_ln
+# (hsd_tpu/ops/gptq_pallas.py:176). y = rmsnorm(x, ln) @ deq(W).
+# Bound: the weight stream, din/2 * dout bytes (target wqkv 2560 x 7168:
+# 18.4 MB + 0.6 MB of scales, ~5.6 us at 3.35 TB/s). A one-block-per-row
+# pass writes each row's inverse RMS (n floats); the matvec applies the norm
+# while staging activations, so the normed x never goes to device memory.
+# The -8 shift is folded into the dequantization.
+
+def int4_ln_matmul(x: torch.Tensor, qweight: torch.Tensor,
+                   scales: torch.Tensor, ln: torch.Tensor,
+                   eps: float) -> torch.Tensor:
+    """y[n, dout] = rmsnorm(x[n, din], ln) @ deq(qweight): packed int4,
+    symmetric (no zeros)."""
+    if not x.is_cuda:
+        return int4_ln_matmul_plain(x, qweight, scales, ln, eps)
+    n, din = x.shape
+    dout = qweight.shape[-1]
+    _check(x, "x", _ACT)
+    _check(ln, "ln", (torch.float32,), (din,))
+    _weight(qweight, scales, None, True, din, dout)
+    out = torch.empty((n, dout), dtype=x.dtype, device=x.device)
+    _launch(x, din, n, din, qweight, True, scales, None, ln, eps, PRO_RMS,
+            None, out)
+    int4_ln_matmul.launches += 1
+    return out
+
+
+# --------------------------------------------------------------------------
+# K3 — replaces gptq_pallas.gptq_matmul packed without ln: _kernel_int4
+# (gptq_pallas.py:117) plus its rank-1 -8 correction (:500-526), folded here
+# into the dequantization. y = x @ deq(W).
+# Bound: the weight stream (target lm_head 2560 x 151936: 389 MB + 12 MB of
+# scales, ~120 us at 3.35 TB/s). 1187 blocks of 128 columns fill the card.
+
+def int4_matmul(x: torch.Tensor, qweight: torch.Tensor, scales: torch.Tensor,
+                zeros: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """y[n, dout] = x[n, din] @ deq(qweight): packed int4."""
+    if not x.is_cuda:
+        return int4_matmul_plain(x, qweight, scales, zeros)
+    n, din = x.shape
+    dout = qweight.shape[-1]
+    _check(x, "x", _ACT)
+    _weight(qweight, scales, zeros, True, din, dout)
+    out = torch.empty((n, dout), dtype=x.dtype, device=x.device)
+    _launch(x, din, n, din, qweight, True, scales, zeros, None, 0.0,
+            PRO_NONE, None, out)
+    int4_matmul.launches += 1
+    return out
+
+
+# --------------------------------------------------------------------------
+# K4 — replaces gptq_pallas.gptq_matmul int8: _kernel (gptq_pallas.py:44)
+# plus its rank-1 zero-point correction (:500-526), folded here into the
+# dequantization (code - zero) * scale. y = x @ deq(W).
+# Bound: the weight stream plus f32 scales and zeros, din * dout * (1 + 8/128)
+# bytes (one 0.5B draft layer, 896 x 1152 + 896 x 896 + 896 x 9728 +
+# 4864 x 896: 14.9 MB, ~4.4 us at 3.35 TB/s). The draft's narrow outputs
+# (896 columns = 7 column blocks) would leave most SMs idle, so the input
+# dimension is split across blocks (`splits_for`).
+
+def int8_matmul(x: torch.Tensor, qweight: torch.Tensor, scales: torch.Tensor,
+                zeros: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """y[n, dout] = x[n, din] @ deq(qweight): int8 codes, optional zeros."""
+    if not x.is_cuda:
+        return int8_matmul_plain(x, qweight, scales, zeros)
+    n, din = x.shape
+    dout = qweight.shape[-1]
+    _check(x, "x", _ACT)
+    _weight(qweight, scales, zeros, False, din, dout)
+    out = torch.empty((n, dout), dtype=x.dtype, device=x.device)
+    _launch(x, din, n, din, qweight, False, scales, zeros, None, 0.0,
+            PRO_NONE, None, out)
+    int8_matmul.launches += 1
+    return out
+
+
+# --------------------------------------------------------------------------
+# K2 — replaces gptq_pallas.gptq_attn_mlp_int4: _kernel_attn_mlp_int4
+# (gptq_pallas.py:617). x' = resid + att @ deq(Wo), kept f32;
+# [g|u] = rmsnorm(x', ln) @ deq(Wgu); out = x' + (silu(g) * u) @ deq(Wdown).
+# Bound: three weight streams (14B layer: 13.1 + 70.8 + 35.4 MB + scales,
+# ~123 MB, ~37 us at 3.35 TB/s). A Hopper grid has no ordered steps to carry
+# x' and gu from phase to phase as the Pallas grid does, so the tail is three
+# launches of the template with f32 intermediates in device memory (at most
+# 32 x 27648 x 4 bytes = 3.5 MB, L2-resident); one persistent kernel is
+# later work. The counter counts one call per tail.
+
+def attn_mlp_int4(att: torch.Tensor, resid: torch.Tensor,
+                  wo: torch.Tensor, so: torch.Tensor,
+                  wgu: torch.Tensor, sg: torch.Tensor,
+                  wdown: torch.Tensor, sd: torch.Tensor,
+                  ln: torch.Tensor, eps: float) -> torch.Tensor:
+    """The fused layer tail; att [n, Dh], resid [n, D] -> [n, D] in
+    resid.dtype. All three weights packed int4, symmetric."""
+    if not att.is_cuda:
+        return attn_mlp_int4_plain(att, resid, wo, so, wgu, sg, wdown, sd,
+                                   ln, eps)
+    n, dh = att.shape
+    d = wo.shape[-1]
+    gu_out = wgu.shape[-1]
+    f = 2 * wdown.shape[0]
+    if gu_out != 2 * f or wgu.shape[0] * 2 != d or wdown.shape[-1] != d:
+        raise ValueError(f"inconsistent tail shapes: wo {tuple(wo.shape)}, "
+                         f"wgu {tuple(wgu.shape)}, wdown {tuple(wdown.shape)}")
+    _check(att, "att", _ACT)
+    _check(resid, "resid", _ACT, (n, d))
+    _check(ln, "ln", (torch.float32,), (d,))
+    _weight(wo, so, None, True, dh, d)
+    _weight(wgu, sg, None, True, d, gu_out)
+    _weight(wdown, sd, None, True, f, d)
+    dev = att.device
+    xp = torch.empty((n, d), dtype=torch.float32, device=dev)
+    gu = torch.empty((n, gu_out), dtype=torch.float32, device=dev)
+    out = torch.empty((n, d), dtype=resid.dtype, device=dev)
+    _launch(att, dh, n, dh, wo, True, so, None, None, 0.0, PRO_NONE, resid, xp)
+    _launch(xp, d, n, d, wgu, True, sg, None, ln, eps, PRO_RMS, None, gu)
+    _launch(gu, gu_out, n, f, wdown, True, sd, None, None, 0.0, PRO_SILU, xp,
+            out)
+    attn_mlp_int4.launches += 1
+    return out
+
+
+WRAPPERS = {"K1": int4_ln_matmul, "K2": attn_mlp_int4, "K3": int4_matmul,
+            "K4": int8_matmul}
+for _w in WRAPPERS.values():
+    _w.launches = 0
+
+
+def reset_launches() -> None:
+    for w in WRAPPERS.values():
+        w.launches = 0
+
+
+def launch_counts() -> dict:
+    return {k: w.launches for k, w in WRAPPERS.items()}
