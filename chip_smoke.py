@@ -27,10 +27,35 @@ Phases (any failure exits nonzero, with no result line):
   6. greedy    temperature 0 on a 2-layer float32 pair built through the same
                kernels: the speculative stream must equal the AR stream; at
                full width only the common prefix length is printed
+  7. eagle weights  the 14B pair is freed; the EAGLE serving pair is built on
+               the card: a 32-layer Llama-3.1-8B-geometry symmetric-int8
+               target (int8 embedding and head) coupled to the bigram oracle
+               of a bf16 EAGLE-1 head (draft vocab 32000, top_k 10, depth 6,
+               59 nodes; scale 6.0, lam 1.312), gptq_mxu_bf16 on
+  8. eagle kernels  K5 (int8, fused RMSNorm) at 1 and 60 rows, K7 (bf16
+               tensor-core operands) at 129 and 480 rows, and K4 (symmetric
+               int8) at the prefill's shapes (wo, wdown at 64 rows, the head
+               at 1 row and at 64) against their plain versions, timed as in
+               phase 4; a row's bits at 1 vs 60 rows (K5), 129 vs 480 rows
+               (K7) and 1 vs 64 rows (K4, wdown)
+  9. eagle serving  one 64-token prefill with the head on the last position
+               against one with every position's logits: the last row must
+               agree, both timed; then EagleSlotEngine (8 slots, bucket 64, 4
+               pool blocks between admissions) on 16 requests of 32-64 prompt
+               ids and 64 new tokens, in hsd_ref and hsd, after one warm
+               request, with the launch counters zeroed before and read after
+               (K4, K5 and K7 must each launch); hsd_ref again, whose token
+               streams must be identical. With --trace, also a profiled pool
+               step (device time by kernel, idle share)
+ 10. eagle greedy  temperature 0 on a 2-layer float32 Llama-shaped pair with a
+               symmetric-int8 target: make_eagle_generate and every server
+               request must equal the AR stream, through K5
 The line before the last is the kernels' JSON summary; the last line is
 {"ok": true, "device": {...}}.
 """
 import argparse
+import dataclasses
+import hashlib
 import json
 import math
 import statistics
@@ -38,6 +63,7 @@ import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 
 if not torch.cuda.is_available():
@@ -46,9 +72,14 @@ if not torch.cuda.is_available():
 
 from hsd_tpu_torch.config import EngineConfig, ModelConfig, VerifierConfig
 from hsd_tpu_torch.engine import make_autoregressive, make_generate
-from hsd_tpu_torch.eval.synthetic import (build_coupled_pair,
+from hsd_tpu_torch.engine.eagle_engine import make_eagle_generate
+from hsd_tpu_torch.engine.eagle_server import EagleSlotEngine
+from hsd_tpu_torch.eval.synthetic import (build_coupled_eagle_pair,
+                                          build_coupled_pair,
                                           init_quantized_params,
+                                          make_coupled_eagle_target,
                                           make_coupled_target, quantize_draft)
+from hsd_tpu_torch.models.eagle import EagleConfig
 from hsd_tpu_torch.models.transformer import fuse_params, init_params
 from hsd_tpu_torch.ops import _build
 from hsd_tpu_torch.ops import gptq_cuda as G
@@ -63,6 +94,9 @@ TOL = 2.0 ** -7             # kernel vs plain, relative to the output's max
 GAMMA, MAX_NEW, N_PROMPTS, BUCKET, AR_NEW = 10, 128, 3, 64, 32
 LOGIT_SCALE = 1.467
 SPIN_CYCLES = 2_000_000      # ~1 ms of device spin before a timed call
+# EAGLE serving, cut from bench.py's row: 24 -> 16 requests, 96 -> 64 new
+EAGLE_SLOTS, EAGLE_BUCKET, EAGLE_REQS, EAGLE_NEW, EAGLE_MACRO = 8, 64, 16, 64, 4
+SPEC_KERNELS = ("K1", "K2", "K3", "K4")    # phase 5's path
 T0 = time.time()
 
 
@@ -275,6 +309,21 @@ def summary_entry(name, label, n, source, replaces, launches):
             "shape": f"{label}, {n} rows"}
 
 
+def device_rows(prof):
+    """(device us, launches, kernel name) per kernel name, largest first."""
+    rows = []
+    for ev in prof.key_averages():
+        if ev.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        dev_us = getattr(ev, "self_device_time_total", None)
+        if dev_us is None:
+            dev_us = ev.self_cuda_time_total
+        if dev_us > 0:
+            rows.append((dev_us, ev.count, ev.key))
+    rows.sort(reverse=True)
+    return rows
+
+
 def trace_window(gen, draft, target, prompt):
     """Where the time goes: one short hsd generate under torch.profiler.
     Device time by kernel, the wall time, and the device's idle share
@@ -289,16 +338,7 @@ def trace_window(gen, draft, target, prompt):
                   torch.Generator(device=DEV).manual_seed(9))
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    rows = []
-    for ev in prof.key_averages():
-        if ev.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        dev_us = getattr(ev, "self_device_time_total", None)
-        if dev_us is None:
-            dev_us = ev.self_cuda_time_total
-        if dev_us > 0:
-            rows.append((dev_us, ev.count, ev.key))
-    rows.sort(reverse=True)
+    rows = device_rows(prof)
     busy = sum(r[0] for r in rows)
     ours = sum(r[0] for r in rows if "gptq_matvec" in r[2]
                or "splitk_reduce" in r[2] or "inv_rms" in r[2])
@@ -380,8 +420,8 @@ def main_path(draft, target, cfg_s, cfg_b, trace):
             f"{toks / secs:.2f} tok/s ({toks} tokens in {secs:.2f}s)")
     counts = G.launch_counts()
     log(f"launch counters over the hsd+tokenwise runs: {counts}")
-    for k, c in counts.items():
-        if c <= 0:
+    for k in SPEC_KERNELS:
+        if counts[k] <= 0:
             raise AssertionError(f"kernel {k} was not launched on the main path")
 
     ar = make_autoregressive(cfg_b, EngineConfig(max_new_tokens=AR_NEW),
@@ -441,8 +481,328 @@ def greedy_small():
         f"kernel launches {used}")
     if a != b or len(a) < 48:
         raise AssertionError(f"greedy spec != greedy AR:\n{a}\n{b}")
-    if min(used.values()) <= 0:
+    if min(used[k] for k in SPEC_KERNELS) <= 0:
         raise AssertionError(f"greedy config missed a kernel: {used}")
+
+
+def eagle_configs():
+    """bench.py's EAGLE serving row: Llama-3.1-8B geometry, an EOS that is
+    never drawn, bf16 operands at 129-1024 rows, and the v1 head."""
+    cfg = ModelConfig.llama3_8b()
+    cfg = dataclasses.replace(cfg, eos_token_id=cfg.vocab_size,
+                              gptq_mxu_bf16=True)
+    ecfg = EagleConfig(
+        hidden_size=cfg.hidden_size, target_hidden_size=cfg.hidden_size,
+        num_heads=cfg.num_heads, num_kv_heads=cfg.num_kv_heads,
+        vocab_size=cfg.vocab_size, draft_vocab_size=32000,
+        intermediate_size=cfg.intermediate_size, rope_theta=cfg.rope_theta,
+        top_k=10, depth=6, total_tokens=59, version=1)
+    return cfg, ecfg
+
+
+def eagle_kernel_phase(target, cfg):
+    g = torch.Generator(device=DEV).manual_seed(321)
+    big = target.big.layers
+    D, eps = cfg.hidden_size, cfg.rms_norm_eps
+    ln = torch.rand((4, D), generator=g, device=DEV) + 0.5
+    rows = EAGLE_SLOTS * 60           # the pool forward: 8 slots x 60 nodes
+
+    def act(n, d):
+        return torch.randn((n, d), generator=g, device=DEV).to(torch.bfloat16)
+
+    # a row's bits do not depend on how many rows share its launch
+    x = act(rows, D)
+    w = big["wqkv"].layer(0)
+    k5 = G.int8_ln_matmul(x[:60], w.qweight, w.scales, ln[0], eps)
+    k7 = G.int8_matmul_bf16(x, w.qweight, w.scales, ln[0], eps)
+    wd = big["wdown"].layer(0)
+    xd = act(EAGLE_BUCKET, wd.din)
+    k4 = G.int8_matmul(xd, wd.qweight, wd.scales)
+    if not (torch.equal(G.int8_ln_matmul(x[:1], w.qweight, w.scales, ln[0],
+                                         eps), k5[:1])
+            and torch.equal(G.int8_matmul_bf16(x[:129], w.qweight, w.scales,
+                                               ln[0], eps), k7[:129])
+            and torch.equal(G.int8_matmul(xd[:1], wd.qweight, wd.scales),
+                            k4[:1])):
+        raise AssertionError("K4, K5 or K7 rows differ with the row count")
+    log("eagle kernels: K5 gives the same bits for a row at 1 and 60 rows, "
+        f"K7 at 129 and {rows} rows, K4 (wdown) at 1 and {EAGLE_BUCKET}")
+
+    def case(name, label, w: QuantizedLinear, n, norm):
+        stacked = w.qweight.dim() == 3
+        n_sets = min(4, w.qweight.shape[0]) if stacked else 1
+        ws = [w.layer(l) if stacked else w for l in range(n_sets)]
+        x = act(n, w.din)
+        dout = w.qweight.shape[-1]
+        if name == "K4":
+            def run(l):
+                return G.int8_matmul(x, ws[l].qweight, ws[l].scales)
+
+            def plain(l):
+                return G.int8_matmul_plain(x, ws[l].qweight, ws[l].scales)
+        elif name == "K5":
+            def run(l):
+                return G.int8_ln_matmul(x, ws[l].qweight, ws[l].scales,
+                                        ln[l], eps)
+
+            def plain(l):
+                return G.int8_ln_matmul_plain(x, ws[l].qweight, ws[l].scales,
+                                              ln[l], eps)
+        elif norm:
+            def run(l):
+                return G.int8_matmul_bf16(x, ws[l].qweight, ws[l].scales,
+                                          ln[l], eps)
+
+            def plain(l):
+                return G.int8_ln_matmul_plain(x, ws[l].qweight, ws[l].scales,
+                                              ln[l], eps, bf16_operands=True)
+        else:
+            def run(l):
+                return G.int8_matmul_bf16(x, ws[l].qweight, ws[l].scales)
+
+            def plain(l):
+                return G.int8_matmul_plain(x, ws[l].qweight, ws[l].scales,
+                                           bf16_operands=True)
+        w_bf16 = deq_bf16(ws[0])
+        check_kernel(name, label, n, run, plain,
+                     lambda l: torch.matmul(x, w_bf16), n_sets,
+                     qbytes(ws[0]) + x.numel() * 2 + n * dout * 2
+                     + (w.din * 4 if norm else 0),
+                     2 * n * w.din * dout)
+        del w_bf16
+
+    log("eagle kernels: K5 (int8, fused RMSNorm)")
+    case("K5", "wqkv 4096x6144", big["wqkv"], 1, True)
+    case("K5", "wqkv 4096x6144", big["wqkv"], 60, True)
+    case("K5", "wgu 4096x28672", big["wgu"], 60, True)
+    log("eagle kernels: K7 (bf16 tensor-core operands)")
+    for n in (129, rows):
+        case("K7", "wqkv 4096x6144 +norm", big["wqkv"], n, True)
+        case("K7", "wgu 4096x28672 +norm", big["wgu"], n, True)
+    case("K7", "wo 4096x4096", big["wo"], rows, False)
+    case("K7", "wdown 14336x4096", big["wdown"], rows, False)
+    case("K7", "lm_head 4096x128256", target.big.lm_head, rows, False)
+    log("eagle kernels: K4 (symmetric int8) at the prefill's shapes")
+    case("K4", "wo 4096x4096", big["wo"], EAGLE_BUCKET, False)
+    case("K4", "wdown 14336x4096", big["wdown"], EAGLE_BUCKET, False)
+    for n in (1, EAGLE_BUCKET):
+        case("K4", "lm_head 4096x128256", target.big.lm_head, n, False)
+
+
+def prefill_last_only(target, cfg, fwd):
+    """One bucket-long prefill of the coupled target with the head and the
+    oracle on the last position (what the engine runs) against one with
+    every position's logits: the last rows agree; both timed."""
+    from hsd_tpu_torch.engine.kvcache import init_cache
+    prompt = torch.arange(EAGLE_BUCKET, device=DEV)[None] % 900 + 10
+    pos = torch.arange(EAGLE_BUCKET, device=DEV)[None]
+    out, ms = {}, {}
+    for last in (False, True):
+        times = []
+        for _ in range(3):
+            cache = init_cache(cfg, 1, EAGLE_BUCKET, DEV)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, _, _ = fwd(target, prompt, cache, None, pos,
+                               last_only=last)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        out[last], ms[last] = logits[:, -1], statistics.median(times)
+    diff = (out[True] - out[False]).abs().max().item()
+    log(f"eagle prefill ({EAGLE_BUCKET} tokens): last position only "
+        f"{ms[True]:.2f} ms, every position {ms[False]:.2f} ms; last rows "
+        f"differ by {diff:.3e}")
+    if not diff <= TOL * out[False].abs().max().item():
+        raise AssertionError(f"last-only prefill logits differ by {diff}")
+    return dict(last_only_ms=ms[True], full_ms=ms[False], max_diff=diff)
+
+
+def eagle_serving(target, head, cfg, ecfg, trace):
+    """The EAGLE serving path at full width: every request's stream in
+    range and within budget; K4, K5 and K7 launched; a repeat run
+    identical."""
+    fwd = make_coupled_eagle_target(cfg, (-1,))
+    prefill = prefill_last_only(target, cfg, fwd)
+    rng = np.random.default_rng(0)
+    warm = rng.integers(10, 1000, (EAGLE_BUCKET,)).tolist()
+    prompts = [rng.integers(10, 1000, (int(rng.integers(32, 64)),)).tolist()
+               for _ in range(EAGLE_REQS)]
+
+    def engine(mode, steps=EAGLE_MACRO):
+        return EagleSlotEngine(
+            cfg, ecfg, EngineConfig(max_new_tokens=EAGLE_NEW, temperature=1.0),
+            n_slots=EAGLE_SLOTS, bucket=EAGLE_BUCKET, params_t=target,
+            params_e=head, mode=mode, seed=1, target_forward=fwd,
+            steps_per_dispatch=steps, admit_batch=EAGLE_SLOTS)
+
+    def serve(mode):
+        se = engine(mode)
+        se.submit(10_000, warm, max_new=4)
+        se.run_all()                                   # warm every path
+        torch.cuda.synchronize()
+        G.reset_launches()
+        for rid, p in enumerate(prompts):
+            se.submit(rid, p, max_new=EAGLE_NEW)
+        t0 = time.perf_counter()
+        done = se.run_all()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts = G.launch_counts()
+        if sorted(r.rid for r in done) != list(range(EAGLE_REQS)):
+            raise AssertionError(f"{mode}: requests lost")
+        for r in done:
+            if not 1 <= len(r.out_tokens) <= EAGLE_NEW or not all(
+                    0 <= t < cfg.vocab_size for t in r.out_tokens):
+                raise AssertionError(f"{mode}: bad stream for {r.rid}")
+        toks = sum(len(r.out_tokens) for r in done)
+        blocks = sum(r.blocks for r in done)
+        be = (sum(r.accepts for r in done) + blocks) / blocks
+        streams = {r.rid: r.out_tokens for r in done}
+        digest = hashlib.sha256(json.dumps(
+            streams, sort_keys=True).encode()).hexdigest()[:16]
+        out = dict(mode=mode, tok_s=toks / secs, be=be, tokens=toks,
+                   blocks=blocks, secs=secs, launches=counts,
+                   streams=streams)
+        log(f"eagle serving {mode}: {toks} tokens in {secs:.2f}s = "
+            f"{toks / secs:.2f} tok/s, BE {be:.4f} over {blocks} slot-blocks; "
+            f"streams sha256 {digest}; launches {counts}")
+        for k in ("K4", "K5", "K7"):
+            if counts[k] <= 0:
+                raise AssertionError(f"{mode}: {k} was not launched")
+        return out
+
+    results = {mode: serve(mode) for mode in ("hsd_ref", "hsd")}
+    again = serve("hsd_ref")
+    if again["streams"] != results["hsd_ref"]["streams"]:
+        raise AssertionError("hsd_ref streams differ between two runs")
+    log("eagle serving: a repeat hsd_ref run gives identical streams "
+        f"({again['tok_s']:.2f} tok/s)")
+    results["repeat_tok_s"] = again["tok_s"]
+    results["prefill"] = prefill
+    if trace:
+        trace_pool(engine("hsd_ref", steps=1), prompts)
+    return results
+
+
+def trace_pool(se, prompts):
+    """Device time by kernel and idle share of one pool step (8 slots, no
+    admission inside the window), under the profiler."""
+    from torch.profiler import ProfilerActivity, profile
+    for rid, p in enumerate(prompts[:EAGLE_SLOTS]):
+        se.submit(rid, p, max_new=EAGLE_NEW)
+    se.step()                             # admission + one block, untraced
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        se.step()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    rows = device_rows(prof)
+    busy = sum(r[0] for r in rows)
+    mma = sum(r[0] for r in rows if "mma_kernel" in r[2])
+    log(f"trace (one pool step, {EAGLE_SLOTS} slots, under the profiler): "
+        f"wall {wall_us / 1e3:.1f} ms, device busy {busy / 1e3:.1f} ms (K7 "
+        f"{mma / 1e3:.1f} ms), idle share {1 - busy / wall_us:.3f}, "
+        f"{sum(r[1] for r in rows)} device ops")
+    for dev_us, count, key in rows[:12]:
+        log(f"  {dev_us / 1e3:9.3f} ms  x{count:<6} {key[:90]}")
+    phase_times(se)
+
+
+def phase_times(se):
+    """Host-clock milliseconds of each phase of one pool step, run one
+    phase at a time (a synchronize before and after each), so the sum
+    exceeds the overlapped step: trie drafting, the target tree forward,
+    trie verification, the staged KV compaction, and the rest (commit,
+    sampling, the server's bookkeeping)."""
+    import hsd_tpu_torch.engine.eagle_engine as EE
+    spent = {}
+
+    def timed_phase(name, fn):
+        def run(*a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            spent[name] = spent.get(name, 0.0) + (time.perf_counter() - t0) * 1e3
+            return out
+        return run
+
+    saved = {n: getattr(EE, n) for n in ("build_trie", "verify_trie_hsd",
+                                          "compact_path_staged")}
+    pool = se._pool_block
+    try:
+        for n, f in saved.items():
+            setattr(EE, n, timed_phase(n, f))
+        se._pool_block = EE.make_eagle_pool(
+            se.cfg_t, se.ecfg, se.engine, mode="hsd_ref",
+            target_forward=timed_phase("target_forward",
+                                       make_coupled_eagle_target(
+                                           se.cfg_t, (-1,))))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        se.step()
+        torch.cuda.synchronize()
+        total = (time.perf_counter() - t0) * 1e3
+    finally:
+        for n, f in saved.items():
+            setattr(EE, n, f)
+        se._pool_block = pool
+    spent["rest"] = total - sum(spent.values())
+    log(f"phases of one pool step, serialized ({total:.1f} ms): " + ", ".join(
+        f"{k} {v:.1f} ms" for k, v in spent.items()))
+
+
+def eagle_greedy_small():
+    """2-layer float32 Llama-shaped pair, symmetric-int8 target: greedy
+    EAGLE (single request and every server request) == AR, through K5."""
+    cfg = ModelConfig.tiny(vocab_size=512, hidden_size=256,
+                           intermediate_size=512, num_heads=4,
+                           num_kv_heads=2, dtype=torch.float32,
+                           attention_bias=False, tie_word_embeddings=False,
+                           eos_token_id=10**9)
+    ecfg = EagleConfig(hidden_size=256, target_hidden_size=256, num_heads=4,
+                       num_kv_heads=2, vocab_size=512, draft_vocab_size=384,
+                       intermediate_size=512, rope_theta=cfg.rope_theta,
+                       top_k=4, depth=3, total_tokens=11,
+                       dtype=torch.float32, version=1)
+    head, target = build_coupled_eagle_pair(5, cfg, ecfg, scale=4.0, lam=1.0,
+                                            big_bits=8, device=DEV)
+    fwd = make_coupled_eagle_target(cfg, (-1,))
+    eng = EngineConfig(max_new_tokens=32, temperature=0.0)
+    ar = make_autoregressive(
+        cfg, eng, model_forward=lambda p, t, c, skip_head=False:
+        fwd(p, t, c, None, None)[:2])
+
+    def ar_stream(prompt, plen):
+        toks, length = ar(target, prompt, plen, None)
+        return toks[prompt.shape[0]:length].tolist()
+
+    before = G.launch_counts()
+    prompt = (torch.arange(16, device=DEV) % 300) + 3
+    res = make_eagle_generate(cfg, ecfg, eng, mode="greedy",
+                              target_forward=fwd)(target, head, prompt, 12,
+                                                  None)
+    a, b = res.tokens[16:res.length].tolist(), ar_stream(prompt, 12)
+    log(f"eagle greedy 2-layer f32: {len(a)} tokens in {res.blocks} blocks, "
+        f"EAGLE == AR: {a == b}")
+    if a != b or len(a) < 32:
+        raise AssertionError(f"greedy EAGLE != greedy AR:\n{a}\n{b}")
+    se = EagleSlotEngine(cfg, ecfg, eng, n_slots=2, bucket=16,
+                         params_t=target, params_e=head, mode="greedy",
+                         target_forward=fwd, steps_per_dispatch=2)
+    reqs = [list(range(3 + 7 * i, 14 + 7 * i)) for i in range(3)]
+    for rid, p in enumerate(reqs):
+        se.submit(rid, p, max_new=32)
+    for r in se.run_all():
+        padded = torch.tensor([0] * (16 - len(reqs[r.rid])) + reqs[r.rid],
+                              device=DEV)
+        if r.out_tokens != ar_stream(padded, len(reqs[r.rid])):
+            raise AssertionError(f"server request {r.rid} != AR")
+    used = {k: v - before[k] for k, v in G.launch_counts().items()}
+    log(f"eagle greedy: every server request == AR; launches {used}")
+    if used["K5"] <= 0:
+        raise AssertionError("the greedy EAGLE pair did not launch K5")
 
 
 def main():
@@ -461,7 +821,8 @@ def main():
         f"{torch.cuda.get_device_name(0)}")
 
     t0 = time.time()
-    _build.lib("gptq")
+    _build.lib("gptq")           # builds every csrc/*.cu, one nvcc each
+    _build.lib("gptq_mma")
     log(f"kernels built and loaded in {time.time() - t0:.1f}s")
 
     cfg_s = ModelConfig.qwen2_05b()
@@ -477,7 +838,24 @@ def main():
     results, counts = main_path(draft, target, cfg_s, cfg_b, args.trace)
     greedy_small()
 
+    del draft, target
+    torch.cuda.empty_cache()
+    cfg_e, ecfg = eagle_configs()
+    t0 = time.time()
+    head, etarget = build_coupled_eagle_pair(0, cfg_e, ecfg, scale=6.0,
+                                             lam=1.312, big_bits=8,
+                                             device=DEV)
+    torch.cuda.synchronize()
+    log(f"EAGLE pair built in {time.time() - t0:.1f}s; "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+    eagle_kernel_phase(etarget, cfg_e)
+    serving = eagle_serving(etarget, head, cfg_e, ecfg, args.trace)
+    del head, etarget
+    torch.cuda.empty_cache()
+    eagle_greedy_small()
+
     src = "hsd_tpu_torch/csrc/gptq.cu"
+    ecounts = serving["hsd_ref"]["launches"]
     kernels = [
         summary_entry("K1", "target wqkv 5120x7168", 11, src,
                       "hsd_tpu/ops/gptq_pallas.py:176", counts["K1"]),
@@ -487,12 +865,20 @@ def main():
                       "hsd_tpu/ops/gptq_pallas.py:117", counts["K3"]),
         summary_entry("K4", "draft wgu 896x9728", 1, src,
                       "hsd_tpu/ops/gptq_pallas.py:44", counts["K4"]),
+        summary_entry("K5", "wqkv 4096x6144", 60, src,
+                      "hsd_tpu/ops/gptq_pallas.py:83", ecounts["K5"]),
+        summary_entry("K7", "wgu 4096x28672 +norm", EAGLE_SLOTS * 60,
+                      "hsd_tpu_torch/csrc/gptq_mma.cu",
+                      "hsd_tpu/ops/gptq_pallas.py:102", ecounts["K7"]),
     ]
     log(f"main path: hsd BE {results['hsd']['be']:.4f} "
         f"{results['hsd']['tok_s']:.2f} tok/s, tokenwise BE "
         f"{results['tokenwise']['be']:.4f} "
         f"{results['tokenwise']['tok_s']:.2f} tok/s, AR "
         f"{results['ar_tok_s']:.2f} tok/s")
+    log("eagle serving: " + ", ".join(
+        f"{m} BE {serving[m]['be']:.4f} {serving[m]['tok_s']:.2f} tok/s"
+        for m in ("hsd_ref", "hsd")))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -7,6 +7,11 @@ final_norm/lm_head` a ModelParams and `k/v/length/start` a KVCache. Arrays
 cross as numpy (`np.asarray` of a JAX array); bf16 crosses as a uint16 view,
 because `torch.from_numpy` cannot read ml_dtypes' bfloat16. Layouts are kept
 exactly: split-half nibbles, scales [groups, out], zeros or None, perm.
+
+The EAGLE structures (EagleParams, CoupledEagleParams, EagleKV, Trie) of
+the JAX package hold one slot; the port's carry a leading slot axis, so
+EagleKV and Trie gain a batch of one on the way across. Integer index
+arrays become int64.
 """
 from __future__ import annotations
 
@@ -14,6 +19,8 @@ import numpy as np
 import torch
 
 from .engine.kvcache import KVCache
+from .eval.synthetic import CoupledEagleParams
+from .models.eagle import EagleKV, EagleParams, Trie
 from .models.transformer import ModelParams, QuantizedEmbedding
 from .ops.linear import QuantizedLinear
 
@@ -66,3 +73,34 @@ def cache_from_jax(cache, device="cpu") -> KVCache:
     return KVCache(k=to_torch(cache.k, device), v=to_torch(cache.v, device),
                    length=int(np.asarray(cache.length)),
                    start=to_torch(cache.start, device).long())
+
+
+def eagle_params_from_jax(params, device="cpu") -> EagleParams:
+    """A JAX `EagleParams` -> the port's (d2t as int64)."""
+    fields = {f: convert(getattr(params, f), device)
+              for f in EagleParams._fields}
+    fields["d2t"] = fields["d2t"].long()
+    return EagleParams(**fields)
+
+
+def coupled_eagle_from_jax(cp, device="cpu") -> CoupledEagleParams:
+    """A JAX `CoupledEagleParams` -> the port's (scale and lam as floats)."""
+    return CoupledEagleParams(
+        big=params_from_jax(cp.big, device), embed=convert(cp.embed, device),
+        fc_e=convert(cp.fc_e, device), lm_head=convert(cp.lm_head, device),
+        scale=float(np.asarray(cp.scale)), lam=float(np.asarray(cp.lam)))
+
+
+def eagle_kv_from_jax(kv, device="cpu") -> EagleKV:
+    """A one-slot JAX `EagleKV` ([1, S, H, D], scalar length and start) ->
+    the port's, with length and start as [1] int64."""
+    scalar = lambda a: to_torch(a, device).long().reshape(1)
+    return EagleKV(k=to_torch(kv.k, device), v=to_torch(kv.v, device),
+                   length=scalar(kv.length), start=scalar(kv.start))
+
+
+def trie_from_jax(trie, device="cpu") -> Trie:
+    """A one-slot JAX `Trie` -> the port's, with a leading batch of one."""
+    return Trie(*(to_torch(getattr(trie, f), device)[None]
+                  .to(torch.bool if f == "tree_mask" else torch.int64)
+                  for f in Trie._fields))

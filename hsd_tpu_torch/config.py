@@ -1,9 +1,10 @@
 """Typed configuration for models, verification and the decode engine.
 
 The PyTorch port's own copy of `hsd_tpu/config.py`: the same fields and
-presets, with `dtype` a `torch.dtype`. The GPTQ path knobs and the mesh
-config of the JAX package are left out: on a CUDA tensor every quantized
-matmul runs its hand-written kernel, and the port runs on one card. Fields
+presets, with `dtype` a `torch.dtype`. The GPTQ path knob (`gptq_path`) and
+the mesh config of the JAX package are left out: on a CUDA tensor every
+quantized matmul runs its hand-written kernel, and the port runs on one
+card. `gptq_mxu_bf16` stays, because it changes the numerics. Fields
 that nothing here reads yet (MLP bias, MoE, max positions, the engine's
 max_seq_len and seed) are left out too, so that setting one cannot quietly
 give a different model; they come with the slices that implement them.
@@ -37,6 +38,11 @@ class ModelConfig:
     attention_bias: bool = True  # Qwen2 uses qkv bias; Llama does not
     dtype: torch.dtype = torch.bfloat16
     eos_token_id: int = 151645
+    # bf16 operands with f32 accumulation in the quantized products at
+    # 129-1024 rows (slot-batched serving, where they are bound by
+    # operations): symmetric int8 weights there run the tensor-core kernel
+    # K7. Off by default: the decode matvec keeps exact f32 operands.
+    gptq_mxu_bf16: bool = False
 
     @property
     def head_dim_(self) -> int:
@@ -54,6 +60,17 @@ class ModelConfig:
         d = dict(hidden_size=5120, intermediate_size=13824, num_layers=48,
                  num_heads=40, num_kv_heads=8, tie_word_embeddings=False,
                  rms_norm_eps=1e-5)
+        d.update(kw)
+        return ModelConfig(**d)
+
+    @staticmethod
+    def llama3_8b(**kw) -> "ModelConfig":
+        """Llama-3.1-8B geometry (the EAGLE serving target)."""
+        d = dict(vocab_size=128256, hidden_size=4096, intermediate_size=14336,
+                 num_layers=32, num_heads=32, num_kv_heads=8,
+                 rope_theta=500000.0, rms_norm_eps=1e-5,
+                 tie_word_embeddings=False, attention_bias=False,
+                 eos_token_id=128009)
         d.update(kw)
         return ModelConfig(**d)
 

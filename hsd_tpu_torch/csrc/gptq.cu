@@ -6,6 +6,7 @@
 //   K2  _kernel_attn_mlp_int4  the layer tail, as three launches of this template
 //   K3  _kernel_int4           packed int4, no prologue
 //   K4  _kernel                int8 with per-group zero points
+//   K5  _kernel_ln             symmetric int8, RMSNorm fused in the activation read
 //
 // One template covers them all. A block owns kCols output columns for up to
 // NR activation rows and walks the whole input dimension in tiles of kTile
@@ -352,7 +353,7 @@ extern "C" int hsd_gptq_matvec(const void* x, int x_bf16, long long ldx, int n,
   const int gs = din / groups;
   if (gs % kTile) return kErrShape;
   if (packed && din % (2 * kTile)) return kErrShape;
-  if (!packed && prologue != PRO_NONE) return kErrShape;
+  if (!packed && prologue == PRO_SILU) return kErrShape;
   if (prologue == PRO_RMS && (!ln || !inv)) return kErrShape;
   const int ntiles = (packed ? din / 2 : din) / kTile;
   if (splits < 1 || splits > ntiles || (splits > 1 && !ws)) return kErrShape;
@@ -379,6 +380,8 @@ extern "C" int hsd_gptq_matvec(const void* x, int x_bf16, long long ldx, int n,
     if (prologue == PRO_RMS) launch_rows<PRO_RMS, true>(nr, grid, s, a);
     else if (prologue == PRO_SILU) launch_rows<PRO_SILU, true>(nr, grid, s, a);
     else launch_rows<PRO_NONE, true>(nr, grid, s, a);
+  } else if (prologue == PRO_RMS) {
+    launch_rows<PRO_RMS, false>(nr, grid, s, a);
   } else {
     launch_rows<PRO_NONE, false>(nr, grid, s, a);
   }

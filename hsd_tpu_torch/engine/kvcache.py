@@ -7,7 +7,11 @@
     here the buffers are mutated and the returned cache shares them);
   * rollback sets `length` lower: stale slots are dead because attention
     masks by index and later appends overwrite them;
-  * multidraft row-select copies one batch row over the others, in place.
+  * multidraft row-select copies one batch row over the others, in place;
+  * the slot-batched EAGLE pool keeps per-row frontiers itself (a [B]
+    device tensor): its tree forward writes at a fixed staging tail and
+    `compact_path_staged` moves each row's accepted path to its frontier,
+    in place on the stacked buffers.
 """
 from __future__ import annotations
 
@@ -57,6 +61,58 @@ def append_layer_stacked(k_all: torch.Tensor, v_all: torch.Tensor, idx: int,
     k_all[idx, :, length:length + T] = k_new.to(k_all.dtype)
     v_all[idx, :, length:length + T] = v_new.to(v_all.dtype)
     return k_all, v_all
+
+
+def compact_path(cache: KVCache, rel_indices: torch.Tensor, n_valid: int,
+                 base: int) -> KVCache:
+    """Tree-path KV compaction for one frontier `base` (a host int): gather
+    slots base + rel_indices[j] (fixed size, -1 padded) into contiguous
+    [base, base + T) and set length = base + n_valid. Slots past n_valid
+    receive junk from clipped gathers, dead by the length contract. The
+    write start is clipped so the T slots fit, as dynamic_update_slice
+    clips it."""
+    T = rel_indices.shape[0]
+    S = cache.max_len
+    src = base + torch.clamp(rel_indices, 0, S - 1)
+    src = torch.clamp(src, max=S - 1)
+    kg = cache.k.index_select(2, src)
+    vg = cache.v.index_select(2, src)
+    b0 = min(max(base, 0), S - T)
+    cache.k[:, :, b0:b0 + T] = kg
+    cache.v[:, :, b0:b0 + T] = vg
+    return cache.replace(length=int(base + n_valid))
+
+
+def _gather_seq(buf: torch.Tensor, src: torch.Tensor) -> torch.Tensor:
+    """buf [L, B, S, H, D], src [B, T] -> buf[:, b, src[b, t]] [L, B, T, H, D]."""
+    L, B, S, H, D = buf.shape
+    T = src.shape[1]
+    return torch.gather(buf, 2, src[None, :, :, None, None].expand(
+        L, B, T, H, D))
+
+
+def compact_path_staged(cache: KVCache, rel_indices: torch.Tensor,
+                        n_valid: torch.Tensor, dst_base: torch.Tensor,
+                        src_base: int) -> KVCache:
+    """Staged tree-path compaction: row b copies staging entries src_base +
+    rel_indices[b] (the fixed region the batched tree forward wrote,
+    transformer.forward staging_at) to its own frontier [dst_base[b],
+    dst_base[b] + T), in place. A destination outside [0, src_base) is
+    dropped, as JAX's scatter drops it: such an entry is written back onto
+    its own source slot with the value it read there, which changes
+    nothing and needs no host sync (sources lie in the staging region,
+    destinations below it, so the two never overlap)."""
+    B, T = rel_indices.shape
+    S = cache.max_len
+    dev = cache.k.device
+    src = src_base + torch.clamp(rel_indices, 0, S - 1 - src_base)
+    kg, vg = _gather_seq(cache.k, src), _gather_seq(cache.v, src)
+    b_ids = torch.arange(B, device=dev)[:, None].expand(B, T)
+    dst = dst_base[:, None] + torch.arange(T, device=dev)[None, :]
+    dst = torch.where((dst >= 0) & (dst < src_base), dst, src)
+    cache.k[:, b_ids, dst] = kg
+    cache.v[:, b_ids, dst] = vg
+    return cache
 
 
 def rollback(cache: KVCache, new_length: int) -> KVCache:

@@ -9,6 +9,12 @@
 token pays the full big forward while agreement with the draft is set by
 quantization error (and `lam`). Full-width weights are built natively on
 the device from a seeded torch.Generator.
+
+The EAGLE twin (`build_coupled_eagle_pair`): a v1 head that computes an
+exact bigram oracle u(tok) at the full head cost, and a symmetric-int8 big
+trunk whose target logits are scale * standardize(u) + lam *
+standardize(big), so trie acceptance is set by (scale, lam) while every
+position pays the full big forward.
 """
 from __future__ import annotations
 
@@ -22,6 +28,7 @@ from ..models import transformer
 from ..models.transformer import (ModelParams, QuantizedEmbedding,
                                   fuse_params, resolve_device)
 from ..ops.linear import QuantizedLinear, quantize
+from ..models.eagle import EagleConfig, EagleParams, init_eagle_params_v1
 
 
 class CoupledCache(NamedTuple):
@@ -163,3 +170,103 @@ def build_coupled_pair(seed: int, cfg_small: ModelConfig,
     draft = quantize_draft(cfg_small, small, bits=8)
     big = init_quantized_params(cfg_big, seed=seed, bits=big_bits, device=dev)
     return draft, CoupledParams(big=big, small=small, lam=float(lam))
+
+
+class CoupledEagleParams(NamedTuple):
+    """The coupled EAGLE target: the big trunk plus the bigram oracle's
+    pieces, which share the head's arrays."""
+    big: ModelParams
+    embed: torch.Tensor     # [V, D]  the head's embed
+    fc_e: torch.Tensor      # [D, D]  the embedding half of the head's fc
+    lm_head: torch.Tensor   # [D, V]  the head's lm_head, extended to V
+    scale: float            # sharpening of the oracle signal
+    lam: float              # weight of the standardized big logits
+
+
+def build_bigram_eagle_head(ecfg: EagleConfig, seed: int = 0,
+                            device=None) -> EagleParams:
+    """A v1 head that computes an EXACT bigram oracle while paying the full
+    head compute: with fc = [A; 0], fc_b = 0, wo = 0 and wdown = 0 the head
+    collapses to out = A @ emb[token] at every absorb position and beam
+    level, so its logits are u(tok) = (emb[tok] @ A) @ lm_head. Attention
+    and MLP still run with random nonzero weights, at the real cost."""
+    dev = resolve_device(device)
+    p = init_eagle_params_v1(ecfg, seed=seed, device=dev)
+    D = ecfg.hidden_size
+    gen = torch.Generator(device=dev).manual_seed(seed + 101)
+    A = (torch.randn((D, D), generator=gen, device=dev) * D ** -0.5
+         ).to(ecfg.dtype)
+    return p._replace(fc=torch.cat([A, torch.zeros_like(A)], 0),
+                      fc_b=torch.zeros((D,), dtype=ecfg.dtype, device=dev),
+                      wo=torch.zeros_like(p.wo),
+                      wdown=torch.zeros_like(p.wdown))
+
+
+def oracle_logits(cp: CoupledEagleParams, tokens: torch.Tensor
+                  ) -> torch.Tensor:
+    """u(tok) = (emb[tok] @ fc_e) @ lm_head, the same two products the head
+    runs, in the same dtype."""
+    return (cp.embed[tokens] @ cp.fc_e @ cp.lm_head).float()
+
+
+def _standardize(x: torch.Tensor) -> torch.Tensor:
+    mu = torch.mean(x, dim=-1, keepdim=True)
+    sd = torch.std(x, dim=-1, keepdim=True, unbiased=False) + 1e-6
+    return (x - mu) / sd
+
+
+def make_coupled_eagle_target(cfg_big: ModelConfig, feature_layers):
+    """Coupled target forward for the EAGLE engine (make_eagle_block's
+    target_forward protocol): logits = scale * standardize(u(token)) + lam
+    * standardize(big), both over the vocabulary of each position. With
+    last_only (a prefill), the big head and the oracle run on the last
+    position only."""
+    def forward(cp: CoupledEagleParams, tokens, cache, attn_bias, positions,
+                lengths=None, staging_at=None, last_only=False):
+        big_logits, cache, feats = transformer.forward(
+            cfg_big, cp.big, tokens, cache, attn_bias=attn_bias,
+            positions=positions, feature_layers=feature_layers,
+            lengths=lengths, staging_at=staging_at, last_only=last_only)
+        u = oracle_logits(cp, tokens[:, -1:] if last_only else tokens)
+        return (cp.scale * _standardize(u) + cp.lam * _standardize(big_logits),
+                cache, feats)
+
+    return forward
+
+
+def build_coupled_eagle_pair(seed: int, cfg_big: ModelConfig,
+                             ecfg: EagleConfig, scale: float = 4.0,
+                             lam: float = 0.0, big_bits: int = 8,
+                             oov_scale: float = 0.5, device=None):
+    """(head_params, CoupledEagleParams) at big geometry: a quantized big
+    trunk (symmetric int8 with big_bits=8) and the bigram-oracle v1 head,
+    sharing embed, fc and lm_head with the target's oracle.
+
+    With a reduced draft vocab (draft_vocab_size < vocab_size) the head
+    ranks the first Vd target ids and the oracle extends the same matrix
+    with down-weighted columns (`oov_scale`) for the others. lm_head is
+    then scaled so the head's logit std per row is about `scale`, the
+    sharpness of the target term."""
+    dev = resolve_device(device)
+    head = build_bigram_eagle_head(ecfg, seed=seed + 1, device=dev)
+    big = init_quantized_params(cfg_big, seed=seed, bits=big_bits, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(seed + 7)
+    D = ecfg.hidden_size
+    Vd, V = ecfg.draft_vocab_size, ecfg.vocab_size
+    if Vd < V:
+        rest = (torch.randn((D, V - Vd), generator=gen, device=dev)
+                * D ** -0.5 * oov_scale).to(ecfg.dtype)
+        lm_full = torch.cat([head.lm_head, rest], 1)
+        del rest
+    else:
+        lm_full = head.lm_head.clone()
+    probe = torch.randint(0, V, (128,), generator=gen, device=dev)
+    u_probe = head.embed[probe] @ head.fc[:D] @ lm_full
+    sd = torch.mean(torch.std(u_probe.float(), dim=-1, unbiased=False))
+    factor = (scale / torch.clamp(sd, min=1e-6)).to(ecfg.dtype)
+    head = head._replace(lm_head=head.lm_head * factor)
+    lm_full.mul_(factor)
+    target = CoupledEagleParams(big=big, embed=head.embed,
+                                fc_e=head.fc[:D], lm_head=lm_full,
+                                scale=float(scale), lam=float(lam))
+    return head, target

@@ -1,5 +1,5 @@
-"""Model stack: the unified Qwen2/Llama decoder."""
-from . import transformer
+"""Model stack: the unified Qwen2/Llama decoder and the EAGLE draft head."""
+from . import eagle, transformer
 from .transformer import ModelParams, forward, init_params
 
-__all__ = ["transformer", "ModelParams", "forward", "init_params"]
+__all__ = ["eagle", "transformer", "ModelParams", "forward", "init_params"]

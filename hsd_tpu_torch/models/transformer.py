@@ -5,18 +5,20 @@ Parameters are a plain `ModelParams` with every decoder layer STACKED on a
 leading [L] axis; `forward` loops over layers in Python and selects each
 layer's weights as views. GQA attention with NeoX rotate-half RoPE (optional
 llama3 scaling), optional qkv bias, SwiGLU MLP, RMSNorm in f32, an external
-static KV cache with index-masked attention, an optional [T, T] additive
-attention bias, and per-matmul quantized weights (ops/linear.py).
-Attention logits and softmax are f32; attention itself is plain PyTorch, as
-the JAX main path computes it with an einsum.
+static KV cache with index-masked attention, an optional [T, T] or per-row
+[B, T, T] additive attention bias, and per-matmul quantized weights
+(ops/linear.py). The EAGLE engines' hooks are here too: explicit RoPE
+`positions`, a feature stream (`feature_layers`), per-row cache frontiers
+(`lengths`) and the staged tree block (`staging_at`). Attention logits and
+softmax are f32; attention itself is plain PyTorch, as the JAX main path
+computes it with an einsum.
 
-MoE, tensor/ring parallelism, per-row `lengths` and staging come with later
-slices.
+MoE and tensor/ring parallelism come with later slices.
 """
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, NamedTuple, Optional
+from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -125,9 +127,10 @@ def fuse_params(cfg: ModelConfig, params: ModelParams) -> ModelParams:
 
 
 def rope_tables(positions: torch.Tensor, d: int, theta: float, scaling=None):
-    """(cos, sin) tables [B, T, 1, d/2] for a step's positions, built once
-    per forward; `scaling` is the llama3 (factor, low_freq_factor,
-    high_freq_factor, original_max_position) tuple."""
+    """Rotation tables [B, T, 1, d] for a step's positions, built once per
+    forward: (cos, cos) and (-sin, sin) side by side, so that rope_apply is
+    x * cos2 + rotate_half(x) * sin2. `scaling` is the llama3 (factor,
+    low_freq_factor, high_freq_factor, original_max_position) tuple."""
     dev = positions.device
     freqs = 1.0 / (theta ** (torch.arange(0, d, 2, dtype=torch.float32,
                                           device=dev) / d))
@@ -138,36 +141,65 @@ def rope_tables(positions: torch.Tensor, d: int, theta: float, scaling=None):
         smooth = torch.clamp(ramp, 0.0, 1.0)
         freqs = (1.0 - smooth) * freqs / factor + smooth * freqs
     angles = positions[..., None].float() * freqs
-    return torch.cos(angles)[:, :, None, :], torch.sin(angles)[:, :, None, :]
+    cos, sin = torch.cos(angles)[:, :, None, :], torch.sin(angles)[:, :, None, :]
+    return torch.cat([cos, cos], -1), torch.cat([-sin, sin], -1)
 
 
 def rope_apply(x: torch.Tensor, tables) -> torch.Tensor:
-    """Rotate-half with precomputed tables. x: [B, T, H, d]."""
-    cos, sin = tables
-    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
-    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
-    return out.to(x.dtype)
+    """NeoX rotate-half with precomputed tables. x: [B, T, H, d]. The same
+    products as cat(x1 cos - x2 sin, x2 cos + x1 sin), exactly."""
+    cos2, sin2 = tables
+    xf = x.float()
+    x1, x2 = torch.chunk(xf, 2, dim=-1)
+    return (xf * cos2 + torch.cat([x2, x1], -1) * sin2).to(x.dtype)
 
 
-def attention(q, k, v, mask, kv_length: int,
-              attn_bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+def attention_mask(q_index, start, S: int, T: int, kv_length,
+                   attn_bias=None, staging_at=None):
+    """The layer-invariant part of attention, built once per forward:
+    (mask [B,1,1,T,S] bool, bias [B,1,1,T,S] f32 or None).
+
+    Default: causal by cache index and past each row's left pad. attn_bias,
+    a [T, T] or [B, T, T] additive bias, lands on the keys written this
+    call, cache slots [kv_length, kv_length + T) (kv_length an int).
+    staging_at (int): the T new keys sit at the fixed slots [staging_at,
+    staging_at + T) of every row; a query sees its row's committed prefix
+    [start, kv_length) (kv_length a per-row [B] tensor) plus that block,
+    and attn_bias [B, T, T] (-inf off the ancestors) keeps the block
+    causal."""
+    B = q_index.shape[0]
+    dev = q_index.device
+    kp = torch.arange(S, device=dev)
+    if staging_at is not None and attn_bias is None:
+        raise ValueError("staging_at needs the per-row tree bias [B, T, T]")
+    if staging_at is None:
+        mask = ((kp <= q_index[:, :, None])
+                & (kp >= start[:, None, None]))                  # [B, T, S]
+        at = kv_length
+    else:
+        prefix = (kp < kv_length[:, None]) & (kp >= start[:, None])  # [B, S]
+        in_stage = (kp >= staging_at) & (kp < staging_at + T)
+        mask = prefix[:, None, :] | in_stage
+        at = staging_at
+    if attn_bias is None:
+        return mask[:, None, None], None
+    bias = torch.zeros((B, T, S), dtype=torch.float32, device=dev)
+    bias[:, :, at:at + T] = attn_bias.float()
+    return mask[:, None, None], bias[:, None, None]
+
+
+def attention(q, k, v, mask, bias=None) -> torch.Tensor:
     """q: [B,T,H,d]; k, v: [B,S,Hkv,d] (the full cache buffers of a layer);
-    mask: [B,1,1,T,S] validity (causal by cache index and past the left
-    pad). attn_bias, if given, is a [T, T] or [B, T, T] additive bias on the
-    keys written this call, cache slots [kv_length, kv_length + T).
-    GQA runs as a grouped product over [kv_head, rep]: the repeated K/V is
-    never materialized."""
+    mask [B,1,1,T,S] and bias from `attention_mask`. GQA runs as a grouped
+    product over [kv_head, rep]: the repeated K/V is never materialized."""
     B, T, H, d = q.shape
     S, Hkv = k.shape[1], k.shape[2]
     rep = H // Hkv
     qg = q.reshape(B, T, Hkv, rep, d)
     scores = torch.einsum("btkrd,bskd->bkrts", qg.float(), k.float())
     scores = scores * (d ** -0.5)
-    if attn_bias is not None:
-        ab = attn_bias if attn_bias.dim() == 3 else attn_bias[None]
-        bias = torch.zeros((B, T, S), dtype=torch.float32, device=q.device)
-        bias[:, :, kv_length:kv_length + T] = ab.float().expand(B, T, T)
-        scores = scores + bias[:, None, None]
+    if bias is not None:
+        scores = scores + bias
     # large-negative (not -inf) so fully-masked pad rows stay finite
     scores = torch.where(mask, scores, -1e30)
     probs = torch.softmax(scores, dim=-1).to(q.dtype)
@@ -185,25 +217,52 @@ def _embed(cfg: ModelConfig, embed, tokens: torch.Tensor) -> torch.Tensor:
 
 def forward(cfg: ModelConfig, params: ModelParams, tokens: torch.Tensor,
             cache: KVCache, attn_bias: Optional[torch.Tensor] = None,
-            skip_head: bool = False):
+            skip_head: bool = False,
+            positions: Optional[torch.Tensor] = None,
+            feature_layers: Optional[Tuple[int, ...]] = None,
+            lengths: Optional[torch.Tensor] = None,
+            staging_at: Optional[int] = None, last_only: bool = False):
     """Run the decoder over `tokens` [B, T], appending to `cache` in place.
 
     Returns (logits [B, T, V] f32, cache with length += T). RoPE positions
-    are the cache index less the row's left pad. With skip_head the final
-    norm and the head are not applied and the first item is the last layer's
-    hidden state [B, T, D] (a prefill needs only the cache).
+    are the cache index less the row's left pad unless `positions` [B, T]
+    is given. With skip_head the final norm and the head are not applied
+    and the first item is the last layer's hidden state [B, T, D] (a
+    prefill needs only the cache).
+
+    feature_layers: a tuple of layer indices; the call then also returns
+    the concatenated INPUTS of those layers [B, T, len*D] as a third item,
+    or for (-1,) the final pre-norm hidden state (the EAGLE-1/2 stream).
+    lengths, with staging_at and a per-row attn_bias [B, T, T]
+    (slot-batched serving): lengths [B] (a device tensor) holds the per-row
+    cache frontiers in place of `cache.length`, so row b's queries sit at
+    lengths[b] + t; the new keys go to the fixed slots [staging_at,
+    staging_at + T) of every row, one uniform write, and the caller
+    compacts the accepted ones into each row's frontier afterwards
+    (kvcache.compact_path_staged). The JAX package's unstaged ragged append
+    (lengths without staging_at) has no caller in the port and is not
+    ported.
+    last_only: apply the final norm and the head to the last position only
+    (logits [B, 1, V]; a prefill samples from that row alone).
+    Every quantized product passes cfg.gptq_mxu_bf16, the head's included.
     """
     B, T = tokens.shape
     H, Hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim_
     dev = tokens.device
     length = cache.length
-    q_index = (length + torch.arange(T, device=dev))[None, :].expand(B, T)
-    positions = torch.clamp(q_index - cache.start[:, None], min=0)
+    if (lengths is None) != (staging_at is None):
+        raise ValueError("per-row lengths and staging_at go together")
+    ar = torch.arange(T, device=dev)
+    if lengths is not None:
+        q_index = lengths[:, None] + ar[None, :]
+    else:
+        q_index = (length + ar)[None, :].expand(B, T)
+    if positions is None:
+        positions = torch.clamp(q_index - cache.start[:, None], min=0)
     tables = rope_tables(positions, hd, cfg.rope_theta, cfg.rope_scaling)
-    S = cache.max_len
-    key_pos = torch.arange(S, device=dev)[None, None, None, None, :]
-    mask = ((key_pos <= q_index[:, None, None, :, None])
-            & (key_pos >= cache.start[:, None, None, None, None]))
+    mask, bias = attention_mask(
+        q_index, cache.start, cache.max_len, T,
+        lengths if lengths is not None else length, attn_bias, staging_at)
 
     x = _embed(cfg, params.embed, tokens)
     names = params.layers
@@ -211,6 +270,9 @@ def forward(cfg: ModelConfig, params: ModelParams, tokens: torch.Tensor,
     n_layers = (first.qweight if isinstance(first, QuantizedLinear)
                 else first).shape[0]
     eps = cfg.rms_norm_eps
+    bf16 = cfg.gptq_mxu_bf16
+    collect = feature_layers is not None and tuple(feature_layers) != (-1,)
+    layer_inputs = []
 
     def get(name, l):
         w = names.get(name)
@@ -221,8 +283,11 @@ def forward(cfg: ModelConfig, params: ModelParams, tokens: torch.Tensor,
     k_all, v_all = cache.k, cache.v
     for l in range(n_layers):
         def lin(name, h, bias=None, norm=None):
-            return apply_linear(names[name], h, bias, layer=l, norm=norm)
+            return apply_linear(names[name], h, bias, layer=l, norm=norm,
+                                mxu_bf16=bf16)
 
+        if collect:
+            layer_inputs.append(x)
         if "wqkv" in names:
             qkv = lin("wqkv", x, get("bqkv", l), norm=(names["ln1"][l], eps))
             q = qkv[..., :H * hd]
@@ -236,8 +301,10 @@ def forward(cfg: ModelConfig, params: ModelParams, tokens: torch.Tensor,
         q = rope_apply(q.reshape(B, T, H, hd), tables)
         k = rope_apply(k.reshape(B, T, Hkv, hd), tables)
         v = v.reshape(B, T, Hkv, hd)
-        append_layer_stacked(k_all, v_all, l, length, k, v)
-        att = attention(q, k_all[l], v_all[l], mask, length, attn_bias)
+        append_layer_stacked(k_all, v_all, l,
+                             length if staging_at is None else staging_at,
+                             k, v)
+        att = attention(q, k_all[l], v_all[l], mask, bias)
         att2 = att.reshape(B, T, H * hd)
         if "wgu" in names and attn_mlp_fusable(
                 att2, names["wo"], names["wgu"], names["wdown"]):
@@ -248,20 +315,30 @@ def forward(cfg: ModelConfig, params: ModelParams, tokens: torch.Tensor,
         x = x + lin("wo", att2)
         if "wgu" in names:
             x = x + apply_mlp(names["wgu"], names["wdown"], x,
-                              names["ln2"][l], eps, layer=l)
+                              names["ln2"][l], eps, layer=l, mxu_bf16=bf16)
         else:
             h = rms_norm(x, names["ln2"][l], eps)
             ff = F.silu(lin("wgate", h)) * lin("wup", h)
             x = x + lin("wdown", ff)
 
+    new_cache = cache.replace(length=length + T)
+    feats = None
+    if feature_layers is not None:
+        feats = (torch.cat([layer_inputs[i] for i in feature_layers], dim=-1)
+                 if collect else x)
     if skip_head:
-        return x, cache.replace(length=length + T)
-    x = rms_norm(x, params.final_norm, eps)
-    if params.lm_head is None:
-        if isinstance(params.embed, QuantizedEmbedding):
-            raise ValueError("a tied head needs a dense embedding")
-        head = params.embed.t()
+        out = x
     else:
-        head = params.lm_head
-    logits = apply_linear(head, x).float()
-    return logits, cache.replace(length=length + T)
+        if last_only:
+            x = x[:, -1:]
+        x = rms_norm(x, params.final_norm, eps)
+        if params.lm_head is None:
+            if isinstance(params.embed, QuantizedEmbedding):
+                raise ValueError("a tied head needs a dense embedding")
+            head = params.embed.t()
+        else:
+            head = params.lm_head
+        out = apply_linear(head, x, mxu_bf16=bf16).float()
+    if feature_layers is not None:
+        return out, new_cache, feats
+    return out, new_cache

@@ -1,8 +1,8 @@
 """GPTQ dequantize-and-matmul kernels for the H100: the port's counterpart of
 `hsd_tpu/ops/gptq_pallas.py`.
 
-Four wrappers, one for each Pallas kernel that the speculative-decoding main
-path reaches. Each has:
+One wrapper for each Pallas kernel that the port's paths reach (K1-K5, K7).
+Each has:
   * a plain PyTorch version beside it (`*_plain`), which the wrapper runs
     only for tensors on the CPU; on a CUDA tensor the wrapper launches the
     kernel or raises, never the plain version;
@@ -10,12 +10,13 @@ path reaches. Each has:
     launches its kernel and nowhere else (`reset_launches()` zeroes them);
   * a note naming the TPU kernel it replaces and what bounds it on the card.
 
-All four launch one template in `csrc/gptq.cu` (see its header for the
+K1-K5 launch one template in `csrc/gptq.cu` (see its header for the
 design): a block owns 128 output columns for up to 16 activation rows and a
 share of the weight's rows, streams them once in 128-row tiles, dequantizes
 in registers and accumulates in f32; a second pass sums the shares in order.
-Nothing in that order depends on the row count, so a row's bits do not
-either.
+K7 is the tensor-core kernel of `csrc/gptq_mma.cu` for the bf16-operand mode
+at 129-1024 rows. In both, nothing in an output's summation order depends on
+the row count, so a row's bits do not either.
 
 Layouts are those of `ops/linear.QuantizedLinear`: packed int4 is uint8
 [din/2, dout] split-half with nibbles stored as code+8; int8 is [din, dout];
@@ -80,8 +81,31 @@ def int4_matmul_plain(x, qweight, scales, zeros=None):
     return (x.float() @ dequantize_int4(qweight, scales, zeros)).to(x.dtype)
 
 
-def int8_matmul_plain(x, qweight, scales, zeros=None):
-    return (x.float() @ dequantize_int8(qweight, scales, zeros)).to(x.dtype)
+def _bf16_round(t: torch.Tensor) -> torch.Tensor:
+    return t.to(torch.bfloat16).float()
+
+
+def int8_matmul_plain(x, qweight, scales, zeros=None, bf16_operands=False):
+    """x @ deq(W) in f32. bf16_operands: K7's arithmetic, both operands
+    rounded to bf16 (the weight after code * scale), f32 accumulation;
+    symmetric weights only, as K7."""
+    w = dequantize_int8(qweight, scales, zeros)
+    xf = x.float()
+    if bf16_operands:
+        if zeros is not None:
+            raise ValueError("bf16 operands take symmetric int8 weights only")
+        w, xf = _bf16_round(w), _bf16_round(xf)
+    return (xf @ w).to(x.dtype)
+
+
+def int8_ln_matmul_plain(x, qweight, scales, ln, eps, bf16_operands=False):
+    """rmsnorm(x, ln) @ deq(W): the normed x stays f32 (rounded to bf16 with
+    the weight under bf16_operands); symmetric int8."""
+    xf = _rms_f32(x, ln, eps)
+    w = dequantize_int8(qweight, scales)
+    if bf16_operands:
+        w, xf = _bf16_round(w), _bf16_round(xf)
+    return (xf @ w).to(x.dtype)
 
 
 def attn_mlp_int4_plain(att, resid, wo, so, wgu, sg, wdown, sd, ln, eps):
@@ -292,8 +316,84 @@ def attn_mlp_int4(att: torch.Tensor, resid: torch.Tensor,
     return out
 
 
+# --------------------------------------------------------------------------
+# K5 — replaces gptq_pallas.gptq_matmul(..., ln=) int8: _kernel_ln
+# (gptq_pallas.py:83). y = rmsnorm(x, ln) @ (code * scale), symmetric.
+# Bound: the weight stream (Llama-3.1-8B wqkv 4096 x 6144: 25.2 MB + 0.4 MB
+# of scales, ~7.6 us at 3.35 TB/s; wgu 4096 x 28672 ~35 us). As K1: a
+# one-block-per-row pass writes each row's inverse RMS and the matvec
+# applies x * inv * ln while staging activations, so the normed x stays f32
+# and never reaches device memory.
+
+def int8_ln_matmul(x: torch.Tensor, qweight: torch.Tensor,
+                   scales: torch.Tensor, ln: torch.Tensor,
+                   eps: float) -> torch.Tensor:
+    """y[n, dout] = rmsnorm(x[n, din], ln) @ deq(qweight): int8 codes,
+    symmetric (no zeros)."""
+    if not x.is_cuda:
+        return int8_ln_matmul_plain(x, qweight, scales, ln, eps)
+    n, din = x.shape
+    dout = qweight.shape[-1]
+    _check(x, "x", _ACT)
+    _check(ln, "ln", (torch.float32,), (din,))
+    _weight(qweight, scales, None, False, din, dout)
+    out = torch.empty((n, dout), dtype=x.dtype, device=x.device)
+    _launch(x, din, n, din, qweight, False, scales, None, ln, eps, PRO_RMS,
+            None, out)
+    int8_ln_matmul.launches += 1
+    return out
+
+
+# --------------------------------------------------------------------------
+# K7 — replaces the mxu_bf16=True mode of gptq_pallas._kernel and
+# _kernel_ln (gptq_pallas.py:72-76, 102-110) for symmetric int8 weights.
+# y = bf16(prologue(x)) @ bf16(code * scale), f32 accumulation.
+# Bound: operations at the pool forward's 480 rows (Llama-3.1-8B wgu
+# 4096 x 28672: 113 GFLOP, ~0.11 ms at 989 TFLOP/s, against 118 MB of weight,
+# ~0.035 ms). mma.sync m16n8k16 bf16 tiles of 128 x 128 outputs over k-slices
+# of 64 staged in shared memory (csrc/gptq_mma.cu); with ln, the same inverse
+# RMS pass as K5 first.
+BF16_MIN_ROWS, BF16_MAX_ROWS = 129, 1024   # the JAX gate (linear.py:270-275)
+
+
+def int8_matmul_bf16(x: torch.Tensor, qweight: torch.Tensor,
+                     scales: torch.Tensor, ln: Optional[torch.Tensor] = None,
+                     eps: float = 0.0) -> torch.Tensor:
+    """y[n, dout] = bf16(x or rmsnorm(x, ln)) @ bf16(deq(qweight)) with f32
+    accumulation: symmetric int8 codes, bf16 tensor-core operands. The
+    kernel takes bf16 activations only (the mode's one configuration is a
+    bf16 model); the plain version also takes f32."""
+    if not x.is_cuda:
+        if ln is None:
+            return int8_matmul_plain(x, qweight, scales, bf16_operands=True)
+        return int8_ln_matmul_plain(x, qweight, scales, ln, eps,
+                                    bf16_operands=True)
+    n, din = x.shape
+    dout = qweight.shape[-1]
+    _check(x, "x", (torch.bfloat16,))
+    if x.data_ptr() % 16:
+        raise ValueError("x: must start 16-byte aligned")
+    if ln is not None:
+        _check(ln, "ln", (torch.float32,), (din,))
+    _weight(qweight, scales, None, False, din, dout)
+    out = torch.empty((n, dout), dtype=x.dtype, device=x.device)
+    inv = (torch.empty((n,), dtype=torch.float32, device=x.device)
+           if ln is not None else None)
+    lib = _build.lib("gptq_mma")
+    err = lib.hsd_gptq_mma(
+        _ptr(x), n, din, _ptr(qweight), dout, _ptr(scales), _bf16(scales),
+        scales.shape[0], _ptr(ln), float(eps), _ptr(inv), _ptr(out),
+        torch.cuda.current_stream(x.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"GPTQ tensor-core kernel (n={n}, din={din}, "
+                           f"dout={dout}, ln={ln is not None}): "
+                           f"{lib.hsd_mma_error_string(err).decode()}")
+    int8_matmul_bf16.launches += 1
+    return out
+
+
 WRAPPERS = {"K1": int4_ln_matmul, "K2": attn_mlp_int4, "K3": int4_matmul,
-            "K4": int8_matmul}
+            "K4": int8_matmul, "K5": int8_ln_matmul, "K7": int8_matmul_bf16}
 for _w in WRAPPERS.values():
     _w.launches = 0
 

@@ -122,14 +122,25 @@ def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
 
 
 def apply_linear(w, x: torch.Tensor, b: Optional[torch.Tensor] = None,
-                 layer: Optional[int] = None, norm=None) -> torch.Tensor:
+                 layer: Optional[int] = None, norm=None,
+                 mxu_bf16: bool = False) -> torch.Tensor:
     """y = x @ w (+ b) for dense tensors or QuantizedLinear weights.
 
     layer: select this layer of a LAYER-STACKED weight ([L, in, out]).
     norm: optional (norm_weight [in], eps): y = rmsnorm(x) @ w. For a
-    packed-int4 SYMMETRIC weight the norm is fused into K1's activation read
-    and stays f32; every other weight norms first and rounds to the
-    activation dtype, as the JAX package does (`linear.py:277-279`).
+    SYMMETRIC weight the norm is fused into the kernel's activation read
+    and stays f32 (K1 packed int4, K5 int8); every other weight norms first
+    and rounds to the activation dtype, as the JAX package does
+    (`linear.py:277-279`).
+    mxu_bf16: bf16 operands with f32 accumulation (`ModelConfig.
+    gptq_mxu_bf16`), taken as the JAX gate does (`linear.py:270-276`): only
+    at 129-1024 rows, and here for symmetric int8 weights (K7). The JAX gate
+    also asks `batched_rows_ok`, which checks that a 128-wide out-block of
+    the Pallas kernel fits the TPU's VMEM budget beside the wide activation
+    tile; it is true at every int8 shape of this path and says nothing
+    about the card, so the port drops it. Packed-int4 and asymmetric
+    weights keep their f32 kernels. K7 takes bf16 activations only: an
+    f32 model with the flag raises on the card.
     """
     ln, eps = norm if norm is not None else (None, 0.0)
     if isinstance(w, QuantizedLinear):
@@ -143,8 +154,15 @@ def apply_linear(w, x: torch.Tensor, b: Optional[torch.Tensor] = None,
             w = w._replace(perm=None)
         lead = x.shape[:-1]
         x2 = x.reshape(-1, x.shape[-1]).contiguous()
-        if ln is not None and w.packed_int4 and w.zeros is None:
-            y = gptq_cuda.int4_ln_matmul(x2, w.qweight, w.scales, ln, eps)
+        sym = w.zeros is None
+        bf16_rows = (gptq_cuda.BF16_MIN_ROWS <= x2.shape[0]
+                     <= gptq_cuda.BF16_MAX_ROWS)
+        if mxu_bf16 and bf16_rows and sym and not w.packed_int4:
+            y = gptq_cuda.int8_matmul_bf16(x2, w.qweight, w.scales, ln, eps)
+        elif ln is not None and sym:
+            fused = (gptq_cuda.int4_ln_matmul if w.packed_int4
+                     else gptq_cuda.int8_ln_matmul)
+            y = fused(x2, w.qweight, w.scales, ln, eps)
         else:
             if ln is not None:
                 x2 = rms_norm(x2, ln, eps)
@@ -165,14 +183,16 @@ def apply_linear(w, x: torch.Tensor, b: Optional[torch.Tensor] = None,
 
 
 def apply_mlp(wgu, wdown, x: torch.Tensor, ln_w: torch.Tensor, eps: float,
-              layer: Optional[int] = None) -> torch.Tensor:
+              layer: Optional[int] = None,
+              mxu_bf16: bool = False) -> torch.Tensor:
     """SwiGLU MLP: (silu(g) * u) @ wdown with [g | u] = rmsnorm(x) @ wgu,
     without the residual add, as two apply_linear calls. (The JAX package's
     one-kernel MLP, `gptq_mlp_int4`, is not ported yet.)"""
     f = wdown.din if isinstance(wdown, QuantizedLinear) else wdown.shape[-2]
-    gu = apply_linear(wgu, x, layer=layer, norm=(ln_w, eps))
+    gu = apply_linear(wgu, x, layer=layer, norm=(ln_w, eps),
+                      mxu_bf16=mxu_bf16)
     ff = F.silu(gu[..., :f]) * gu[..., f:]
-    return apply_linear(wdown, ff, layer=layer)
+    return apply_linear(wdown, ff, layer=layer, mxu_bf16=mxu_bf16)
 
 
 def attn_mlp_fusable(att: torch.Tensor, wo, wgu, wdown) -> bool:

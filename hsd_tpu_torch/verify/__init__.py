@@ -1,9 +1,12 @@
-"""Acceptance rules: tokenwise / blockwise / HSD / greedy."""
+"""Acceptance rules: tokenwise / blockwise / HSD / greedy, and the trie
+verifiers of EAGLE drafting."""
 from .common import VerifyResult
 from .tokenwise import verify_tokenwise
 from .blockwise import verify_blockwise, verify_greedy
 from .hsd import verify_hsd
 from .dispatch import verify
+from .trie import verify_trie_greedy, verify_trie_hsd, verify_trie_typical
 
 __all__ = ["VerifyResult", "verify", "verify_tokenwise", "verify_blockwise",
-           "verify_greedy", "verify_hsd"]
+           "verify_greedy", "verify_hsd", "verify_trie_greedy",
+           "verify_trie_hsd", "verify_trie_typical"]

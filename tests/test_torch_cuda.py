@@ -62,6 +62,29 @@ def test_kernels_match_plain(dev, dtype, n):
     _close(G.attn_mlp_int4(x, res, wo, so, wgu, sg, wd, sd, ln, 1e-6),
            G.attn_mlp_int4_plain(x, res, wo, so, wgu, sg, wd, sd, ln, 1e-6),
            dtype)
+    s8sym = (s8 + 1e-3).to(torch.bfloat16)
+    _close(G.int8_ln_matmul(x, w8, s8sym, ln, 1e-6),
+           G.int8_ln_matmul_plain(x, w8, s8sym, ln, 1e-6), dtype)
+
+
+@pytest.mark.parametrize("n", [129, 200, 480])
+@pytest.mark.parametrize("dout", [256, 300, 1000])
+def test_k7_matches_plain(dev, n, dout):
+    """K7 (bf16 tensor-core operands, bf16 activations) against its plain
+    version, with and without the fused norm, ragged rows and columns
+    included."""
+    g = torch.Generator(device=dev).manual_seed(n + dout)
+    x = torch.randn((n, 512), generator=g, device=dev).to(torch.bfloat16)
+    ln = torch.rand(512, generator=g, device=dev) + 0.5
+    w8 = torch.empty((512, dout), dtype=torch.int8, device=dev)
+    w8.random_(-127, 128, generator=g)
+    s8 = (torch.rand((4, dout), generator=g, device=dev) * 1e-2
+          + 1e-3).to(torch.bfloat16)
+    _close(G.int8_matmul_bf16(x, w8, s8),
+           G.int8_matmul_plain(x, w8, s8, bf16_operands=True), torch.bfloat16)
+    _close(G.int8_matmul_bf16(x, w8, s8, ln, 1e-6),
+           G.int8_ln_matmul_plain(x, w8, s8, ln, 1e-6, bf16_operands=True),
+           torch.bfloat16)
 
 
 def test_row_bits_independent_of_row_count(dev):
@@ -72,6 +95,16 @@ def test_row_bits_independent_of_row_count(dev):
     full = G.int4_ln_matmul(x, w, s, ln, 1e-6)
     for n in (1, 2, 5, 11, 16, 17):
         assert torch.equal(G.int4_ln_matmul(x[:n], w, s, ln, 1e-6), full[:n])
+    w8 = torch.empty((1024, 896), dtype=torch.int8, device=dev)
+    w8.random_(-127, 128, generator=g)
+    full = G.int8_ln_matmul(x, w8, s, ln, 1e-6)
+    for n in (1, 11, 17):
+        assert torch.equal(G.int8_ln_matmul(x[:n], w8, s, ln, 1e-6), full[:n])
+    xb = torch.randn((480, 1024), generator=g, device=dev).to(torch.bfloat16)
+    full = G.int8_matmul_bf16(xb, w8, s, ln, 1e-6)
+    for n in (129, 300):
+        assert torch.equal(G.int8_matmul_bf16(xb[:n], w8, s, ln, 1e-6),
+                           full[:n])
 
 
 def test_wrappers_raise_on_bad_input(dev):
@@ -84,6 +117,9 @@ def test_wrappers_raise_on_bad_input(dev):
     odd, so = _q4(torch.Generator(device=dev).manual_seed(2), dev, 192, 256)
     with pytest.raises(RuntimeError, match="shape not supported"):
         G.int4_matmul(torch.randn((2, 192), device=dev), odd, so)
+    w8 = torch.zeros((512, 256), dtype=torch.int8, device=dev)
+    with pytest.raises(ValueError):          # K7 takes bf16 activations only
+        G.int8_matmul_bf16(torch.randn((129, 512), device=dev), w8, s)
 
 
 def test_greedy_spec_equals_ar_through_kernels(dev):
@@ -98,5 +134,6 @@ def test_greedy_spec_equals_ar_through_kernels(dev):
     G.reset_launches()
     res = make_generate(cfg, cfg, eng)(draft, target, prompt, 12, None)
     toks, length = make_autoregressive(cfg, eng)(target, prompt, 12, None)
-    assert min(G.launch_counts().values()) > 0
+    counts = G.launch_counts()
+    assert min(counts[k] for k in ("K1", "K2", "K3", "K4")) > 0, counts
     assert res.tokens[16:res.length].tolist() == toks[16:length].tolist()
