@@ -19,11 +19,38 @@ Phases (any failure exits nonzero, with no result line):
                pre-dequantized weight, and the bound: the larger of bytes
                over 3.35 TB/s and operations over the 989 TFLOP/s bf16
                tensor-core rate
+  4a. attention K8 (flash-decode) at the shapes of the paths below (14B
+               verify, 0.5B draft, 8B EAGLE tree with its bias and prefill
+               with a zero bias, long-context decode), with q rotated
+               before and with the RoPE inside the kernel, against its plain
+               version; a query row's bits at T = 1 and T = 11; timed as in
+               phase 4 beside F.scaled_dot_product_attention with the same
+               mask; bound: the K and V bytes of the cache over 3.35 TB/s
+  4b. mlp      K6 (the fused SwiGLU MLP) through its route, apply_mlp on the
+               14B target's 48 layers at 1 and 11 rows, with the launch
+               counters zeroed before and read after (one K6 launch a call,
+               nothing else), each call against its plain version; timed
+               through the same route
   5. main path make_generate with hsd and tokenwise (gamma 10, K 1) on 3
                prompts of bucket 64, 128 new tokens each, with the launch
-               counters zeroed before and read after; AR over 32 tokens.
-               With --trace, also a profiled 24-token hsd generate (device
-               time by kernel, idle share) and the host cost of one call
+               counters zeroed before and read after (K8 must not launch:
+               its routes are opt-in); AR over 32 tokens.
+               With --trace, also a profiled 56-token hsd generate (device
+               time by kernel, idle share), the same with FUSED_ATTN on, and
+               the host cost of one call
+  5c. opted in hsd on the first prompt, 128 new tokens, with K8 off (phase
+               5's run again), with FUSED_ATTN = "always" and with
+               FLASH_DECODE = "always", in turns (off, fused, flash, flash,
+               fused, off): K8 must launch in the last two routes, a route's
+               repeat must give its BE again; the BE is printed beside phase
+               5's, and each route's mean ms per block
+  5d. engines  stepwise, recursive, streaming (whose chunks must
+               concatenate to make_generate's stream) and prompt lookup on
+               the 48-layer 14B int4 trunk with the 0.5B int8 draft, gamma
+               4, one 64-token prompt and 64 new tokens each, FUSED_ATTN on
+  5e. long context  ms per decode step of the 14B int4 trunk at caches of
+               1056, 2080 and 4128 tokens, T = 1 and 11, by the einsum path
+               and by K8 (FLASH_DECODE = "always"), in turns
   6. greedy    temperature 0 on a 2-layer float32 pair built through the same
                kernels: the speculative stream must equal the AR stream; at
                full width only the common prefix length is printed
@@ -47,13 +74,23 @@ Phases (any failure exits nonzero, with no result line):
                (K4, K5 and K7 must each launch); hsd_ref again, whose token
                streams must be identical. With --trace, also a profiled pool
                step (device time by kernel, idle share)
+ 9f. eagle single request  make_eagle_generate (hsd_ref) on the 8B pair,
+               one 64-token prompt and 64 new tokens, FLASH_DECODE =
+               "always": the tree forward runs K8 with its bias
  10. eagle greedy  temperature 0 on a 2-layer float32 Llama-shaped pair with a
                symmetric-int8 target: make_eagle_generate and every server
                request must equal the AR stream, through K5
+ 10g. greedy K8  on 2-layer float32 pairs with head_dim 64 and caches of at
+               least 128 slots, under each K8 mode: speculative, stepwise,
+               recursive and prompt-lookup streams, and EAGLE's, must equal
+               AR; K8 counted around each engine and its AR baseline apart
+               must launch in both, but EAGLE's tree (it carries a bias)
+               stays on the einsum route under FUSED_ATTN and launches none
 The line before the last is the kernels' JSON summary; the last line is
 {"ok": true, "device": {...}}.
 """
 import argparse
+import contextlib
 import dataclasses
 import hashlib
 import json
@@ -71,7 +108,10 @@ if not torch.cuda.is_available():
     sys.exit(1)
 
 from hsd_tpu_torch.config import EngineConfig, ModelConfig, VerifierConfig
-from hsd_tpu_torch.engine import make_autoregressive, make_generate
+from hsd_tpu_torch.engine import (make_autoregressive, make_generate,
+                                  make_prompt_lookup_generate,
+                                  make_recursive_generate,
+                                  make_stepwise_generate, make_stream_generate)
 from hsd_tpu_torch.engine.eagle_engine import make_eagle_generate
 from hsd_tpu_torch.engine.eagle_server import EagleSlotEngine
 from hsd_tpu_torch.eval.synthetic import (build_coupled_eagle_pair,
@@ -80,10 +120,14 @@ from hsd_tpu_torch.eval.synthetic import (build_coupled_eagle_pair,
                                           make_coupled_eagle_target,
                                           make_coupled_target, quantize_draft)
 from hsd_tpu_torch.models.eagle import EagleConfig
-from hsd_tpu_torch.models.transformer import fuse_params, init_params
-from hsd_tpu_torch.ops import _build
+from hsd_tpu_torch.engine.kvcache import init_cache
+from hsd_tpu_torch.models import transformer
+from hsd_tpu_torch.models.transformer import (fuse_params, init_params,
+                                              rope_tables)
+from hsd_tpu_torch.ops import _build, launch_counts, reset_launches
+from hsd_tpu_torch.ops import flash_decode as FD
 from hsd_tpu_torch.ops import gptq_cuda as G
-from hsd_tpu_torch.ops.linear import QuantizedLinear
+from hsd_tpu_torch.ops.linear import QuantizedLinear, apply_mlp
 
 DEV = torch.device("cuda")
 HBM_BYTES_S = 3.35e12       # H100 SXM device memory rate
@@ -97,6 +141,11 @@ SPIN_CYCLES = 2_000_000      # ~1 ms of device spin before a timed call
 # EAGLE serving, cut from bench.py's row: 24 -> 16 requests, 96 -> 64 new
 EAGLE_SLOTS, EAGLE_BUCKET, EAGLE_REQS, EAGLE_NEW, EAGLE_MACRO = 8, 64, 16, 64, 4
 SPEC_KERNELS = ("K1", "K2", "K3", "K4")    # phase 5's path
+# the speculative path's cache: bucket + new tokens + gamma + 2 slots
+SPEC_S = BUCKET + MAX_NEW + GAMMA + 2
+EAGLE_S = 64 + 64 + 59 + 2                 # one EAGLE request (phase 9f)
+ENGINE_NEW, ENGINE_GAMMA = 64, 4           # phase 5d
+LONG_LENS, LONG_ITERS = (1056, 2080, 4128), 10
 T0 = time.time()
 
 
@@ -297,15 +346,425 @@ def kernel_phase(draft, target, cfg_b):
                      2 * n * (D * D + D * F2 + F2 // 2 * D))
 
 
+@contextlib.contextmanager
+def opted_in(attr):
+    """One of the JAX package's K8 opt-ins (FD.FUSED_ATTN or
+    FD.FLASH_DECODE) set to "always" inside the block."""
+    setattr(FD, attr, "always")
+    try:
+        yield
+    finally:
+        setattr(FD, attr, "auto")
+
+
+# (label, H, Hkv, d, T, S, kv_length, start, bias) of K8 on the paths below
+ATTN_SHAPES = [
+    ("0.5B draft", 14, 2, 64, 1, SPEC_S, SPEC_S - 40, 3, None),
+    ("0.5B draft", 14, 2, 64, 2, SPEC_S, SPEC_S - 40, 3, None),
+    ("14B verify", 40, 8, 128, 11, SPEC_S, SPEC_S - 40, 3, None),
+    ("8B EAGLE tree", 32, 8, 128, 60, EAGLE_S, 100, 0, "tree"),
+    ("8B EAGLE prefill", 32, 8, 128, 64, EAGLE_S, 0, 0, "zero"),
+] + [("14B long context", 40, 8, 128, T, L + 64, L, 0, None)
+     for L in LONG_LENS for T in (1, 11)]
+K8_REP = ("0.5B draft 14/2/64 S=204 +rope", 1)   # the path's most frequent
+
+
+def attention_case(H, Hkv, d, T, S, kv_len, start, bias, seed):
+    g = torch.Generator(device=DEV).manual_seed(seed)
+    q = (torch.randn((T, H, d), generator=g, device=DEV) * 2).to(torch.bfloat16)
+    k = torch.randn((S, Hkv, d), generator=g, device=DEV).to(torch.bfloat16)
+    v = torch.randn((S, Hkv, d), generator=g, device=DEV).to(torch.bfloat16)
+    qi = kv_len + torch.arange(T, device=DEV)
+    st = torch.tensor([start], device=DEV)
+    ab = None
+    if bias == "tree":          # node i attends to its ancestor chain
+        anc = torch.rand((T, T), generator=g, device=DEV) < 0.6
+        anc = torch.tril(anc) | torch.eye(T, dtype=torch.bool, device=DEV)
+        ab = torch.where(anc, 0.0, -1e30)
+    elif bias == "zero":        # the JAX EAGLE prefill's [P, P] zero bias
+        ab = torch.zeros((T, T), device=DEV)
+    cos2, sin2 = rope_tables((qi - start)[None], d, 1e6)
+    return q, k, v, qi, st, ab, (cos2[0, :, 0], sin2[0, :, 0])
+
+
+def attention_phase():
+    """K8 against its plain version at every path shape, in both forms."""
+    for i, (label, H, Hkv, d, T, S, kv_len, start, bias) in enumerate(
+            ATTN_SHAPES):
+        q, k, v, qi, st, ab, rope = attention_case(H, Hkv, d, T, S, kv_len,
+                                                   start, bias, i)
+        rep = H // Hkv
+        # the library call: SDPA on the repeated K/V with the same mask
+        kp = torch.arange(S, device=DEV)
+        valid = (kp[None] <= qi[:, None]) & (kp[None] >= start)
+        bias_all = torch.zeros((T, S), device=DEV)
+        if ab is not None:
+            bias_all[:, kv_len:kv_len + T] = ab
+        fmask = torch.where(valid, bias_all, float("-inf")).to(torch.bfloat16)
+        kr = k.permute(1, 0, 2).repeat_interleave(rep, 0)[None]
+        vr = v.permute(1, 0, 2).repeat_interleave(rep, 0)[None]
+        for fused in (False, True):
+            rp = rope if fused else None
+            qr = (FD.rope_rotate(q.float(), rope).to(torch.bfloat16)
+                  if fused else q).permute(1, 0, 2)[None]
+
+            def run(l, rp=rp):
+                return FD.flash_decode(q, k, v, qi, st, kv_len, ab, rp)
+
+            def plain(l, rp=rp):
+                return FD.flash_core_plain(q, k, v, qi, st, kv_len, ab,
+                                           rp).to(torch.bfloat16)
+
+            def library(l, qr=qr):
+                return torch.nn.functional.scaled_dot_product_attention(
+                    qr, kr, vr, attn_mask=fmask)
+
+            name = (f"{label} {H}/{Hkv}/{d} S={S}" + (" +rope" if fused
+                                                       else ""))
+            check_kernel("K8", name, T, run, plain, library, 1,
+                         2 * S * Hkv * d * 2, 4 * T * H * S * d)
+    # a query row's bits do not depend on how many rows share its launch
+    q, k, v, qi, st, _, rope = attention_case(40, 8, 128, 11, SPEC_S,
+                                              SPEC_S - 40, 3, None, 99)
+    for rp in (None, rope):
+        full = FD.flash_decode(q, k, v, qi, st, SPEC_S - 40, None, rp)
+        for t in range(11):
+            one = FD.flash_decode(
+                q[t:t + 1], k, v, qi[t:t + 1], st, SPEC_S - 40 + t, None,
+                None if rp is None else (rp[0][t:t + 1], rp[1][t:t + 1]))
+            if not torch.equal(one, full[t:t + 1]):
+                raise AssertionError(f"K8 row {t} differs between T = 1 "
+                                     "and T = 11")
+    log("attention: K8 gives the same bits for a query row at T = 1 and "
+        "T = 11, in both forms")
+
+
+def mlp_phase(target, cfg_b):
+    """K6 through its route, `apply_mlp` on the 14B target's layer-stacked
+    MLP weights with a layer index: every layer at 1 and 11 rows, with the
+    launch counters zeroed before and read after (K6 must launch once a
+    call, and nothing else), each call against its plain version; then
+    timed through the same route. Returns the route's launch counts."""
+    g = torch.Generator(device=DEV).manual_seed(456)
+    big = target.big.layers
+    D, eps = cfg_b.hidden_size, cfg_b.rms_norm_eps
+    wgu, wdown = big["wgu"], big["wdown"]
+    L, F2 = wgu.qweight.shape[0], wgu.qweight.shape[-1]
+    ln = torch.rand((L, D), generator=g, device=DEV) + 0.5
+    xs = {n: torch.randn((n, D), generator=g, device=DEV).to(torch.bfloat16)
+          for n in (1, 11)}
+
+    def plain(x, l):
+        return G.mlp_int4_plain(x, wgu.qweight[l], wgu.scales[l],
+                                wdown.qweight[l], wdown.scales[l], ln[l], eps)
+
+    torch.cuda.synchronize()
+    reset_launches()
+    outs = {(n, l): apply_mlp(wgu, wdown, x, ln[l], eps, layer=l)
+            for n, x in xs.items() for l in range(L)}
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    if counts["K6"] != len(outs) or sum(counts.values()) != len(outs):
+        raise AssertionError(f"apply_mlp: launches {counts}, expected "
+                             f"{len(outs)} of K6 alone")
+    worst = 0.0
+    for (n, l), got in outs.items():
+        want = plain(xs[n], l).float()
+        err = (got.float() - want).abs().max().item()
+        if not err <= TOL * want.abs().max().item():
+            raise AssertionError(f"apply_mlp layer {l}, {n} rows: error {err}")
+        worst = max(worst, err)
+    log(f"mlp: apply_mlp routed {len(outs)} calls ({L} layers x 1 and 11 "
+        f"rows) to K6, max error {worst:.3e}; launches {counts}")
+    for n, x in xs.items():
+        check_kernel("K6", "target mlp 5120/27648/13824", n,
+                     lambda l, x=x: apply_mlp(wgu, wdown, x, ln[l], eps,
+                                              layer=l),
+                     lambda l, x=x: plain(x, l), None, 4,
+                     qbytes(wgu.layer(0)) + qbytes(wdown.layer(0))
+                     + 2 * n * D * 2 + D * 4, 2 * n * (D * F2 + F2 // 2 * D))
+    return counts
+
+
+def opted_in_main_path(draft, target, cfg_s, cfg_b, phase5):
+    """Phase 5's hsd on its first prompt and seed with K8 off (phase 5's run
+    again) and with each K8 route, in turns (off, FUSED_ATTN, FLASH_DECODE,
+    then the reverse): the same seed gives each route the same stream both
+    times, so ms per block compares the routes."""
+    fwd, ops = make_coupled_target(cfg_s, cfg_b)
+    prompt = (torch.arange(BUCKET, device=DEV) % 1000) + 10
+    eng = EngineConfig(verifier=VerifierConfig(method="hsd", gamma=GAMMA,
+                                               num_drafts=1),
+                       max_new_tokens=MAX_NEW, temperature=1.0)
+    gen = make_generate(cfg_s, cfg_b, eng, target_forward=fwd,
+                        target_cache_ops=ops)
+    routes = ("off", "FUSED_ATTN", "FLASH_DECODE")
+    out = {}
+    for attr in routes + routes[::-1]:
+        with (opted_in(attr) if attr != "off" else contextlib.nullcontext()):
+            torch.cuda.synchronize()
+            reset_launches()
+            t0 = time.perf_counter()
+            res = gen(draft, target, prompt, BUCKET,
+                      torch.Generator(device=DEV).manual_seed(0))
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            counts = launch_counts()
+        be = float((res.accepts[:res.blocks].float() + 1).mean())
+        ms = secs / res.blocks * 1e3
+        if attr in out:
+            if be != out[attr]["be"]:
+                raise AssertionError(f"{attr}: the repeat run's BE differs")
+            out[attr]["ms_per_block"].append(ms)
+            out[attr]["tok_s"].append(res.ncommit / secs)
+        else:
+            out[attr] = dict(be=be, tok_s=[res.ncommit / secs],
+                             counts=counts, ms_per_block=[ms])
+        log(f"main path hsd, K8 {attr}: BE {be:.4f} (phase 5 on this "
+            f"prompt and seed: {phase5['hsd']['per_prompt'][0]:.4f}) "
+            f"{res.ncommit / secs:.2f} tok/s, {res.ncommit} tokens in "
+            f"{res.blocks} blocks, {ms:.1f} ms per block; launches {counts}")
+        if (counts["K8"] > 0) != (attr != "off"):
+            raise AssertionError(f"{attr}: K8 launches {counts['K8']}")
+    base = statistics.mean(out["off"]["ms_per_block"])
+    log("main path hsd, mean ms per block: " + ", ".join(
+        f"{a} {statistics.mean(out[a]['ms_per_block']):.1f} "
+        f"({statistics.mean(out[a]['ms_per_block']) / base - 1:+.1%})"
+        for a in routes))
+    return out
+
+
+def engines_phase(draft, target, cfg_s, cfg_b):
+    """The single-request engines at full width with FUSED_ATTN on."""
+    big = target.big
+    prompt = torch.tensor(([11, 97, 403, 52, 7, 301, 88, 64, 930] * 8)
+                          [:BUCKET], device=DEV)
+    eng = EngineConfig(verifier=VerifierConfig(method="hsd",
+                                               gamma=ENGINE_GAMMA),
+                       max_new_tokens=ENGINE_NEW, temperature=1.0)
+
+    def gen(seed):
+        return torch.Generator(device=DEV).manual_seed(seed)
+
+    def check(name, toks):
+        if not toks or not all(0 <= t < cfg_b.vocab_size for t in toks):
+            raise AssertionError(f"{name}: bad stream")
+
+    out = {}
+    with opted_in("FUSED_ATTN"):
+        torch.cuda.synchronize()
+        reset_launches()
+        for name, make in (("stepwise", make_stepwise_generate),
+                           ("recursive", make_recursive_generate)):
+            t0 = time.perf_counter()
+            res = make(cfg_s, cfg_b, eng)(draft, big, prompt, BUCKET, gen(1))
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            check(name, res.tokens[BUCKET:res.length].tolist())
+            out[name] = dict(tokens=res.ncommit, blocks=res.blocks,
+                             secs=secs)
+            log(f"engines {name}: {res.ncommit} tokens in {res.blocks} "
+                f"blocks ({secs:.2f}s), accepted per block "
+                f"{res.accepts[:res.blocks].tolist()[:12]}..., rounds "
+                f"{res.rounds[:res.blocks].tolist()[:12]}...")
+        t0 = time.perf_counter()
+        chunks = list(make_stream_generate(cfg_s, cfg_b, eng)(
+            draft, big, prompt, BUCKET, gen(3)))
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        res = make_generate(cfg_s, cfg_b, eng)(draft, big, prompt, BUCKET,
+                                               gen(3))
+        stream = [t for c in chunks for t in c.tolist()]
+        check("streaming", stream)
+        if stream != res.tokens[BUCKET:res.length].tolist():
+            raise AssertionError("streamed chunks != make_generate's stream")
+        out["streaming"] = dict(tokens=len(stream), chunks=len(chunks),
+                                secs=secs)
+        log(f"engines streaming: {len(chunks)} chunks, {len(stream)} tokens "
+            f"({secs:.2f}s), concatenated == make_generate's stream")
+        t0 = time.perf_counter()
+        toks, length, acc, blocks = make_prompt_lookup_generate(cfg_b, eng)(
+            big, prompt, BUCKET, gen(4))
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        check("prompt lookup", toks[BUCKET:length].tolist())
+        out["prompt_lookup"] = dict(tokens=length - BUCKET, blocks=blocks,
+                                    secs=secs)
+        log(f"engines prompt lookup: {length - BUCKET} tokens in {blocks} "
+            f"blocks ({secs:.2f}s), accepted {acc[:blocks].tolist()[:12]}...")
+        counts = launch_counts()
+    log(f"engines: launches {counts}")
+    if counts["K8"] <= 0:
+        raise AssertionError("the engines did not launch K8")
+    out["counts"] = counts
+    return out
+
+
+def long_context_phase(target, cfg_b):
+    """ms per decode step of the 48-layer 14B int4 trunk at long caches, by
+    the einsum path and by K8 (scripts/bench_longctx.py's counterpart)."""
+    big = target.big
+    rows = []
+    reset_launches()
+
+    def step_ms(toks, cache):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(LONG_ITERS):
+            transformer.forward(cfg_b, big, toks, cache)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / LONG_ITERS * 1e3
+
+    for L in LONG_LENS:
+        cache = init_cache(cfg_b, 1, L + 64, DEV).replace(length=L)
+        for T in (1, 11):
+            toks = torch.full((1, T), 11, device=DEV)
+            times = {"einsum": [], "K8": []}
+            # in turns (einsum, K8, K8, einsum), each after two warm steps
+            for mode in ("einsum", "K8", "K8", "einsum"):
+                with (opted_in("FLASH_DECODE") if mode == "K8"
+                      else contextlib.nullcontext()):
+                    for _ in range(2):
+                        transformer.forward(cfg_b, big, toks, cache)
+                    times[mode].append(step_ms(toks, cache))
+            row = dict(len=L, T=T, **{m: statistics.mean(v)
+                                       for m, v in times.items()},
+                       runs=times)
+            rows.append(row)
+            log(f"long context L={L} T={T}: einsum {row['einsum']:.3f} "
+                f"ms/step, K8 {row['K8']:.3f} ms/step "
+                f"({row['einsum'] / row['K8']:.3f}x; runs {times})")
+        del cache
+    counts = launch_counts()
+    if counts["K8"] <= 0:
+        raise AssertionError("long context: K8 was not launched")
+    return dict(rows=rows, counts=counts)
+
+
+def eagle_single(target, head, cfg, ecfg):
+    """make_eagle_generate at full width with FLASH_DECODE on: the tree
+    forward runs K8 with its [T, T] bias."""
+    fwd = make_coupled_eagle_target(cfg, (-1,))
+    rng = np.random.default_rng(1)
+    prompt = torch.tensor(rng.integers(10, 1000, (64,)), device=DEV)
+    gen = make_eagle_generate(cfg, ecfg, EngineConfig(max_new_tokens=64,
+                                                      temperature=1.0),
+                              mode="hsd_ref", target_forward=fwd)
+    with opted_in("FLASH_DECODE"):
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        res = gen(target, head, prompt, 64,
+                  torch.Generator(device=DEV).manual_seed(2))
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts = launch_counts()
+    toks = res.tokens[64:res.length].tolist()
+    if not toks or not all(0 <= t < cfg.vocab_size for t in toks):
+        raise AssertionError("eagle single request: bad stream")
+    be = float((res.accepts[:res.blocks].float() + 1).mean())
+    log(f"eagle single request, FLASH_DECODE = always: {res.ncommit} tokens "
+        f"in {res.blocks} blocks, BE {be:.4f}, {res.ncommit / secs:.2f} "
+        f"tok/s; launches {counts}")
+    if counts["K8"] <= 0:
+        raise AssertionError("eagle single request: K8 was not launched")
+    return dict(be=be, tok_s=res.ncommit / secs, counts=counts)
+
+
+def greedy_k8():
+    """2-layer float32 pairs, head_dim 64, caches of >= 128 slots: under
+    each K8 mode every engine's greedy stream equals AR, with K8 counted
+    around the engine and around its AR baseline apart. Each engine and
+    each baseline launches K8, but for EAGLE under FUSED_ATTN: its tree
+    keeps the einsum route, as in the JAX package, and must launch none."""
+    cfg = ModelConfig.tiny(vocab_size=512, hidden_size=256,
+                           intermediate_size=512, num_heads=4,
+                           num_kv_heads=2, dtype=torch.float32,
+                           eos_token_id=10**9)
+    draft = quantize_draft(cfg, fuse_params(cfg, init_params(cfg, seed=5,
+                                                             device=DEV)))
+    target = init_quantized_params(cfg, seed=6, bits=4, device=DEV)
+    ecfg_cfg = dataclasses.replace(cfg, attention_bias=False,
+                                   tie_word_embeddings=False)
+    ecfg = EagleConfig(hidden_size=256, target_hidden_size=256, num_heads=4,
+                       num_kv_heads=2, vocab_size=512, draft_vocab_size=384,
+                       intermediate_size=512, rope_theta=cfg.rope_theta,
+                       top_k=4, depth=3, total_tokens=11,
+                       dtype=torch.float32, version=1)
+    head, etarget = build_coupled_eagle_pair(5, ecfg_cfg, ecfg, scale=4.0,
+                                             lam=1.0, big_bits=8, device=DEV)
+    efwd = make_coupled_eagle_target(ecfg_cfg, (-1,))
+    P, plen = 112, 106
+    prompt = (torch.arange(P, device=DEV) % 37) + 3
+    eng = EngineConfig(verifier=VerifierConfig(method="greedy", gamma=4),
+                       max_new_tokens=32, temperature=0.0)
+
+    def ar(params, c, fwd=None):
+        toks, length = make_autoregressive(c, eng, model_forward=fwd)(
+            params, prompt, plen, None)
+        return toks[P:length].tolist()
+
+    def ar_eagle():
+        return ar(etarget, ecfg_cfg, lambda p, t, c, skip_head=False:
+                  efwd(p, t, c, None, None)[:2])
+
+    # name: (AR baseline, engine run)
+    checks = {
+        "spec": (lambda: ar(target, cfg), lambda: make_generate(
+            cfg, cfg, eng)(draft, target, prompt, plen, None)),
+        "stepwise": (lambda: ar(target, cfg), lambda: make_stepwise_generate(
+            cfg, cfg, eng)(draft, target, prompt, plen, None)),
+        "recursive": (lambda: ar(target, cfg),
+                      lambda: make_recursive_generate(cfg, cfg, eng)(
+                          draft, target, prompt, plen, None)),
+        "prompt lookup": (lambda: ar(target, cfg),
+                          lambda: make_prompt_lookup_generate(cfg, eng)(
+                              target, prompt, plen, None)),
+        "eagle": (ar_eagle, lambda: make_eagle_generate(
+            ecfg_cfg, ecfg, eng, mode="greedy", target_forward=efwd)(
+                etarget, head, prompt, plen, None)),
+    }
+
+    def k8_launches(fn):
+        before = launch_counts()["K8"]
+        out = fn()
+        return out, launch_counts()["K8"] - before
+
+    for attr in ("FUSED_ATTN", "FLASH_DECODE"):
+        with opted_in(attr):
+            for name, (ar_fn, engine_fn) in checks.items():
+                want, ar_used = k8_launches(ar_fn)
+                res, used = k8_launches(engine_fn)
+                got = res[0][P:res[1]].tolist()    # (tokens, length, ...)
+                if got != want or len(got) < 32:
+                    raise AssertionError(f"{attr}: greedy {name} != AR:\n"
+                                         f"{got}\n{want}")
+                # the EAGLE tree's forwards carry a bias, which the fused
+                # route does not take (as in the JAX package): under
+                # FUSED_ATTN only its AR baseline runs K8
+                einsum_only = name == "eagle" and attr == "FUSED_ATTN"
+                if ar_used <= 0 or (used <= 0) != einsum_only:
+                    raise AssertionError(
+                        f"{attr}: greedy {name} K8 launches {used}, its AR "
+                        f"baseline's {ar_used}")
+                route = ("its tree stays on the einsum route"
+                         if einsum_only else f"K8 launches {used}")
+                log(f"greedy K8 {attr}: {name} == AR ({len(got)} tokens; "
+                    f"{route}; the AR baseline's K8 launches {ar_used})")
+
+
 def summary_entry(name, label, n, source, replaces, launches):
     rows = [r for r in KERNEL_ROWS if r["name"] == name]
+    if not rows:
+        raise AssertionError(f"{name}: no measured row")
     rep = next(r for r in rows if r["label"] == label and r["n"] == n)
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches,
             "max_abs_err": max(r["max_abs_err"] for r in rows),
             "ms": rep["ms"], "plain_ms": rep["plain_ms"],
             "bound_ms": rep["bound_ms"], "bound_by": rep["bound_by"],
-            "library_ms": rep["library_ms"] if name != "K2" else None,
+            "library_ms": rep["library_ms"] if name not in ("K2", "K6")
+            else None,
             "shape": f"{label}, {n} rows"}
 
 
@@ -342,15 +801,17 @@ def trace_window(gen, draft, target, prompt):
     busy = sum(r[0] for r in rows)
     ours = sum(r[0] for r in rows if "gptq_matvec" in r[2]
                or "splitk_reduce" in r[2] or "inv_rms" in r[2])
+    k8 = sum(r[0] for r in rows if "flash_" in r[2])
     out = dict(wall_ms=wall_us / 1e3, device_busy_ms=busy / 1e3,
                idle_share=1 - busy / wall_us, gptq_kernels_ms=ours / 1e3,
-               blocks=res.blocks, tokens=res.ncommit,
+               k8_ms=k8 / 1e3, blocks=res.blocks, tokens=res.ncommit,
                launches=sum(r[1] for r in rows))
     log(f"trace (hsd, {res.ncommit} tokens, {res.blocks} blocks, under the "
-        f"profiler): wall {out['wall_ms']:.1f} ms, device busy "
-        f"{out['device_busy_ms']:.1f} ms (GPTQ kernels "
-        f"{out['gptq_kernels_ms']:.1f} ms), idle share "
-        f"{out['idle_share']:.3f}, {out['launches']} device ops")
+        f"profiler; K8 routes FLASH_DECODE={FD.FLASH_DECODE} "
+        f"FUSED_ATTN={FD.FUSED_ATTN}): wall {out['wall_ms']:.1f} ms, device "
+        f"busy {out['device_busy_ms']:.1f} ms (GPTQ kernels "
+        f"{out['gptq_kernels_ms']:.1f} ms, K8 {out['k8_ms']:.1f} ms), idle "
+        f"share {out['idle_share']:.3f}, {out['launches']} device ops")
     for dev_us, count, key in rows[:10]:
         log(f"  {dev_us / 1e3:9.3f} ms  x{count:<6} {key[:90]}")
     return out
@@ -394,7 +855,7 @@ def main_path(draft, target, cfg_s, cfg_b, trace):
     gen_for("hsd", max_new=12)(draft, target, prompts[0], BUCKET,
                                torch.Generator(device=DEV).manual_seed(0))
     torch.cuda.synchronize()
-    G.reset_launches()
+    reset_launches()
     results = {}
     for mi, method in enumerate(("hsd", "tokenwise")):
         gen = gen_for(method)
@@ -418,11 +879,13 @@ def main_path(draft, target, cfg_s, cfg_b, trace):
                                secs=secs, per_prompt=per_prompt)
         log(f"main path {method}: BE {be:.4f} (per prompt {per_prompt}) "
             f"{toks / secs:.2f} tok/s ({toks} tokens in {secs:.2f}s)")
-    counts = G.launch_counts()
+    counts = launch_counts()
     log(f"launch counters over the hsd+tokenwise runs: {counts}")
     for k in SPEC_KERNELS:
         if counts[k] <= 0:
             raise AssertionError(f"kernel {k} was not launched on the main path")
+    if counts["K8"]:
+        raise AssertionError("K8 launched on the default path")
 
     ar = make_autoregressive(cfg_b, EngineConfig(max_new_tokens=AR_NEW),
                              model_forward=fwd, cache_init=ops[0])
@@ -437,7 +900,11 @@ def main_path(draft, target, cfg_s, cfg_b, trace):
     log(f"AR: {length - BUCKET} tokens in {ar_s:.3f}s = "
         f"{results['ar_tok_s']:.2f} tok/s")
     if trace:
-        trace_window(gen_for("hsd", max_new=24), draft, target, prompts[1])
+        # 56 new tokens: a cache of 132 slots, which K8's gates admit
+        trace_window(gen_for("hsd", max_new=56), draft, target, prompts[1])
+        with opted_in("FUSED_ATTN"):
+            trace_window(gen_for("hsd", max_new=56), draft, target,
+                         prompts[1])
         host_cost(draft)
 
     # full-width greedy: report only the common prefix of spec and AR
@@ -471,10 +938,10 @@ def greedy_small():
     eng = EngineConfig(verifier=VerifierConfig(method="greedy", gamma=4),
                        max_new_tokens=48, temperature=0.0)
     prompt = (torch.arange(16, device=DEV) % 300) + 3
-    before = G.launch_counts()
+    before = launch_counts()
     res = make_generate(cfg_s, cfg_s, eng)(draft, target, prompt, 12, None)
     toks, length = make_autoregressive(cfg_s, eng)(target, prompt, 12, None)
-    used = {k: v - before[k] for k, v in G.launch_counts().items()}
+    used = {k: v - before[k] for k, v in launch_counts().items()}
     n = min(res.length, length)
     a, b = res.tokens[16:n].tolist(), toks[16:n].tolist()
     log(f"greedy 2-layer f32: {len(a)} tokens, spec == AR: {a == b}; "
@@ -640,14 +1107,14 @@ def eagle_serving(target, head, cfg, ecfg, trace):
         se.submit(10_000, warm, max_new=4)
         se.run_all()                                   # warm every path
         torch.cuda.synchronize()
-        G.reset_launches()
+        reset_launches()
         for rid, p in enumerate(prompts):
             se.submit(rid, p, max_new=EAGLE_NEW)
         t0 = time.perf_counter()
         done = se.run_all()
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
-        counts = G.launch_counts()
+        counts = launch_counts()
         if sorted(r.rid for r in done) != list(range(EAGLE_REQS)):
             raise AssertionError(f"{mode}: requests lost")
         for r in done:
@@ -669,6 +1136,8 @@ def eagle_serving(target, head, cfg, ecfg, trace):
         for k in ("K4", "K5", "K7"):
             if counts[k] <= 0:
                 raise AssertionError(f"{mode}: {k} was not launched")
+        if counts["K8"]:
+            raise AssertionError(f"{mode}: K8 launched on the default path")
         return out
 
     results = {mode: serve(mode) for mode in ("hsd_ref", "hsd")}
@@ -778,7 +1247,7 @@ def eagle_greedy_small():
         toks, length = ar(target, prompt, plen, None)
         return toks[prompt.shape[0]:length].tolist()
 
-    before = G.launch_counts()
+    before = launch_counts()
     prompt = (torch.arange(16, device=DEV) % 300) + 3
     res = make_eagle_generate(cfg, ecfg, eng, mode="greedy",
                               target_forward=fwd)(target, head, prompt, 12,
@@ -799,7 +1268,7 @@ def eagle_greedy_small():
                               device=DEV)
         if r.out_tokens != ar_stream(padded, len(reqs[r.rid])):
             raise AssertionError(f"server request {r.rid} != AR")
-    used = {k: v - before[k] for k, v in G.launch_counts().items()}
+    used = {k: v - before[k] for k, v in launch_counts().items()}
     log(f"eagle greedy: every server request == AR; launches {used}")
     if used["K5"] <= 0:
         raise AssertionError("the greedy EAGLE pair did not launch K5")
@@ -823,6 +1292,9 @@ def main():
     t0 = time.time()
     _build.lib("gptq")           # builds every csrc/*.cu, one nvcc each
     _build.lib("gptq_mma")
+    _build.lib("flash_decode")
+    # the K8 routes are opt-in: off unless a phase below turns one on
+    FD.FLASH_DECODE = FD.FUSED_ATTN = "auto"
     log(f"kernels built and loaded in {time.time() - t0:.1f}s")
 
     cfg_s = ModelConfig.qwen2_05b()
@@ -835,7 +1307,12 @@ def main():
         f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
 
     kernel_phase(draft, target, cfg_b)
+    attention_phase()
+    mlp_counts = mlp_phase(target, cfg_b)
     results, counts = main_path(draft, target, cfg_s, cfg_b, args.trace)
+    opted = opted_in_main_path(draft, target, cfg_s, cfg_b, results)
+    engines = engines_phase(draft, target, cfg_s, cfg_b)
+    longctx = long_context_phase(target, cfg_b)
     greedy_small()
 
     del draft, target
@@ -850,12 +1327,20 @@ def main():
         f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
     eagle_kernel_phase(etarget, cfg_e)
     serving = eagle_serving(etarget, head, cfg_e, ecfg, args.trace)
+    eagle1 = eagle_single(etarget, head, cfg_e, ecfg)
     del head, etarget
     torch.cuda.empty_cache()
     eagle_greedy_small()
+    greedy_k8()
 
     src = "hsd_tpu_torch/csrc/gptq.cu"
     ecounts = serving["hsd_ref"]["launches"]
+    # K6 and K8 over the opted-in runs of phases 5c-5e and 9f (K6: 0, the
+    # tail K2 fuses wherever it could); K6's route is phase 4b's apply_mlp
+    opted_counts = [opted["FUSED_ATTN"]["counts"],
+                    opted["FLASH_DECODE"]["counts"], engines["counts"],
+                    longctx["counts"], eagle1["counts"]]
+    k6k8 = {k: sum(c[k] for c in opted_counts) for k in ("K6", "K8")}
     kernels = [
         summary_entry("K1", "target wqkv 5120x7168", 11, src,
                       "hsd_tpu/ops/gptq_pallas.py:176", counts["K1"]),
@@ -867,9 +1352,13 @@ def main():
                       "hsd_tpu/ops/gptq_pallas.py:44", counts["K4"]),
         summary_entry("K5", "wqkv 4096x6144", 60, src,
                       "hsd_tpu/ops/gptq_pallas.py:83", ecounts["K5"]),
+        summary_entry("K6", "target mlp 5120/27648/13824", 11, src,
+                      "hsd_tpu/ops/gptq_pallas.py:530", mlp_counts["K6"]),
         summary_entry("K7", "wgu 4096x28672 +norm", EAGLE_SLOTS * 60,
                       "hsd_tpu_torch/csrc/gptq_mma.cu",
                       "hsd_tpu/ops/gptq_pallas.py:102", ecounts["K7"]),
+        summary_entry("K8", *K8_REP, "hsd_tpu_torch/csrc/flash_decode.cu",
+                      "hsd_tpu/ops/flash_decode.py:49", k6k8["K8"]),
     ]
     log(f"main path: hsd BE {results['hsd']['be']:.4f} "
         f"{results['hsd']['tok_s']:.2f} tok/s, tokenwise BE "
@@ -879,6 +1368,13 @@ def main():
     log("eagle serving: " + ", ".join(
         f"{m} BE {serving[m]['be']:.4f} {serving[m]['tok_s']:.2f} tok/s"
         for m in ("hsd_ref", "hsd")))
+    log("opted in: " + ", ".join(
+        f"hsd {a} BE {opted[a]['be']:.4f} "
+        f"{statistics.mean(opted[a]['tok_s']):.2f} tok/s"
+        for a in ("off", "FUSED_ATTN", "FLASH_DECODE"))
+        + f"; eagle single request BE {eagle1['be']:.4f} "
+        f"{eagle1['tok_s']:.2f} tok/s; K6/K8 launches {k6k8}; K6 through "
+        f"apply_mlp (phase 4b) {mlp_counts['K6']}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

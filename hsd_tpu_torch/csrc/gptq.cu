@@ -7,6 +7,7 @@
 //   K3  _kernel_int4           packed int4, no prologue
 //   K4  _kernel                int8 with per-group zero points
 //   K5  _kernel_ln             symmetric int8, RMSNorm fused in the activation read
+//   K6  _kernel_mlp_int4       the SwiGLU MLP, as K2's last two launches
 //
 // One template covers them all. A block owns kCols output columns for up to
 // NR activation rows and walks the whole input dimension in tiles of kTile

@@ -21,6 +21,7 @@ from ..config import EngineConfig, ModelConfig
 from ..models import transformer
 from ..ops.sampling import processor, sample
 from ..verify import verify
+from ..verify.dispatch import TELEMETRY_METHODS
 from .kvcache import KVCache, init_cache, rollback, select_draft_row
 
 
@@ -32,6 +33,14 @@ class GenerateResult(NamedTuple):
     accepts: torch.Tensor     # [max_blocks] int64 n_matches per block (-1 unused)
     draft_lens: torch.Tensor  # [max_blocks] int64 drafted gamma per block
     ncommit: int              # committed new tokens
+    # acceptance telemetry (the reference's return_probs channel), [max_blocks,
+    # K, gamma] f32 with zero rows past `blocks`; None unless collected
+    step_back_probs: Optional[torch.Tensor] = None
+    p_i: Optional[torch.Tensor] = None
+    q_i: Optional[torch.Tensor] = None
+    # [max_blocks] int64 inner rounds per block (-1 unused) of the stepwise
+    # and recursive engines; None for the single-pass engines
+    rounds: Optional[torch.Tensor] = None
 
 
 def _draft_block(cfg: ModelConfig, params, cache: KVCache, last2, last1,
@@ -55,9 +64,48 @@ def _draft_block(cfg: ModelConfig, params, cache: KVCache, last2, last1,
     return torch.stack(toks, dim=1), torch.stack(qs, dim=1), cache
 
 
+def final_length(host, length: int, P: int, max_new: int, eos: int) -> int:
+    """Clamp the committed length to the token budget (a full block can
+    overshoot it), then cut after the first EOS in the generated region of
+    the host token list."""
+    length = min(length, P + max_new)
+    for i in range(P, length):
+        if host[i] == eos:
+            return i + 1
+    return length
+
+
+def _commit_block(method: str, draft_toks, q, p, tokens: torch.Tensor,
+                  length: int, dcache, tcache, generator, K: int,
+                  t_rollback=rollback, t_select=select_draft_row, tel=None):
+    """Verify one block and commit it: write the committed tokens into
+    `tokens` at `length`, roll the draft cache back to committed-2 and the
+    target's to committed-1, and keep the winning draft row. `tel`, a
+    [3, K, gamma] view, receives the block's telemetry. The block's one
+    host sync. Returns (committed tokens as a host list, dcache, tcache)."""
+    if tel is not None:
+        res, tm = verify(method, draft_toks, q, p, generator=generator,
+                         num_drafts=K, return_telemetry=True)
+        tel.copy_(torch.stack(tm))
+    else:
+        res = verify(method, draft_toks, q, p, generator=generator,
+                     num_drafts=K)
+    info = torch.cat([res.n_matches.view(1), res.draft_index.view(1),
+                      res.tokens]).tolist()
+    n_commit, row = info[0] + 1, info[1]
+    tokens[length:length + n_commit] = res.tokens[:n_commit]
+    new_length = length + n_commit
+    dcache = rollback(dcache, new_length - 2)
+    tcache = t_rollback(tcache, new_length - 1)
+    if K > 1:
+        dcache = select_draft_row(dcache, row)
+        tcache = t_select(tcache, row)
+    return info[2:2 + n_commit], dcache, tcache
+
+
 def make_generate(cfg_draft: ModelConfig, cfg_target: ModelConfig,
-                  engine: EngineConfig, target_forward=None,
-                  target_cache_ops=None):
+                  engine: EngineConfig, collect_telemetry: bool = False,
+                  target_forward=None, target_cache_ops=None):
     """Build `generate(params_draft, params_target, prompt, prompt_len,
     generator) -> GenerateResult`.
 
@@ -65,6 +113,8 @@ def make_generate(cfg_draft: ModelConfig, cfg_target: ModelConfig,
     prompt_len: actual prompt token count (pad = P_bucket - prompt_len).
     generator: torch.Generator on the prompt's device (draft sampling and
     verifier noise).
+    collect_telemetry: also record each block's step-back probabilities,
+    p_i and q_i (tokenwise, hsd and hsd_ref) into the result.
     target_forward: optional `(params, tokens, cache, skip_head=False) ->
     (logits, cache)` override for the target (e.g. the coupled target in
     eval/synthetic.py). The prefills pass skip_head=True and discard the
@@ -85,6 +135,7 @@ def make_generate(cfg_draft: ModelConfig, cfg_target: ModelConfig,
     max_new = engine.max_new_tokens
     max_blocks = max_new
     eos = cfg_target.eos_token_id
+    telemetry = collect_telemetry and method in TELEMETRY_METHODS
     tfwd = target_forward or (lambda p, t, c, skip_head=False:
                               transformer.forward(cfg_target, p, t, c,
                                                   skip_head=skip_head))
@@ -119,6 +170,8 @@ def make_generate(cfg_draft: ModelConfig, cfg_target: ModelConfig,
         host = [0] * S
         host[:P] = prompt.tolist()
         accepts = []
+        tel = (torch.zeros((3, max_blocks, K, gamma), dtype=torch.float32,
+                           device=dev) if telemetry else None)
         length, done = P, False
         while (not done and length + gamma + 1 <= S
                and len(accepts) < max_blocks and length - P < max_new):
@@ -128,31 +181,17 @@ def make_generate(cfg_draft: ModelConfig, cfg_target: ModelConfig,
                 gamma, temp, generator)
             tgt_in = torch.cat([last.expand(R, 1), draft_toks], dim=1)
             tlogits, tcache = tfwd(params_target, tgt_in, tcache)
-            p = temp(tlogits)
-            res = verify(method, draft_toks, q, p, generator=generator,
-                         num_drafts=K)
-            # the block's one host sync
-            info = torch.cat([res.n_matches.view(1), res.draft_index.view(1),
-                              res.tokens]).tolist()
-            n_match, row, committed = info[0], info[1], info[2:]
-            n_commit = n_match + 1
-            tokens[length:length + n_commit] = res.tokens[:n_commit]
-            host[length:length + n_commit] = committed[:n_commit]
-            done = eos in committed[:n_commit]
-            length += n_commit
-            dcache = rollback(dcache, length - 2)
-            tcache = t_rollback(tcache, length - 1)
-            if R > 1:
-                dcache = select_draft_row(dcache, row)
-                tcache = t_select(tcache, row)
+            committed, dcache, tcache = _commit_block(
+                method, draft_toks, q, temp(tlogits), tokens, length, dcache,
+                tcache, generator, K, t_rollback, t_select,
+                tel=None if tel is None else tel[:, len(accepts)])
+            n_match = len(committed) - 1
+            host[length:length + n_match + 1] = committed
+            done = eos in committed
+            length += n_match + 1
             accepts.append(n_match)
 
-        # clamp to the token budget, then truncate at the first EOS
-        length = min(length, P + max_new)
-        for i in range(P, length):
-            if host[i] == eos:
-                length = i + 1
-                break
+        length = final_length(host, length, P, max_new, eos)
         blocks = len(accepts)
         acc = torch.full((max_blocks,), -1, dtype=torch.int64)
         acc[:blocks] = torch.tensor(accepts, dtype=torch.int64)
@@ -160,7 +199,10 @@ def make_generate(cfg_draft: ModelConfig, cfg_target: ModelConfig,
         dlens[:blocks] = gamma
         return GenerateResult(tokens=tokens, length=length, prompt_len=P,
                               blocks=blocks, accepts=acc, draft_lens=dlens,
-                              ncommit=length - P)
+                              ncommit=length - P,
+                              **({} if tel is None else dict(
+                                  step_back_probs=tel[0], p_i=tel[1],
+                                  q_i=tel[2])))
 
     return generate
 

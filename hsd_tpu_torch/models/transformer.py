@@ -10,8 +10,11 @@ static KV cache with index-masked attention, an optional [T, T] or per-row
 (ops/linear.py). The EAGLE engines' hooks are here too: explicit RoPE
 `positions`, a feature stream (`feature_layers`), per-row cache frontiers
 (`lengths`) and the staged tree block (`staging_at`). Attention logits and
-softmax are f32; attention itself is plain PyTorch, as the JAX main path
-computes it with an einsum.
+softmax are f32; by default attention is plain PyTorch, as the JAX main
+path computes it with an einsum. The JAX package's opt-in routes to the
+flash-decode kernel (K8, ops/flash_decode.py) are kept: FLASH_DECODE=
+"always" sends single-row attention there, FUSED_ATTN="always" single-row
+decode steps with the RoPE of q inside the kernel.
 
 MoE and tensor/ring parallelism come with later slices.
 """
@@ -25,6 +28,7 @@ import torch.nn.functional as F
 
 from ..config import ModelConfig
 from ..engine.kvcache import KVCache, append_layer_stacked
+from ..ops import flash_decode as FD
 from ..ops.linear import (QuantizedLinear, apply_attn_mlp, apply_linear,
                           apply_mlp, attn_mlp_fusable, rms_norm)
 
@@ -245,6 +249,12 @@ def forward(cfg: ModelConfig, params: ModelParams, tokens: torch.Tensor,
     last_only: apply the final norm and the head to the last position only
     (logits [B, 1, V]; a prefill samples from that row alone).
     Every quantized product passes cfg.gptq_mxu_bf16, the head's included.
+
+    Attention routes, as the JAX package's (transformer.py:263-269,
+    406-412, 483-508): with no lengths and no staging, FD.use_fused_rope_attn
+    and no bias, q reaches K8 raw and is rotated inside it (k is still
+    rotated here, for the cache); else, where FD.use_flash holds, K8 takes
+    the rotated q; else the einsum path.
     """
     B, T = tokens.shape
     H, Hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim_
@@ -260,9 +270,10 @@ def forward(cfg: ModelConfig, params: ModelParams, tokens: torch.Tensor,
     if positions is None:
         positions = torch.clamp(q_index - cache.start[:, None], min=0)
     tables = rope_tables(positions, hd, cfg.rope_theta, cfg.rope_scaling)
-    mask, bias = attention_mask(
-        q_index, cache.start, cache.max_len, T,
-        lengths if lengths is not None else length, attn_bias, staging_at)
+    unstaged = lengths is None and staging_at is None
+    fused_rope = (unstaged and attn_bias is None
+                  and FD.use_fused_rope_attn(B, T, hd, cache.max_len))
+    mask = bias = None      # the einsum path's, built at its first use
 
     x = _embed(cfg, params.embed, tokens)
     names = params.layers
@@ -298,16 +309,31 @@ def forward(cfg: ModelConfig, params: ModelParams, tokens: torch.Tensor,
             q = lin("wq", h, get("bq", l))
             k = lin("wk", h, get("bk", l))
             v = lin("wv", h, get("bv", l))
-        q = rope_apply(q.reshape(B, T, H, hd), tables)
+        q = q.reshape(B, T, H, hd)
+        if not fused_rope:
+            q = rope_apply(q, tables)
         k = rope_apply(k.reshape(B, T, Hkv, hd), tables)
         v = v.reshape(B, T, Hkv, hd)
         append_layer_stacked(k_all, v_all, l,
                              length if staging_at is None else staging_at,
                              k, v)
-        att = attention(q, k_all[l], v_all[l], mask, bias)
+        if fused_rope:
+            att = FD.flash_attention_decode(q, k_all[l], v_all[l], q_index,
+                                            length, cache.start, None,
+                                            rope=tables)
+        elif unstaged and FD.use_flash(q, k_all[l]):
+            att = FD.flash_attention_decode(q, k_all[l], v_all[l], q_index,
+                                            length, cache.start, attn_bias)
+        else:
+            if mask is None:
+                mask, bias = attention_mask(
+                    q_index, cache.start, cache.max_len, T,
+                    lengths if lengths is not None else length, attn_bias,
+                    staging_at)
+            att = attention(q, k_all[l], v_all[l], mask, bias)
         att2 = att.reshape(B, T, H * hd)
         if "wgu" in names and attn_mlp_fusable(
-                att2, names["wo"], names["wgu"], names["wdown"]):
+                att2, names["wo"], names["wgu"], names["wdown"], layer=l):
             # packed-int4 layer tail at decode/verify rows: one K2 call
             x = apply_attn_mlp(att2, x, names["wo"], names["wgu"],
                                names["wdown"], names["ln2"][l], eps, layer=l)

@@ -1,16 +1,17 @@
 """GPTQ dequantize-and-matmul kernels for the H100: the port's counterpart of
 `hsd_tpu/ops/gptq_pallas.py`.
 
-One wrapper for each Pallas kernel that the port's paths reach (K1-K5, K7).
+One wrapper for each Pallas kernel that the port's paths reach (K1-K7).
 Each has:
   * a plain PyTorch version beside it (`*_plain`), which the wrapper runs
     only for tensors on the CPU; on a CUDA tensor the wrapper launches the
     kernel or raises, never the plain version;
   * a launch counter, `<wrapper>.launches`, raised by one where the wrapper
-    launches its kernel and nowhere else (`reset_launches()` zeroes them);
+    launches its kernel and nowhere else (`hsd_tpu_torch.ops.launch_counts()`
+    reads every kernel's, `reset_launches()` zeroes them);
   * a note naming the TPU kernel it replaces and what bounds it on the card.
 
-K1-K5 launch one template in `csrc/gptq.cu` (see its header for the
+K1-K6 launch one template in `csrc/gptq.cu` (see its header for the
 design): a block owns 128 output columns for up to 16 activation rows and a
 share of the weight's rows, streams them once in 128-row tiles, dequantizes
 in registers and accumulates in f32; a second pass sums the shares in order.
@@ -114,6 +115,13 @@ def attn_mlp_int4_plain(att, resid, wo, so, wgu, sg, wdown, sd, ln, eps):
     f = gu.shape[-1] // 2
     ff = F.silu(gu[:, :f]) * gu[:, f:]
     return (xp + ff @ dequantize_int4(wdown, sd)).to(resid.dtype)
+
+
+def mlp_int4_plain(x, wgu, sg, wdown, sd, ln, eps):
+    gu = _rms_f32(x, ln, eps) @ dequantize_int4(wgu, sg)
+    f = gu.shape[-1] // 2
+    ff = F.silu(gu[:, :f]) * gu[:, f:]
+    return (ff @ dequantize_int4(wdown, sd)).to(x.dtype)
 
 
 # --------------------------------------------------------------------------
@@ -317,6 +325,42 @@ def attn_mlp_int4(att: torch.Tensor, resid: torch.Tensor,
 
 
 # --------------------------------------------------------------------------
+# K6 — replaces gptq_pallas.gptq_mlp_int4: _kernel_mlp_int4
+# (gptq_pallas.py:530). [g|u] = rmsnorm(x, ln) @ deq(Wgu), kept f32;
+# out = (silu(g) * u) @ deq(Wdown), rounded once. The SwiGLU MLP without
+# its residual: K2's last two launches of the template, the first with the
+# RMS prologue on x itself. Bound: two weight streams (14B layer: 70.8 +
+# 35.4 MB + scales, ~33 us at 3.35 TB/s). The counter counts one call per
+# MLP.
+
+def mlp_int4(x: torch.Tensor, wgu: torch.Tensor, sg: torch.Tensor,
+             wdown: torch.Tensor, sd: torch.Tensor, ln: torch.Tensor,
+             eps: float) -> torch.Tensor:
+    """The fused SwiGLU MLP; x [n, D] -> [n, D] in x.dtype. Both weights
+    packed int4, symmetric."""
+    if not x.is_cuda:
+        return mlp_int4_plain(x, wgu, sg, wdown, sd, ln, eps)
+    n, d = x.shape
+    gu_out = wgu.shape[-1]
+    f = 2 * wdown.shape[0]
+    dout = wdown.shape[-1]
+    if gu_out != 2 * f or wgu.shape[0] * 2 != d:
+        raise ValueError(f"inconsistent MLP shapes: x {tuple(x.shape)}, wgu "
+                         f"{tuple(wgu.shape)}, wdown {tuple(wdown.shape)}")
+    _check(x, "x", _ACT)
+    _check(ln, "ln", (torch.float32,), (d,))
+    _weight(wgu, sg, None, True, d, gu_out)
+    _weight(wdown, sd, None, True, f, dout)
+    gu = torch.empty((n, gu_out), dtype=torch.float32, device=x.device)
+    out = torch.empty((n, dout), dtype=x.dtype, device=x.device)
+    _launch(x, d, n, d, wgu, True, sg, None, ln, eps, PRO_RMS, None, gu)
+    _launch(gu, gu_out, n, f, wdown, True, sd, None, None, 0.0, PRO_SILU,
+            None, out)
+    mlp_int4.launches += 1
+    return out
+
+
+# --------------------------------------------------------------------------
 # K5 — replaces gptq_pallas.gptq_matmul(..., ln=) int8: _kernel_ln
 # (gptq_pallas.py:83). y = rmsnorm(x, ln) @ (code * scale), symmetric.
 # Bound: the weight stream (Llama-3.1-8B wqkv 4096 x 6144: 25.2 MB + 0.4 MB
@@ -393,15 +437,7 @@ def int8_matmul_bf16(x: torch.Tensor, qweight: torch.Tensor,
 
 
 WRAPPERS = {"K1": int4_ln_matmul, "K2": attn_mlp_int4, "K3": int4_matmul,
-            "K4": int8_matmul, "K5": int8_ln_matmul, "K7": int8_matmul_bf16}
+            "K4": int8_matmul, "K5": int8_ln_matmul, "K6": mlp_int4,
+            "K7": int8_matmul_bf16}
 for _w in WRAPPERS.values():
     _w.launches = 0
-
-
-def reset_launches() -> None:
-    for w in WRAPPERS.values():
-        w.launches = 0
-
-
-def launch_counts() -> dict:
-    return {k: w.launches for k, w in WRAPPERS.items()}

@@ -186,8 +186,16 @@ def apply_mlp(wgu, wdown, x: torch.Tensor, ln_w: torch.Tensor, eps: float,
               layer: Optional[int] = None,
               mxu_bf16: bool = False) -> torch.Tensor:
     """SwiGLU MLP: (silu(g) * u) @ wdown with [g | u] = rmsnorm(x) @ wgu,
-    without the residual add, as two apply_linear calls. (The JAX package's
-    one-kernel MLP, `gptq_mlp_int4`, is not ported yet.)"""
+    without the residual add. Where `mlp_fusable` holds, one fused call (K6,
+    `gu` and `silu(g) * u` kept in f32, as `gptq_mlp_int4`); elsewhere two
+    apply_linear calls."""
+    if mlp_fusable(x, wgu, wdown, layer):
+        if layer is not None:
+            wgu, wdown = wgu.layer(layer), wdown.layer(layer)
+        out = gptq_cuda.mlp_int4(x.reshape(-1, x.shape[-1]).contiguous(),
+                                 wgu.qweight, wgu.scales, wdown.qweight,
+                                 wdown.scales, ln_w, eps)
+        return out.reshape(*x.shape[:-1], out.shape[-1])
     f = wdown.din if isinstance(wdown, QuantizedLinear) else wdown.shape[-2]
     gu = apply_linear(wgu, x, layer=layer, norm=(ln_w, eps),
                       mxu_bf16=mxu_bf16)
@@ -195,24 +203,125 @@ def apply_mlp(wgu, wdown, x: torch.Tensor, ln_w: torch.Tensor, eps: float,
     return apply_linear(wdown, ff, layer=layer, mxu_bf16=mxu_bf16)
 
 
-def attn_mlp_fusable(att: torch.Tensor, wo, wgu, wdown) -> bool:
-    """Can the layer tail (wo + residual + SwiGLU MLP + residual) run as the
-    fused K2? All three packed int4, symmetric, without perm, with matching
-    shapes, at decode and verify row counts (the JAX gate's ≤ 32 rows)."""
-    ws = (wo, wgu, wdown)
-    if not all(isinstance(w, QuantizedLinear) for w in ws):
+# Fusion gates. The JAX package fuses the MLP (K6) and the layer tail (K2)
+# only where its Pallas block plan exists (gptq_pallas._mlp_blocks,
+# _attn_mlp_blocks), and a fused route rounds differently from the unfused
+# one, so the port keeps every condition of that plan which decides WHETHER
+# to fuse; the block sizes it picks are not ported.
+MAX_PACKED_ROWS = 3584          # one in-block of the gu / wo phase
+_MIB = 1024 * 1024
+_MLP_GU_BUDGET, _MLP_DOWN_BUDGET = 36 * _MIB, 52 * _MIB
+_AM_WO_BUDGET, _AM_GU_BUDGET, _AM_DOWN_BUDGET = 24 * _MIB, 37 * _MIB, 52 * _MIB
+
+
+def _out_block_fits(dout: int, budget: int, rows: int, npad: int) -> bool:
+    """`_divisor_block(dout, budget // (14 * rows + 16 * npad))` is nonzero:
+    a 128-multiple divisor of dout fits the budget's per-column limit."""
+    return dout % 128 == 0 and dout >= 128 and \
+        budget // (14 * rows + 16 * npad) >= 128
+
+
+def _down_block_rows(rows: int, gs: int) -> int:
+    """The wdown in-block of `_pick_block_in_packed`: all rows when they fit
+    MAX_PACKED_ROWS, else the largest multiple of gs that divides them."""
+    if rows <= MAX_PACKED_ROWS:
+        return rows
+    for d in range(MAX_PACKED_ROWS // gs, 0, -1):
+        if rows % (d * gs) == 0:
+            return d * gs
+    return rows
+
+
+def _int4_sym(*ws) -> bool:
+    return all(isinstance(w, QuantizedLinear) and w.packed_int4
+               and w.zeros is None and w.perm is None for w in ws)
+
+
+def _stacked_ok(layer, *ws) -> bool:
+    """The JAX route's `stacked_ok`: the weights are all layer-stacked with
+    a layer index given, or all 2-D without one."""
+    ndims = {w.qweight.dim() for w in ws}
+    return len(ndims) == 1 and (layer is not None) == (ndims.pop() == 3)
+
+
+def _mlp_plan(wgu, wdown, npad: int):
+    """`_mlp_blocks`' decision: the wdown in-block when the fused MLP has a
+    block plan for `npad` padded rows, else None."""
+    if not _int4_sym(wgu, wdown):
+        return None
+    Rg, GU = wgu.qweight.shape[-2:]
+    Rd, D = wdown.qweight.shape[-2:]
+    gg, gd = wgu.scales.shape[-2], wdown.scales.shape[-2]
+    if GU != 4 * Rd or gg % 2 or gd % 2:
+        return None
+    gs_g, gs_d = (2 * Rg) // gg, (2 * Rd) // gd
+    if gs_g % 64 or gs_d % 64 or GU % 128 or D % 128 or Rg % gs_g:
+        return None
+    if Rg > MAX_PACKED_ROWS:
+        return None
+    bid = _down_block_rows(Rd, gs_d)
+    if Rd % bid or bid % gs_d:
+        return None
+    if not (_out_block_fits(GU, _MLP_GU_BUDGET, Rg, npad)
+            and _out_block_fits(D, _MLP_DOWN_BUDGET, bid, npad)):
+        return None
+    return bid
+
+
+def _rows(x: torch.Tensor):
+    """(rows, padded rows) of an activation, as the JAX gates count them."""
+    n = x.numel() // x.shape[-1]
+    return n, max(8, -(-n // 8) * 8)
+
+
+def mlp_fusable(x: torch.Tensor, wgu, wdown,
+                layer: Optional[int] = None) -> bool:
+    """Can the SwiGLU MLP of `layer` (None: 2-D weights) run as the fused
+    K6? The JAX route's conditions (`linear.apply_mlp`'s `stacked_ok`, then
+    `mlp_fusion_supported`): both packed int4, symmetric, no perm, stacked
+    alike and indexed so, at most TAIL_MAX_ROWS rows and a block plan; plus
+    the shapes the JAX gate leaves unchecked (x's width)."""
+    if not (_int4_sym(wgu, wdown) and _stacked_ok(layer, wgu, wdown)):
         return False
-    if not all(w.packed_int4 and w.zeros is None and w.perm is None
-               for w in ws):
+    n, npad = _rows(x)
+    shapes_ok = (x.shape[-1] == wgu.din
+                 and wgu.qweight.shape[-1] == 2 * wdown.din)
+    return (shapes_ok and n <= gptq_cuda.TAIL_MAX_ROWS
+            and _mlp_plan(wgu, wdown, npad) is not None)
+
+
+def attn_mlp_fusable(att: torch.Tensor, wo, wgu, wdown,
+                     layer: Optional[int] = None) -> bool:
+    """Can the layer tail (wo + residual + SwiGLU MLP + residual) of
+    `layer` (None: 2-D weights) run as the fused K2? The JAX route's
+    conditions (`linear.attn_mlp_fusable`'s `stacked_ok`, then
+    `attn_mlp_fusion_supported`): all three packed int4, symmetric, no perm,
+    stacked alike and indexed so, at most TAIL_MAX_ROWS rows, the MLP's
+    block plan, wo's out-width equal to the MLP's in-width, even wo groups
+    of a multiple of 64, at most MAX_PACKED_ROWS packed wo rows, and every
+    phase's out-block under its budget; plus the shapes the JAX gate leaves
+    unchecked (wdown's out-width)."""
+    if not (_int4_sym(wo, wgu, wdown) and _stacked_ok(layer, wo, wgu, wdown)):
         return False
-    if len({w.qweight.dim() for w in ws}) != 1:
+    n, npad = _rows(att)
+    Rw, D = wo.qweight.shape[-2:]
+    Rg, GU = wgu.qweight.shape[-2:]
+    shapes_ok = (att.shape[-1] == wo.din and wgu.din == D
+                 and GU == 2 * wdown.din and wdown.qweight.shape[-1] == D)
+    if not shapes_ok or n > gptq_cuda.TAIL_MAX_ROWS:
         return False
-    d = wo.qweight.shape[-1]
-    shapes_ok = (att.shape[-1] == wo.din and wgu.din == d
-                 and wgu.qweight.shape[-1] == 2 * wdown.din
-                 and wdown.qweight.shape[-1] == d)
-    n_rows = att.numel() // att.shape[-1]
-    return shapes_ok and n_rows <= gptq_cuda.TAIL_MAX_ROWS
+    bid = _mlp_plan(wgu, wdown, npad)
+    if bid is None:
+        return False
+    gw = wo.scales.shape[-2]
+    if gw % 2:
+        return False
+    gs_w = (2 * Rw) // gw
+    if gs_w % 64 or Rw % gs_w or Rw > MAX_PACKED_ROWS:
+        return False
+    return (_out_block_fits(D, _AM_WO_BUDGET, Rw, npad)
+            and _out_block_fits(GU, _AM_GU_BUDGET, Rg, npad)
+            and _out_block_fits(D, _AM_DOWN_BUDGET, bid, npad))
 
 
 def apply_attn_mlp(att: torch.Tensor, x: torch.Tensor, wo, wgu, wdown,
@@ -220,7 +329,7 @@ def apply_attn_mlp(att: torch.Tensor, x: torch.Tensor, wo, wgu, wdown,
                    layer: Optional[int] = None) -> torch.Tensor:
     """The fused layer tail (K2): returns x' + mlp(rmsnorm(x')) with
     x' = x + att @ wo kept in f32. Gate with attn_mlp_fusable."""
-    if layer is not None and wo.qweight.dim() == 3:
+    if layer is not None:
         wo, wgu, wdown = wo.layer(layer), wgu.layer(layer), wdown.layer(layer)
     lead = x.shape[:-1]
     out = gptq_cuda.attn_mlp_int4(

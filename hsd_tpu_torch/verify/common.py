@@ -32,6 +32,21 @@ class VerifyResult(NamedTuple):
     rounds: torch.Tensor        # int64 scalar: multidraft rounds executed
 
 
+class Telemetry(NamedTuple):
+    """Per-block acceptance telemetry (the reference's return_probs
+    channel): one row per multidraft round; rows of rounds that did not run
+    stay zero (VerifyResult.rounds says how many ran)."""
+
+    step_back_probs: torch.Tensor  # [K, gamma] float32
+    p_i: torch.Tensor              # [K, gamma] float32
+    q_i: torch.Tensor              # [K, gamma] float32
+
+
+def telemetry_zeros(K: int, gamma: int, device) -> Telemetry:
+    return Telemetry(*(torch.zeros((K, gamma), dtype=torch.float32,
+                                   device=device) for _ in range(3)))
+
+
 def gather_token_probs(dist: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
     """dist: [T, V], tokens: [T] -> probs [T]."""
     return torch.gather(dist, -1, tokens[:, None])[:, 0]

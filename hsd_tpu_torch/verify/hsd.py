@@ -19,7 +19,7 @@ import torch.nn.functional as F
 from ..ops.sampling import gumbel, uniform
 from .common import (TINY, VerifyResult, categorical, gather_token_probs,
                      last_true_index, normalize, prefix_matches, scalar,
-                     scatter_commit, window_index)
+                     scatter_commit, telemetry_zeros, window_index)
 
 
 def hsd_noise(K: int, gamma: int, V: int,
@@ -38,8 +38,11 @@ def _safe_log(x: torch.Tensor) -> torch.Tensor:
 def verify_hsd(draft_tokens: torch.Tensor, q: torch.Tensor, p: torch.Tensor,
                noise: Optional[dict] = None,
                generator: Optional[torch.Generator] = None,
-               num_drafts: int = 0, frontier: str = "capped") -> VerifyResult:
-    """HSD-clever verification over K parallel drafts."""
+               num_drafts: int = 0, frontier: str = "capped",
+               return_telemetry: bool = False):
+    """HSD-clever verification over K parallel drafts. With
+    return_telemetry, returns (VerifyResult, Telemetry): per round, the
+    step-back probabilities of the window's valid positions and p_i, q_i."""
     R, gamma = draft_tokens.shape
     K = num_drafts if num_drafts else R
     V = p.shape[-1]
@@ -58,6 +61,7 @@ def verify_hsd(draft_tokens: torch.Tensor, q: torch.Tensor, p: torch.Tensor,
     has_seed = scalar(False, torch.bool, dev)
     zeros_v = torch.zeros((V,), dtype=f32, device=dev)
     zero1 = torch.zeros((1,), dtype=f32, device=dev)
+    tel = telemetry_zeros(K, gamma, dev) if return_telemetry else None
 
     for b in range(K):
         active = (~done) & prefix_matches(draft_tokens, b, ind, n)
@@ -129,6 +133,9 @@ def verify_hsd(draft_tokens: torch.Tensor, q: torch.Tensor, p: torch.Tensor,
         log_jp_seed = torch.where(active, new_log_jp, log_jp_seed)
         has_seed = torch.where(active, ~full, has_seed)
         rounds = rounds + active.to(i64)
+        if return_telemetry:
+            for row, val in zip(tel, (torch.where(valid, sbp, 0.0), p_i, q_i)):
+                row[b] = torch.where(active, val, row[b])
 
     ind_c = torch.clamp(ind, 0, R - 1)
     bonus = p.to(f32)[ind_c, gamma]
@@ -138,5 +145,6 @@ def verify_hsd(draft_tokens: torch.Tensor, q: torch.Tensor, p: torch.Tensor,
     final_dist = torch.where(done, bonus, resample)
     t = categorical(final_dist, noise["gumbel"])
     tokens = scatter_commit(draft_tokens[ind_c], t, n)
-    return VerifyResult(tokens=tokens, n_matches=n, draft_index=ind,
-                        rounds=rounds)
+    result = VerifyResult(tokens=tokens, n_matches=n, draft_index=ind,
+                          rounds=rounds)
+    return (result, tel) if return_telemetry else result

@@ -18,7 +18,7 @@ import torch
 from ..ops.sampling import gumbel, uniform
 from .common import (TINY, VerifyResult, categorical, gather_token_probs,
                      normalize, prefix_matches, scalar, scatter_commit,
-                     window_index)
+                     telemetry_zeros, window_index)
 
 
 def tokenwise_noise(K: int, gamma: int, V: int,
@@ -30,8 +30,10 @@ def tokenwise_noise(K: int, gamma: int, V: int,
 def verify_tokenwise(draft_tokens: torch.Tensor, q: torch.Tensor,
                      p: torch.Tensor, noise: Optional[dict] = None,
                      generator: Optional[torch.Generator] = None,
-                     num_drafts: int = 0) -> VerifyResult:
-    """Tokenwise verification over K parallel drafts."""
+                     num_drafts: int = 0, return_telemetry: bool = False):
+    """Tokenwise verification over K parallel drafts. With
+    return_telemetry, returns (VerifyResult, Telemetry): per round, the
+    step-back probabilities 1 - min(p_i / q_i, 1) and p_i, q_i."""
     R, gamma = draft_tokens.shape
     K = num_drafts if num_drafts else R
     V = p.shape[-1]
@@ -46,6 +48,7 @@ def verify_tokenwise(draft_tokens: torch.Tensor, q: torch.Tensor,
     done = scalar(False, torch.bool, dev)
     rounds = scalar(0, i64, dev)
     ar = torch.arange(gamma, device=dev)
+    tel = telemetry_zeros(K, gamma, dev) if return_telemetry else None
 
     for b in range(K):
         active = (~done) & prefix_matches(draft_tokens, b, ind, n)
@@ -78,8 +81,13 @@ def verify_tokenwise(draft_tokens: torch.Tensor, q: torch.Tensor,
         has_resid = torch.where(active, ~full, has_resid)
         done = torch.where(active, full, done)
         rounds = rounds + active.to(i64)
+        if return_telemetry:
+            sbp = 1.0 - torch.clamp(p_i / torch.clamp(q_i, min=TINY), max=1.0)
+            for row, val in zip(tel, (sbp, p_i, q_i)):
+                row[b] = torch.where(active, val.float(), row[b])
 
     t = categorical(resid, noise["gumbel"])
     tokens = scatter_commit(draft_tokens[torch.clamp(ind, 0, R - 1)], t, n)
-    return VerifyResult(tokens=tokens, n_matches=n, draft_index=ind,
-                        rounds=rounds)
+    result = VerifyResult(tokens=tokens, n_matches=n, draft_index=ind,
+                          rounds=rounds)
+    return (result, tel) if return_telemetry else result

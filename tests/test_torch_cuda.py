@@ -1,6 +1,6 @@
 """The port's CUDA kernels on the card: each wrapper against its plain
-version, a row's bits independent of the row count, and greedy spec == AR
-through the kernels. Marked `cuda`; each test skips when no card is present
+version (K1-K8), a row's bits independent of the row count, and greedy
+spec == AR through the kernels. Marked `cuda`; each test skips when no card is present
 (decided in a fixture, never at import). Run on the card with
 `python -m pytest tests/test_torch_cuda.py -q -m cuda`.
 
@@ -13,8 +13,12 @@ import torch
 from hsd_tpu_torch.config import EngineConfig, ModelConfig, VerifierConfig
 from hsd_tpu_torch.engine import make_autoregressive, make_generate
 from hsd_tpu_torch.eval.synthetic import init_quantized_params, quantize_draft
-from hsd_tpu_torch.models.transformer import fuse_params, init_params
+from hsd_tpu_torch.models.transformer import (fuse_params, init_params,
+                                              rope_tables)
+from hsd_tpu_torch.ops import flash_decode as FD
 from hsd_tpu_torch.ops import gptq_cuda as G
+from hsd_tpu_torch.ops import launch_counts, reset_launches
+from hsd_tpu_torch.ops.linear import QuantizedLinear, apply_mlp
 
 pytestmark = pytest.mark.cuda
 
@@ -131,9 +135,90 @@ def test_greedy_spec_equals_ar_through_kernels(dev):
     eng = EngineConfig(verifier=VerifierConfig(method="greedy", gamma=4),
                        max_new_tokens=32, temperature=0.0)
     prompt = (torch.arange(16, device=dev) % 300) + 3
-    G.reset_launches()
+    reset_launches()
     res = make_generate(cfg, cfg, eng)(draft, target, prompt, 12, None)
     toks, length = make_autoregressive(cfg, eng)(target, prompt, 12, None)
-    counts = G.launch_counts()
+    counts = launch_counts()
     assert min(counts[k] for k in ("K1", "K2", "K3", "K4")) > 0, counts
     assert res.tokens[16:res.length].tolist() == toks[16:length].tolist()
+
+
+@pytest.mark.parametrize("n", [1, 11])
+def test_k6_matches_plain(dev, n):
+    """K6 reached the way a model reaches it: apply_mlp on layer-stacked
+    weights with a layer index, one launch, against the plain version."""
+    g = torch.Generator(device=dev).manual_seed(40 + n)
+    x = torch.randn((n, 512), generator=g, device=dev).to(torch.bfloat16)
+    ln = torch.rand(512, generator=g, device=dev) + 0.5
+    wgu = QuantizedLinear(*(torch.stack(t) for t in zip(
+        *[_q4(g, dev, 512, 2048) for _ in range(2)])), None)
+    wd = QuantizedLinear(*(torch.stack(t) for t in zip(
+        *[_q4(g, dev, 1024, 512) for _ in range(2)])), None)
+    before = G.mlp_int4.launches
+    got = apply_mlp(wgu, wd, x, ln, 1e-6, layer=1)
+    assert G.mlp_int4.launches == before + 1
+    _close(got, G.mlp_int4_plain(x, wgu.qweight[1], wgu.scales[1],
+                                 wd.qweight[1], wd.scales[1], ln, 1e-6),
+           torch.bfloat16)
+
+
+def _attention_case(dev, dtype, T, H, Hkv, d, S, kv_len, start, bias, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q = (torch.randn((T, H, d), generator=g, device=dev) * 2).to(dtype)
+    k = torch.randn((S, Hkv, d), generator=g, device=dev).to(dtype)
+    v = torch.randn((S, Hkv, d), generator=g, device=dev).to(dtype)
+    q_index = kv_len + torch.arange(T, device=dev)
+    st = torch.tensor([start], device=dev)
+    ab = None
+    if bias:        # a trie mask: node i attends to its ancestor chain
+        anc = torch.rand((T, T), generator=g, device=dev) < 0.6
+        anc = torch.tril(anc) | torch.eye(T, dtype=torch.bool, device=dev)
+        ab = torch.where(anc, 0.0, -1e30)
+    cos2, sin2 = rope_tables((q_index - start)[None], d, 1e6)
+    return q, k, v, q_index, st, ab, (cos2[0, :, 0], sin2[0, :, 0])
+
+
+K8_CASES = [(1, 14, 2, 64, 204, 150, 3, False),      # 0.5B draft step
+            (11, 40, 8, 128, 204, 150, 0, False),    # 14B verify
+            (60, 32, 8, 128, 189, 100, 0, True),     # EAGLE tree
+            (2, 8, 2, 64, 1000, 998, 5, True),
+            (11, 40, 8, 128, 4192, 4100, 0, False)]  # long context
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("case", range(len(K8_CASES)))
+@pytest.mark.parametrize("fused_rope", [False, True])
+def test_k8_matches_plain(dev, dtype, case, fused_rope):
+    T, H, Hkv, d, S, kv_len, start, bias = K8_CASES[case]
+    q, k, v, qi, st, ab, rope = _attention_case(dev, dtype, T, H, Hkv, d, S,
+                                                kv_len, start, bias, case)
+    rope = rope if fused_rope else None
+    before = FD.flash_decode.launches
+    got = FD.flash_decode(q, k, v, qi, st, kv_len, ab, rope)
+    assert FD.flash_decode.launches == before + 1
+    want = FD.flash_core_plain(q, k, v, qi, st, kv_len, ab, rope).to(dtype)
+    assert got.shape == want.shape and got.dtype == dtype
+    _close(got, want, dtype)
+
+
+@pytest.mark.parametrize("fused_rope", [False, True])
+def test_k8_row_bits_independent_of_t(dev, fused_rope):
+    T, H, Hkv, d, S, kv_len = 11, 40, 8, 128, 1200, 1100
+    q, k, v, qi, st, _, rope = _attention_case(dev, torch.bfloat16, T, H,
+                                               Hkv, d, S, kv_len, 0, False, 9)
+    full = FD.flash_decode(q, k, v, qi, st, kv_len, None,
+                           rope if fused_rope else None)
+    for t in (0, 5, 10):
+        one = FD.flash_decode(
+            q[t:t + 1], k, v, qi[t:t + 1], st, kv_len + t, None,
+            (rope[0][t:t + 1], rope[1][t:t + 1]) if fused_rope else None)
+        assert torch.equal(one, full[t:t + 1])
+
+
+def test_k8_fully_masked_row_is_zero(dev):
+    q, k, v, _, st, _, _ = _attention_case(dev, torch.float32, 2, 4, 2, 64,
+                                           128, 40, 8, False, 3)
+    qi = torch.tensor([40, 6], device=dev)
+    out = FD.flash_decode(q, k, v, qi, st, 40)
+    assert torch.equal(out[1], torch.zeros_like(out[1]))
+    assert out[0].abs().max() > 0.1

@@ -15,6 +15,7 @@ import torch
 from hsd_tpu.ops import gptq_pallas as jgp
 from hsd_tpu.ops import linear as jlin
 from hsd_tpu_torch import bridge
+from hsd_tpu_torch.ops import launch_counts
 from hsd_tpu_torch.ops import gptq_cuda as G
 from hsd_tpu_torch.ops import linear as tlin
 
@@ -192,8 +193,8 @@ def test_tail_gate_rows():
 def test_cpu_wrappers_do_not_count_launches():
     """The counters count kernel launches only: plain-version calls on the
     CPU leave them untouched."""
-    before = G.launch_counts()
+    before = launch_counts()
     rng = np.random.default_rng(80)
     tq = bridge.convert(_jq(_w(rng, 256, 128), 8, False))
     G.int8_matmul(torch.randn(2, 256), tq.qweight, tq.scales, tq.zeros)
-    assert G.launch_counts() == before
+    assert launch_counts() == before
