@@ -86,6 +86,28 @@ Phases (any failure exits nonzero, with no result line):
                AR; K8 counted around each engine and its AR baseline apart
                must launch in both, but EAGLE's tree (it carries a bias)
                stays on the einsum route under FUSED_ATTN and launches none
+ 11. int4 eagle kernels  the int8 pair is freed; the same EAGLE pair with a
+               packed-int4 trunk and head (big_bits 4) is built; K7i4 (bf16
+               tensor-core operands on packed int4) at 129 and 480 rows on
+               wqkv and wgu with the norm, wo, wdown and the head, and K1/K3
+               at the prefill's 64 rows and the head at 1 row, against their
+               plain versions, timed as in phase 4; a row's bits at 129 vs
+               480 rows; an asymmetric int4 and int8 weight through the
+               bf16 route (apply_linear) vs plain; K7 (int8) launches only
+               for the int8 weight, K7i4 never at 128 rows
+ 12. int4 eagle serving  phase 9's serving run on the int4 pair (hsd_ref,
+               hsd, hsd_ref again with identical streams): K7i4, K1 and K3
+               must launch, K7 and K8 must not; the int8 run's BE beside it
+ 13. eagle-3 head  the EAGLE3-LLaMA3.1-8B config written to a file and read
+               by EagleConfig.from_json, a random v3 head int8-quantized by
+               quantize_eagle_params, served (hsd, 8 requests) over the int4
+               trunk as a plain target with its three feature taps (the head
+               is random: BE near 1 is expected); K4 (the head) and K7i4 must
+               launch; one make_eagle_generate with the static tree
+               mc_sim_7b_63; autotune_total_tokens over (23, 47, 59)
+ 14. greedy v3  on 2-layer float32 pairs with a packed-int4 trunk: greedy
+               v3 EAGLE, static-tree EAGLE and every EagleSlotEngine v3
+               request must equal AR
 The line before the last is the kernels' JSON summary; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -112,14 +134,18 @@ from hsd_tpu_torch.engine import (make_autoregressive, make_generate,
                                   make_prompt_lookup_generate,
                                   make_recursive_generate,
                                   make_stepwise_generate, make_stream_generate)
-from hsd_tpu_torch.engine.eagle_engine import make_eagle_generate
+from hsd_tpu_torch.engine.eagle_engine import (autotune_total_tokens,
+                                               make_eagle_generate)
 from hsd_tpu_torch.engine.eagle_server import EagleSlotEngine
 from hsd_tpu_torch.eval.synthetic import (build_coupled_eagle_pair,
                                           build_coupled_pair,
                                           init_quantized_params,
                                           make_coupled_eagle_target,
                                           make_coupled_target, quantize_draft)
-from hsd_tpu_torch.models.eagle import EagleConfig
+from hsd_tpu_torch.models.choices import (build_tree_buffers,
+                                          eagle_config_for_tree, mc_sim_7b_63)
+from hsd_tpu_torch.models.eagle import (EagleConfig, init_eagle_params,
+                                        quantize_eagle_params)
 from hsd_tpu_torch.engine.kvcache import init_cache
 from hsd_tpu_torch.models import transformer
 from hsd_tpu_torch.models.transformer import (fuse_params, init_params,
@@ -127,7 +153,8 @@ from hsd_tpu_torch.models.transformer import (fuse_params, init_params,
 from hsd_tpu_torch.ops import _build, launch_counts, reset_launches
 from hsd_tpu_torch.ops import flash_decode as FD
 from hsd_tpu_torch.ops import gptq_cuda as G
-from hsd_tpu_torch.ops.linear import QuantizedLinear, apply_mlp
+from hsd_tpu_torch.ops.linear import (QuantizedLinear, apply_linear,
+                                      apply_mlp, quantize, rms_norm)
 
 DEV = torch.device("cuda")
 HBM_BYTES_S = 3.35e12       # H100 SXM device memory rate
@@ -226,6 +253,65 @@ def check_kernel(name, label, n, run, plain, library, n_sets, nbytes, flops):
                              f"{TOL} x {scale}")
 
 
+def _bf16_plain(int8, x, w, ln, eps):
+    """K7 / K7i4's plain version: the norm-fused form with ln."""
+    if ln is not None:
+        fn = G.int8_ln_matmul_plain if int8 else G.int4_ln_matmul_plain
+        return fn(x, w.qweight, w.scales, ln, eps, bf16_operands=True)
+    fn = G.int8_matmul_plain if int8 else G.int4_matmul_plain
+    return fn(x, w.qweight, w.scales, w.zeros, bf16_operands=True)
+
+
+# kernel name -> (wrapper, plain version), each of (x, w, ln or None, eps)
+QUANT_CALLS = {
+    "K1": (lambda x, w, ln, eps: G.int4_ln_matmul(x, w.qweight, w.scales,
+                                                  ln, eps),
+           lambda x, w, ln, eps: G.int4_ln_matmul_plain(x, w.qweight,
+                                                        w.scales, ln, eps)),
+    "K3": (lambda x, w, ln, eps: G.int4_matmul(x, w.qweight, w.scales,
+                                               w.zeros),
+           lambda x, w, ln, eps: G.int4_matmul_plain(x, w.qweight, w.scales,
+                                                     w.zeros)),
+    "K4": (lambda x, w, ln, eps: G.int8_matmul(x, w.qweight, w.scales,
+                                               w.zeros),
+           lambda x, w, ln, eps: G.int8_matmul_plain(x, w.qweight, w.scales,
+                                                     w.zeros)),
+    "K5": (lambda x, w, ln, eps: G.int8_ln_matmul(x, w.qweight, w.scales,
+                                                  ln, eps),
+           lambda x, w, ln, eps: G.int8_ln_matmul_plain(x, w.qweight,
+                                                        w.scales, ln, eps)),
+    "K7": (lambda x, w, ln, eps: G.int8_matmul_bf16(x, w.qweight, w.scales,
+                                                    w.zeros, ln, eps),
+           lambda x, w, ln, eps: _bf16_plain(True, x, w, ln, eps)),
+    "K7i4": (lambda x, w, ln, eps: G.int4_matmul_bf16(x, w.qweight,
+                                                      w.scales, w.zeros, ln,
+                                                      eps),
+             lambda x, w, ln, eps: _bf16_plain(False, x, w, ln, eps)),
+}
+
+
+def quant_case(name, label, w: QuantizedLinear, n, act, ln, eps):
+    """One quantized product against its plain version (check_kernel) on
+    up to four layers of a stacked weight; ln: [layers, din] norm weights,
+    or None. The library call is a bf16 torch.matmul against the
+    pre-dequantized weight."""
+    stacked = w.qweight.dim() == 3
+    n_sets = min(4, w.qweight.shape[0]) if stacked else 1
+    ws = [w.layer(l) if stacked else w for l in range(n_sets)]
+    x = act(n, w.din)
+    dout = w.qweight.shape[-1]
+    kern, plain = QUANT_CALLS[name]
+    lnl = (lambda l: None) if ln is None else (lambda l: ln[l])
+    w_bf16 = deq_bf16(ws[0])
+    check_kernel(name, label, n, lambda l: kern(x, ws[l], lnl(l), eps),
+                 lambda l: plain(x, ws[l], lnl(l), eps),
+                 lambda l: torch.matmul(x, w_bf16), n_sets,
+                 qbytes(ws[0]) + x.numel() * 2 + n * dout * 2
+                 + (w.din * 4 if ln is not None else 0),
+                 2 * n * w.din * dout)
+    del w_bf16
+
+
 def kernel_phase(draft, target, cfg_b):
     g = torch.Generator(device=DEV).manual_seed(123)
     big = target.big.layers
@@ -238,39 +324,7 @@ def kernel_phase(draft, target, cfg_b):
         return torch.randn((n, d), generator=g, device=DEV).to(torch.bfloat16)
 
     def linear_case(name, label, w: QuantizedLinear, n):
-        stacked = w.qweight.dim() == 3
-        n_sets = min(4, w.qweight.shape[0]) if stacked else 1
-        ws = [w.layer(l) if stacked else w for l in range(n_sets)]
-        x = act(n, w.din)
-        dout = w.qweight.shape[-1]
-        if name == "K1":
-            def run(l):
-                return G.int4_ln_matmul(x, ws[l].qweight, ws[l].scales,
-                                        ln[l], eps)
-
-            def plain(l):
-                return G.int4_ln_matmul_plain(x, ws[l].qweight,
-                                              ws[l].scales, ln[l], eps)
-        elif name == "K3":
-            def run(l):
-                return G.int4_matmul(x, ws[l].qweight, ws[l].scales)
-
-            def plain(l):
-                return G.int4_matmul_plain(x, ws[l].qweight, ws[l].scales)
-        else:
-            def run(l):
-                return G.int8_matmul(x, ws[l].qweight, ws[l].scales,
-                                     ws[l].zeros)
-
-            def plain(l):
-                return G.int8_matmul_plain(x, ws[l].qweight, ws[l].scales,
-                                           ws[l].zeros)
-        w_bf16 = deq_bf16(ws[0])
-        check_kernel(name, label, n, run, plain,
-                     lambda l: torch.matmul(x, w_bf16), n_sets,
-                     qbytes(ws[0]) + x.numel() * 2 + n * dout * 2,
-                     2 * n * w.din * dout)
-        del w_bf16
+        quant_case(name, label, w, n, act, ln if name == "K1" else None, eps)
 
     # a row's bits do not depend on how many rows share its launch
     x = act(63, D)
@@ -981,14 +1035,14 @@ def eagle_kernel_phase(target, cfg):
     x = act(rows, D)
     w = big["wqkv"].layer(0)
     k5 = G.int8_ln_matmul(x[:60], w.qweight, w.scales, ln[0], eps)
-    k7 = G.int8_matmul_bf16(x, w.qweight, w.scales, ln[0], eps)
+    k7 = G.int8_matmul_bf16(x, w.qweight, w.scales, ln=ln[0], eps=eps)
     wd = big["wdown"].layer(0)
     xd = act(EAGLE_BUCKET, wd.din)
     k4 = G.int8_matmul(xd, wd.qweight, wd.scales)
     if not (torch.equal(G.int8_ln_matmul(x[:1], w.qweight, w.scales, ln[0],
                                          eps), k5[:1])
             and torch.equal(G.int8_matmul_bf16(x[:129], w.qweight, w.scales,
-                                               ln[0], eps), k7[:129])
+                                               ln=ln[0], eps=eps), k7[:129])
             and torch.equal(G.int8_matmul(xd[:1], wd.qweight, wd.scales),
                             k4[:1])):
         raise AssertionError("K4, K5 or K7 rows differ with the row count")
@@ -996,47 +1050,7 @@ def eagle_kernel_phase(target, cfg):
         f"K7 at 129 and {rows} rows, K4 (wdown) at 1 and {EAGLE_BUCKET}")
 
     def case(name, label, w: QuantizedLinear, n, norm):
-        stacked = w.qweight.dim() == 3
-        n_sets = min(4, w.qweight.shape[0]) if stacked else 1
-        ws = [w.layer(l) if stacked else w for l in range(n_sets)]
-        x = act(n, w.din)
-        dout = w.qweight.shape[-1]
-        if name == "K4":
-            def run(l):
-                return G.int8_matmul(x, ws[l].qweight, ws[l].scales)
-
-            def plain(l):
-                return G.int8_matmul_plain(x, ws[l].qweight, ws[l].scales)
-        elif name == "K5":
-            def run(l):
-                return G.int8_ln_matmul(x, ws[l].qweight, ws[l].scales,
-                                        ln[l], eps)
-
-            def plain(l):
-                return G.int8_ln_matmul_plain(x, ws[l].qweight, ws[l].scales,
-                                              ln[l], eps)
-        elif norm:
-            def run(l):
-                return G.int8_matmul_bf16(x, ws[l].qweight, ws[l].scales,
-                                          ln[l], eps)
-
-            def plain(l):
-                return G.int8_ln_matmul_plain(x, ws[l].qweight, ws[l].scales,
-                                              ln[l], eps, bf16_operands=True)
-        else:
-            def run(l):
-                return G.int8_matmul_bf16(x, ws[l].qweight, ws[l].scales)
-
-            def plain(l):
-                return G.int8_matmul_plain(x, ws[l].qweight, ws[l].scales,
-                                           bf16_operands=True)
-        w_bf16 = deq_bf16(ws[0])
-        check_kernel(name, label, n, run, plain,
-                     lambda l: torch.matmul(x, w_bf16), n_sets,
-                     qbytes(ws[0]) + x.numel() * 2 + n * dout * 2
-                     + (w.din * 4 if norm else 0),
-                     2 * n * w.din * dout)
-        del w_bf16
+        quant_case(name, label, w, n, act, ln if norm else None, eps)
 
     log("eagle kernels: K5 (int8, fused RMSNorm)")
     case("K5", "wqkv 4096x6144", big["wqkv"], 1, True)
@@ -1084,10 +1098,12 @@ def prefill_last_only(target, cfg, fwd):
     return dict(last_only_ms=ms[True], full_ms=ms[False], max_diff=diff)
 
 
-def eagle_serving(target, head, cfg, ecfg, trace):
+def eagle_serving(target, head, cfg, ecfg, trace,
+                  launched=("K4", "K5", "K7"), absent=("K8",),
+                  label="eagle"):
     """The EAGLE serving path at full width: every request's stream in
-    range and within budget; K4, K5 and K7 launched; a repeat run
-    identical."""
+    range and within budget; the `launched` kernels launched and the
+    `absent` ones not; a repeat run identical."""
     fwd = make_coupled_eagle_target(cfg, (-1,))
     prefill = prefill_last_only(target, cfg, fwd)
     rng = np.random.default_rng(0)
@@ -1129,23 +1145,25 @@ def eagle_serving(target, head, cfg, ecfg, trace):
             streams, sort_keys=True).encode()).hexdigest()[:16]
         out = dict(mode=mode, tok_s=toks / secs, be=be, tokens=toks,
                    blocks=blocks, secs=secs, launches=counts,
-                   streams=streams)
-        log(f"eagle serving {mode}: {toks} tokens in {secs:.2f}s = "
+                   streams=streams, sha256=digest)
+        log(f"{label} serving {mode}: {toks} tokens in {secs:.2f}s = "
             f"{toks / secs:.2f} tok/s, BE {be:.4f} over {blocks} slot-blocks; "
             f"streams sha256 {digest}; launches {counts}")
-        for k in ("K4", "K5", "K7"):
+        for k in launched:
             if counts[k] <= 0:
                 raise AssertionError(f"{mode}: {k} was not launched")
-        if counts["K8"]:
-            raise AssertionError(f"{mode}: K8 launched on the default path")
+        for k in absent:
+            if counts[k]:
+                raise AssertionError(f"{mode}: {k} launched {counts[k]} "
+                                     "times on this path")
         return out
 
     results = {mode: serve(mode) for mode in ("hsd_ref", "hsd")}
     again = serve("hsd_ref")
     if again["streams"] != results["hsd_ref"]["streams"]:
         raise AssertionError("hsd_ref streams differ between two runs")
-    log("eagle serving: a repeat hsd_ref run gives identical streams "
-        f"({again['tok_s']:.2f} tok/s)")
+    log(f"{label} serving: a repeat hsd_ref run gives identical streams "
+        f"(sha256 {again['sha256']}, {again['tok_s']:.2f} tok/s)")
     results["repeat_tok_s"] = again["tok_s"]
     results["prefill"] = prefill
     if trace:
@@ -1274,6 +1292,263 @@ def eagle_greedy_small():
         raise AssertionError("the greedy EAGLE pair did not launch K5")
 
 
+def int4_eagle_kernel_phase(target, cfg):
+    """Phase 11: K7i4 at the int4 pool forward's shapes (129 and 480 rows)
+    in both forms, K1/K3 at the prefill's, each against its plain version
+    and timed; a row's bits row-count-free; asymmetric weights through the
+    bf16 route; which of K7 and K7i4 launches where."""
+    g = torch.Generator(device=DEV).manual_seed(654)
+    big = target.big.layers
+    D, eps = cfg.hidden_size, cfg.rms_norm_eps
+    ln = torch.rand((4, D), generator=g, device=DEV) + 0.5
+    rows = EAGLE_SLOTS * 60           # the pool forward: 8 slots x 60 nodes
+
+    def act(n, d):
+        return torch.randn((n, d), generator=g, device=DEV).to(torch.bfloat16)
+
+    reset_launches()
+    # a row's bits do not depend on how many rows share its launch
+    x = act(rows, D)
+    w = big["wqkv"].layer(0)
+    wo = big["wo"].layer(0)
+    for norm in ({"ln": ln[0], "eps": eps}, {}):
+        full = G.int4_matmul_bf16(x, (w if norm else wo).qweight,
+                                  (w if norm else wo).scales, **norm)
+        part = G.int4_matmul_bf16(x[:129], (w if norm else wo).qweight,
+                                  (w if norm else wo).scales, **norm)
+        if not torch.equal(part, full[:129]):
+            raise AssertionError("K7i4 rows differ between 129 and "
+                                 f"{rows} rows (norm: {bool(norm)})")
+    log(f"int4 eagle kernels: K7i4 gives the same bits for a row at 129 and "
+        f"{rows} rows, with and without the norm")
+
+    def case(name, label, w: QuantizedLinear, n, norm):
+        quant_case(name, label, w, n, act, ln if norm else None, eps)
+
+    log("int4 eagle kernels: K7i4 (bf16 tensor-core operands, packed int4)")
+    for n in (129, rows):
+        case("K7i4", "wqkv 4096x6144 +norm", big["wqkv"], n, True)
+        case("K7i4", "wgu 4096x28672 +norm", big["wgu"], n, True)
+        case("K7i4", "wo 4096x4096", big["wo"], n, False)
+        case("K7i4", "wdown 14336x4096", big["wdown"], n, False)
+        case("K7i4", "lm_head 4096x128256", target.big.lm_head, n, False)
+    log("int4 eagle kernels: K1 and K3 at the prefill's shapes")
+    case("K1", "wqkv 4096x6144 +norm", big["wqkv"], EAGLE_BUCKET, True)
+    case("K1", "wgu 4096x28672 +norm", big["wgu"], EAGLE_BUCKET, True)
+    case("K3", "wo 4096x4096", big["wo"], EAGLE_BUCKET, False)
+    case("K3", "wdown 14336x4096", big["wdown"], EAGLE_BUCKET, False)
+    case("K3", "lm_head 4096x128256", target.big.lm_head, 1, False)
+    counts = launch_counts()
+    if counts["K7"]:
+        raise AssertionError(f"K7 (int8) launched over the int4 cases: "
+                             f"{counts}")
+
+    # asymmetric weights through the bf16 route: the norm first, rounded,
+    # then K7i4 / K7 with the zero-point correction
+    dense = (torch.randn((D, D), generator=g, device=DEV)
+             * D ** -0.5).to(torch.bfloat16)
+    x = act(rows, D)
+    lnw = ln[1]
+    for bits, key, plain in ((4, "K7i4", G.int4_matmul_plain),
+                             (8, "K7", G.int8_matmul_plain)):
+        qw = quantize(dense, bits=bits, group_size=128)
+        before = launch_counts()[key]
+        got = apply_linear(qw, x, norm=(lnw, eps), mxu_bf16=True)
+        if launch_counts()[key] != before + 1:
+            raise AssertionError(f"asymmetric int{bits}: {key} not launched")
+        want = plain(rms_norm(x, lnw, eps), qw.qweight, qw.scales, qw.zeros,
+                     bf16_operands=True)
+        err = (got.float() - want.float()).abs().max().item()
+        if not err <= TOL * want.float().abs().max().item():
+            raise AssertionError(f"asymmetric int{bits} through the bf16 "
+                                 f"route: error {err}")
+        log(f"int4 eagle kernels: asymmetric int{bits} {D}x{D} through the "
+            f"bf16 route ({key}), {rows} rows: error {err:.3e}")
+    # at 128 rows the bf16 operands do not apply: K1 / K3, never K7i4
+    before = launch_counts()
+    x = act(128, D)
+    apply_linear(w, x, norm=(ln[0], eps), mxu_bf16=True)
+    apply_linear(wo, x, mxu_bf16=True)
+    after = launch_counts()
+    used = {k: after[k] - before[k] for k in after if after[k] != before[k]}
+    if used != {"K1": 1, "K3": 1}:
+        raise AssertionError(f"128 rows with mxu_bf16: launches {used}")
+    log(f"int4 eagle kernels: at 128 rows apply_linear launches {used}; "
+        f"K7 (int8) launched {after['K7']} times over phase 11, for the "
+        "asymmetric int8 weight only")
+    if after["K7"] != 1:
+        raise AssertionError(f"K7 launches over phase 11: {after['K7']}")
+
+
+EAGLE3_CONFIG = {   # yuhuili/EAGLE3-LLaMA3.1-Instruct-8B, config.json
+    "architectures": ["LlamaForCausalLMEagle3"], "hidden_size": 4096,
+    "num_attention_heads": 32, "num_key_value_heads": 8,
+    "intermediate_size": 14336, "vocab_size": 128256,
+    "draft_vocab_size": 32000, "rms_norm_eps": 1e-05,
+    "rope_theta": 500000.0, "num_hidden_layers": 1}
+V3_REQS, V3_NEW = 8, 32
+
+
+def eagle3_phase(trunk, cfg):
+    """Phase 13: the EAGLE-3 head at full width over the int4 trunk, run as
+    a plain target with its three feature taps: K4 at the head's shapes
+    against its plain version, then a warm request and 8 served. The head
+    is random, so the trie is rarely accepted: BE near 1, no bar."""
+    import tempfile
+    with tempfile.TemporaryDirectory() as d:
+        path = f"{d}/config.json"
+        with open(path, "w") as f:
+            json.dump(EAGLE3_CONFIG, f)
+        ecfg = EagleConfig.from_json(path, top_k=10, depth=6,
+                                     total_tokens=59)
+    head = quantize_eagle_params(init_eagle_params(ecfg, seed=3, device=DEV),
+                                 bits=8)
+    torch.cuda.synchronize()
+    log(f"eagle-3 head: {ecfg.hidden_size} wide, fc {tuple(head.fc.qweight.shape)}, "
+        f"draft vocab {ecfg.draft_vocab_size}, int8 (groups of "
+        f"{head.wq.din // head.wq.scales.shape[0]}); "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+    # K4 at the head's shapes against its plain version: fc at 1 row and at
+    # the absorb window's 8 slots x 8 pairs, the rest at 1 row and at the
+    # beam's 8 slots x top_k
+    g = torch.Generator(device=DEV).manual_seed(987)
+
+    def act(n, d):
+        return torch.randn((n, d), generator=g, device=DEV).to(torch.bfloat16)
+
+    window = EAGLE_SLOTS * (ecfg.depth + 2)
+    for name, rows in (("fc", window), ("wq", EAGLE_SLOTS * ecfg.top_k),
+                       ("wgate", EAGLE_SLOTS * ecfg.top_k),
+                       ("wdown", EAGLE_SLOTS * ecfg.top_k),
+                       ("lm_head", EAGLE_SLOTS * ecfg.top_k)):
+        w = getattr(head, name)
+        for n in (1, rows):
+            quant_case("K4", f"head {name} {w.din}x{w.qweight.shape[-1]}", w,
+                       n, act, None, ecfg.rms_norm_eps)
+    rng = np.random.default_rng(3)
+    warm = rng.integers(10, 1000, (EAGLE_BUCKET,)).tolist()
+    prompts = [rng.integers(10, 1000, (int(rng.integers(32, 64)),)).tolist()
+               for _ in range(V3_REQS)]
+    se = EagleSlotEngine(cfg, ecfg, EngineConfig(max_new_tokens=V3_NEW,
+                                                 temperature=1.0),
+                         n_slots=EAGLE_SLOTS, bucket=EAGLE_BUCKET,
+                         params_t=trunk, params_e=head, mode="hsd", seed=1,
+                         steps_per_dispatch=EAGLE_MACRO,
+                         admit_batch=EAGLE_SLOTS)
+    se.submit(10_000, warm, max_new=4)
+    se.run_all()                                       # warm every path
+    torch.cuda.synchronize()
+    reset_launches()
+    for rid, p in enumerate(prompts):
+        se.submit(rid, p, max_new=V3_NEW)
+    t0 = time.perf_counter()
+    done = se.run_all()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = launch_counts()
+    if sorted(r.rid for r in done) != list(range(V3_REQS)):
+        raise AssertionError("eagle-3 serving: requests lost")
+    for r in done:
+        if not 1 <= len(r.out_tokens) <= V3_NEW or not all(
+                0 <= t < cfg.vocab_size for t in r.out_tokens):
+            raise AssertionError(f"eagle-3 serving: bad stream for {r.rid}")
+    if se.state["feat_buf"].shape[-1] != 3 * cfg.hidden_size:
+        raise AssertionError("eagle-3 serving: the feature buffer is not "
+                             "3 x the target width")
+    toks = sum(len(r.out_tokens) for r in done)
+    blocks = sum(r.blocks for r in done)
+    be = (sum(r.accepts for r in done) + blocks) / blocks
+    log(f"eagle-3 serving hsd ({V3_REQS} requests, {V3_NEW} new tokens, "
+        f"after a warm request): {toks} tokens in {secs:.2f}s = "
+        f"{toks / secs:.2f} tok/s, BE {be:.4f} over {blocks} slot-blocks "
+        f"(a random head: near 1 expected); launches {counts}")
+    for k in ("K4", "K7i4"):
+        if counts[k] <= 0:
+            raise AssertionError(f"eagle-3 serving: {k} was not launched")
+    out = dict(be=be, tok_s=toks / secs, launches=counts)
+
+    tree = build_tree_buffers(mc_sim_7b_63)
+    ecfg_t = eagle_config_for_tree(ecfg, tree)
+    prompt = torch.tensor(prompts[0], device=DEV)
+    prompt = torch.cat([torch.zeros(EAGLE_BUCKET - len(prompts[0]),
+                                    dtype=prompt.dtype, device=DEV), prompt])
+    t0 = time.perf_counter()
+    res = make_eagle_generate(cfg, ecfg_t, EngineConfig(
+        max_new_tokens=V3_NEW, temperature=1.0), mode="hsd",
+        static_tree=tree)(trunk, head, prompt, len(prompts[0]),
+                          torch.Generator(device=DEV).manual_seed(4))
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    got = res.tokens[EAGLE_BUCKET:res.length].tolist()
+    if not got or not all(0 <= t < cfg.vocab_size for t in got):
+        raise AssertionError("eagle-3 static tree: bad stream")
+    log(f"eagle-3 static tree mc_sim_7b_63 ({tree.num_nodes} nodes, depth "
+        f"{tree.depth}): {res.ncommit} tokens in {res.blocks} blocks "
+        f"({secs:.2f}s)")
+    best, stats = autotune_total_tokens(
+        cfg, ecfg, EngineConfig(max_new_tokens=16, temperature=1.0), trunk,
+        head, prompt, len(prompts[0]), seed=5)
+    log("eagle-3 autotune_total_tokens: " + ", ".join(
+        f"{tt} nodes {tps:.2f} tok/s" for tt, tps in stats.items())
+        + f"; picks {best.total_tokens}")
+    out["autotune"] = stats
+    return out
+
+
+def eagle_greedy_v3_small():
+    """Phase 14: 2-layer float32 pairs with a packed-int4 trunk and a
+    random int8 v3 head: greedy v3 EAGLE, static-tree EAGLE and every
+    EagleSlotEngine request equal AR (bf16 operands off: at more than 128
+    rows they cannot equal a 1-row f32 AR)."""
+    cfg = ModelConfig.tiny(vocab_size=512, hidden_size=256,
+                           intermediate_size=512, num_heads=4,
+                           num_kv_heads=2, dtype=torch.float32,
+                           attention_bias=False, tie_word_embeddings=False,
+                           eos_token_id=10**9)
+    target = init_quantized_params(cfg, seed=6, bits=4, device=DEV)
+    ecfg = EagleConfig(hidden_size=256, target_hidden_size=256, num_heads=4,
+                       num_kv_heads=2, vocab_size=512, draft_vocab_size=384,
+                       intermediate_size=512, rope_theta=cfg.rope_theta,
+                       top_k=4, depth=3, total_tokens=11,
+                       dtype=torch.float32, version=3)
+    head = quantize_eagle_params(init_eagle_params(ecfg, seed=7, device=DEV))
+    eng = EngineConfig(max_new_tokens=32, temperature=0.0)
+    ar = make_autoregressive(cfg, eng)
+
+    def ar_stream(prompt, plen):
+        toks, length = ar(target, prompt, plen, None)
+        return toks[prompt.shape[0]:length].tolist()
+
+    before = launch_counts()
+    prompt = (torch.arange(16, device=DEV) % 300) + 3
+    tree = build_tree_buffers(mc_sim_7b_63)
+    for name, e, kw in (("v3", ecfg, {}),
+                        ("static tree", eagle_config_for_tree(ecfg, tree),
+                         {"static_tree": tree})):
+        res = make_eagle_generate(cfg, e, eng, mode="greedy", **kw)(
+            target, head, prompt, 12, None)
+        a, b = res.tokens[16:res.length].tolist(), ar_stream(prompt, 12)
+        log(f"greedy {name} EAGLE 2-layer f32 int4: {len(a)} tokens in "
+            f"{res.blocks} blocks, == AR: {a == b}")
+        if a != b or len(a) < 32:
+            raise AssertionError(f"greedy {name} EAGLE != AR:\n{a}\n{b}")
+    se = EagleSlotEngine(cfg, ecfg, eng, n_slots=2, bucket=16,
+                         params_t=target, params_e=head, mode="greedy",
+                         steps_per_dispatch=2)
+    reqs = [list(range(3 + 7 * i, 14 + 7 * i)) for i in range(3)]
+    for rid, p in enumerate(reqs):
+        se.submit(rid, p, max_new=32)
+    for r in se.run_all():
+        padded = torch.tensor([0] * (16 - len(reqs[r.rid])) + reqs[r.rid],
+                              device=DEV)
+        if r.out_tokens != ar_stream(padded, len(reqs[r.rid])):
+            raise AssertionError(f"v3 server request {r.rid} != AR")
+    used = {k: v - before[k] for k, v in launch_counts().items()}
+    log(f"greedy v3: every EagleSlotEngine request == AR; launches {used}")
+    if used["K4"] <= 0 or used["K1"] <= 0:
+        raise AssertionError(f"greedy v3 missed a kernel: {used}")
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--trace", action="store_true",
@@ -1333,6 +1608,27 @@ def main():
     eagle_greedy_small()
     greedy_k8()
 
+    t0 = time.time()
+    head, etarget = build_coupled_eagle_pair(0, cfg_e, ecfg, scale=6.0,
+                                             lam=1.312, big_bits=4,
+                                             device=DEV)
+    torch.cuda.synchronize()
+    log(f"int4 EAGLE pair built in {time.time() - t0:.1f}s; "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+    int4_eagle_kernel_phase(etarget, cfg_e)
+    serving4 = eagle_serving(etarget, head, cfg_e, ecfg, args.trace,
+                             launched=("K1", "K3", "K7i4"),
+                             absent=("K7", "K8"), label="int4 eagle")
+    log("int4 eagle serving: " + ", ".join(
+        f"{m} BE {serving4[m]['be']:.4f} over {serving4[m]['blocks']} "
+        f"slot-blocks (the int8 pair's {serving[m]['be']:.4f} over "
+        f"{serving[m]['blocks']})" for m in ("hsd_ref", "hsd")))
+    del head
+    eagle3 = eagle3_phase(etarget.big, cfg_e)
+    del etarget
+    torch.cuda.empty_cache()
+    eagle_greedy_v3_small()
+
     src = "hsd_tpu_torch/csrc/gptq.cu"
     ecounts = serving["hsd_ref"]["launches"]
     # K6 and K8 over the opted-in runs of phases 5c-5e and 9f (K6: 0, the
@@ -1359,6 +1655,11 @@ def main():
                       "hsd_tpu/ops/gptq_pallas.py:102", ecounts["K7"]),
         summary_entry("K8", *K8_REP, "hsd_tpu_torch/csrc/flash_decode.cu",
                       "hsd_tpu/ops/flash_decode.py:49", k6k8["K8"]),
+        dict(summary_entry("K7i4", "wgu 4096x28672 +norm", EAGLE_SLOTS * 60,
+                           "hsd_tpu_torch/csrc/gptq_mma.cu",
+                           "hsd_tpu/ops/gptq_pallas.py:176",
+                           serving4["hsd_ref"]["launches"]["K7i4"]),
+             also_replaces="hsd_tpu/ops/gptq_pallas.py:117"),
     ]
     log(f"main path: hsd BE {results['hsd']['be']:.4f} "
         f"{results['hsd']['tok_s']:.2f} tok/s, tokenwise BE "
@@ -1375,6 +1676,11 @@ def main():
         + f"; eagle single request BE {eagle1['be']:.4f} "
         f"{eagle1['tok_s']:.2f} tok/s; K6/K8 launches {k6k8}; K6 through "
         f"apply_mlp (phase 4b) {mlp_counts['K6']}")
+    log("int4 eagle serving: " + ", ".join(
+        f"{m} BE {serving4[m]['be']:.4f} {serving4[m]['tok_s']:.2f} tok/s"
+        for m in ("hsd_ref", "hsd"))
+        + f"; eagle-3 head BE {eagle3['be']:.4f} {eagle3['tok_s']:.2f} "
+        "tok/s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

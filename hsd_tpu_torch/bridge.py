@@ -76,7 +76,9 @@ def cache_from_jax(cache, device="cpu") -> KVCache:
 
 
 def eagle_params_from_jax(params, device="cpu") -> EagleParams:
-    """A JAX `EagleParams` -> the port's (d2t as int64)."""
+    """A JAX `EagleParams` of either head version -> the port's (d2t as
+    int64); matmul fields quantized by `quantize_eagle_params` cross as
+    QuantizedLinear, fc_b stays None for a v3 head."""
     fields = {f: convert(getattr(params, f), device)
               for f in EagleParams._fields}
     fields["d2t"] = fields["d2t"].long()

@@ -1,35 +1,58 @@
-// K7: symmetric-int8 dequantize-and-matmul on the tensor cores for Hopper
-// (sm_90a), optionally with the RMSNorm fused in the activation read.
+// K7 and K7i4: int8 and packed-int4 dequantize-and-matmul on the tensor
+// cores for Hopper (sm_90a), optionally with the RMSNorm fused in the
+// activation read.
 //
 // Hand-written counterpart of the `mxu_bf16=True` mode of the Pallas kernels
-// `_kernel` and `_kernel_ln` in hsd_tpu/ops/gptq_pallas.py: both dot operands
-// are rounded to bf16 and the product accumulates in f32. The weight rounds
-// after its f32 dequantization code * scale, the activations after the norm
-// (x * rsqrt(mean(x^2) + eps) * ln, in f32).
+// `_kernel`, `_kernel_ln` (int8), `_kernel_int4` and `_kernel_int4_ln`
+// (packed int4) in hsd_tpu/ops/gptq_pallas.py, with the rank-1 correction
+// that gptq_matmul subtracts outside them (:500-526): both dot operands are
+// rounded to bf16 and the product accumulates in f32. The weight rounds
+// after its f32 dequantization code * scale, with the code AS STORED: the
+// signed int8 code, or the UNSIGNED nibble (code + 8, 0..15) of packed int4
+// (folding the -8 into the staged weight would round differently). The
+// activations round after the norm (x * rsqrt(mean(x^2) + eps) * ln, f32).
+// The correction sum_g xg[g] * (zero[g] + off) * scale[g] is subtracted in
+// f32 (off = 8 for packed int4, 0 for int8; zero = 0 for symmetric
+// weights), xg the group sums of the UNROUNDED f32 (normed) activations, and
+// the result rounds once to bf16.
 //
 // Regime: the slot-batched EAGLE tree forward stacks 8 slots x 60 trie tokens
 // = 480 rows. There the product is bound by operations, not by the weight
 // stream (at Llama-3.1-8B widths 6.7 TFLOP a pool step against 7.5 GB of
-// int8 weights), so it runs on the bf16 tensor cores.
+// int8 or 3.8 GB of int4 weights), so it runs on the bf16 tensor cores.
 //
 // Design: a block owns a 128-row x 128-column output tile and walks the whole
 // input dimension in k-slices of 64. For each slice it stages the activations
 // (normed in f32 first when ln is given) as bf16 in shared memory, row-major,
-// and the dequantized weight (int8 -> f32 code * scale -> bf16) transposed,
+// and the dequantized weight (code -> f32 code * scale -> bf16) transposed,
 // column-major, so that ldmatrix hands both mma.sync fragments over without a
-// transpose. Activations arrive as 16-byte vector loads. The next slice's
-// global loads are in flight while the eight warps (2 x 4, each 64 x 32
-// outputs) run mma.sync m16n8k16 bf16 -> f32. Row tiles are the fastest grid
-// axis, so the blocks that share a weight tile run together and read it from
-// L2 after the first. The k order of every output is fixed, and no block sums
-// another's partials: a row's bits do not depend on how many rows share the
-// launch. No floating-point atomics. Ragged rows and columns are masked.
+// transpose. The weight format is the kernel's template parameter. A packed
+// slice reads one nibble plane: with the split-half layout input row k <
+// din/2 is the low nibble of byte row k and row k >= din/2 the high nibble
+// of byte row k - din/2, and a 64-wide slice never straddles din/2 (din/2 is
+// a multiple of the group size, itself a multiple of 64); its scales are the
+// plane's own groups. Activations arrive as 16-byte vector loads. The next
+// slice's global loads are in flight while the eight warps (2 x 4, each
+// 64 x 32 outputs) run mma.sync m16n8k16 bf16 -> f32. Row tiles are the
+// fastest grid axis, so the blocks that share a weight tile run together and
+// read it from L2 after the first. A one-block-per-row pre-pass writes the
+// row's inverse RMS (with ln) and its group sums xg (with a correction),
+// each in a fixed order. At a group's first k-slice the block stages the
+// tile's xg and (zero + off) * scale beside the tiles, from the scales the
+// weight loader already holds, and every accumulator takes the group's
+// rank-1 correction (fmaf, f32) before the group's products, groups in
+// order; a symmetric int8 weight compiles without it. The k order of every
+// output is fixed, and no block sums another's partials: a row's bits
+// do not depend on how many rows share the launch. No floating-point
+// atomics. Ragged rows and columns are masked.
 //
-// Layouts (ops/linear.py of the port): w [din, dout] int8 codes; scales
-// [groups, dout] (bf16 or f32); group g covers input rows [g*gs, (g+1)*gs),
-// gs a multiple of 64. x [n, din] bf16, 16-byte aligned; ln [din] f32; the
-// output [n, dout] bf16. (The bf16-operand mode is taken by bf16 models only;
-// an f32-activation variant waits for a configuration that needs it.)
+// Layouts (ops/linear.py of the port): w [din, dout] int8 codes, or
+// [din/2, dout] uint8 split-half nibbles; scales [groups, dout] (bf16 or
+// f32); zeros [groups, dout] f32 or null; group g covers input rows
+// [g*gs, (g+1)*gs), gs a multiple of 64. x [n, din] bf16, 16-byte aligned;
+// ln [din] f32; the output [n, dout] bf16. (The bf16-operand mode is taken
+// by bf16 models only; an f32-activation variant waits for a configuration
+// that needs it.)
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -58,6 +81,10 @@ struct Args {
   float eps;
   float* inv;           // [n] inverse RMS of each row (ln only)
   __nv_bfloat16* out;   // [n, dout]
+  // the correction, after the fields the symmetric int8 kernel reads
+  const float* zeros;   // null: symmetric
+  float* xg;            // [n, groups] group sums (null: no correction)
+  float off;            // the correction's offset on the zero point
 };
 
 __device__ __forceinline__ float load_val(const void* p, int bf16, long long i) {
@@ -123,9 +150,15 @@ struct XSlice {
   }
 };
 
+// kPacked: split-half nibbles, else int8 codes; kCorr: a correction (packed
+// or zero points) to subtract, else none (symmetric int8).
+template <bool kPacked, bool kCorr>
 __global__ void __launch_bounds__(kThreads, 2) mma_kernel(const Args a) {
   __shared__ __align__(16) __nv_bfloat16 As[BM * LDS];   // [row][k]
   __shared__ __align__(16) __nv_bfloat16 Bs[BN * LDS];   // [col][k]
+  // kCorr: the current group's xg of the tile's rows [0, BM), then its
+  // columns' (zero + off) * scale [BM, BM + BN)
+  __shared__ float Cs[kCorr ? BM + BN : 1];
 
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
@@ -134,6 +167,7 @@ __global__ void __launch_bounds__(kThreads, 2) mma_kernel(const Args a) {
   const int col0 = blockIdx.y * BN;
   const int gs = a.din / a.groups;
   const int nslices = a.din / BK;
+  const int half = a.din / 2;           // packed: the high plane's first row
   const bool vec = (a.dout % 4) == 0;
 
   // loaders: activations of row ar, features [ak, ak + 32) of the slice;
@@ -170,15 +204,21 @@ __global__ void __launch_bounds__(kThreads, 2) mma_kernel(const Args a) {
   XSlice xs;
   uint32_t wraw[8];
   float sc[4];
+  float xgv = 0.f;            // kCorr: row ar's xg of the loaded slice's group
   auto load = [&](int t) {
     const int k0 = t * BK;
     xs.load(a, (long long)grow * a.din + k0 + ak, row_ok);
+    // packed: byte rows of the slice's nibble plane
+    const int r0 = kPacked && k0 >= half ? k0 - half : k0;
 #pragma unroll
-    for (int i = 0; i < 8; ++i) wraw[i] = load_w4(a, k0 + bk + i, gcol, vec);
+    for (int i = 0; i < 8; ++i) wraw[i] = load_w4(a, r0 + bk + i, gcol, vec);
     const long long si = (long long)(k0 / gs) * a.dout + gcol;
 #pragma unroll
     for (int c = 0; c < 4; ++c) {
       sc[c] = (gcol + c < a.dout) ? load_val(a.scales, a.s_bf16, si + c) : 0.f;
+    }
+    if (kCorr && k0 % gs == 0) {
+      xgv = row_ok ? a.xg[(long long)grow * a.groups + k0 / gs] : 0.f;
     }
   };
 
@@ -201,16 +241,33 @@ __global__ void __launch_bounds__(kThreads, 2) mma_kernel(const Args a) {
       }
       xd[q] = make_uint4(pr[0], pr[1], pr[2], pr[3]);
     }
+    if (kPacked) {            // the slice's nibble plane, four columns a word
+      const int shift = k0 >= half ? 4 : 0;
+#pragma unroll
+      for (int i = 0; i < 8; ++i) wraw[i] = (wraw[i] >> shift) & 0x0f0f0f0fu;
+    }
 #pragma unroll
     for (int c = 0; c < 4; ++c) {
       float wv[8];
 #pragma unroll
       for (int i = 0; i < 8; ++i) {
-        wv[i] = (float)(int)(int8_t)((wraw[i] >> (8 * c)) & 0xffu) * sc[c];
+        const uint32_t byte = (wraw[i] >> (8 * c)) & 0xffu;
+        wv[i] = (kPacked ? (float)byte : (float)(int)(int8_t)byte) * sc[c];
       }
       *reinterpret_cast<uint4*>(&Bs[(bc + c) * LDS + bk]) =
           make_uint4(pack_bf16(wv[0], wv[1]), pack_bf16(wv[2], wv[3]),
                      pack_bf16(wv[4], wv[5]), pack_bf16(wv[6], wv[7]));
+    }
+    if (kCorr && k0 % gs == 0) {              // a group's first slice
+      if (ak == 0) Cs[ar] = xgv;
+      if (bk == 0) {
+        const long long si = (long long)(k0 / gs) * a.dout + gcol;
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const float z = (a.zeros && gcol + c < a.dout) ? a.zeros[si + c] : 0.f;
+          Cs[BM + bc + c] = (z + a.off) * sc[c];
+        }
+      }
     }
   };
 
@@ -220,6 +277,23 @@ __global__ void __launch_bounds__(kThreads, 2) mma_kernel(const Args a) {
     store(t);
     __syncthreads();          // this slice is staged
     if (t + 1 < nslices) load(t + 1);
+    if (kCorr && (t * BK) % gs == 0) {
+      // the group's correction, once per group, as a rank-1 update of the
+      // accumulators: acc -= xg[row] * (zero + off) * scale[col]
+#pragma unroll
+      for (int mi = 0; mi < 4; ++mi)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const float xr = Cs[wm + mi * 16 + g + 8 * h];
+#pragma unroll
+          for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              acc[mi][ni][2 * h + e] =
+                  fmaf(-xr, Cs[BM + wn + ni * 8 + tg * 2 + e], acc[mi][ni][2 * h + e]);
+            }
+        }
+    }
 #pragma unroll
     for (int kk = 0; kk < BK; kk += 16) {
       uint32_t af[4][4], bf[2][4];
@@ -241,7 +315,7 @@ __global__ void __launch_bounds__(kThreads, 2) mma_kernel(const Args a) {
     }
   }
 
-#pragma unroll
+  #pragma unroll
   for (int mi = 0; mi < 4; ++mi) {
 #pragma unroll
     for (int ni = 0; ni < 4; ++ni) {
@@ -262,61 +336,99 @@ __global__ void __launch_bounds__(kThreads, 2) mma_kernel(const Args a) {
   }
 }
 
-// Inverse RMS of row blockIdx.x over its din features, summed in a fixed
-// order (lanes, then warps in order).
-__global__ void __launch_bounds__(kThreads) inv_rms_kernel(const Args a) {
+// Pre-pass, one block per row: the row's inverse RMS over its din features
+// (ln only) and its group sums xg of the f32 activations the kernel stages
+// before rounding, x * inv * ln with ln, else x (correction only). Each sum
+// in a fixed order: lanes strided over the features, a butterfly over the
+// warp, and (RMS) the warps in order; a group belongs to one warp.
+__global__ void __launch_bounds__(kThreads) prep_kernel(const Args a) {
   __shared__ float part[kWarps];
+  __shared__ float rinv;
   const long long base = (long long)blockIdx.x * a.din;
-  float s = 0.f;
-  for (int f = threadIdx.x; f < a.din; f += kThreads) {
-    const float v = __bfloat162float(a.x[base + f]);
-    s = fmaf(v, v, s);
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  if (a.ln) {
+    float s = 0.f;
+    for (int f = threadIdx.x; f < a.din; f += kThreads) {
+      const float v = __bfloat162float(a.x[base + f]);
+      s = fmaf(v, v, s);
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
+    if (lane == 0) part[warp] = s;
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      float t = part[0];
+#pragma unroll
+      for (int w = 1; w < kWarps; ++w) t += part[w];
+      rinv = rsqrtf(t / (float)a.din + a.eps);
+      a.inv[blockIdx.x] = rinv;
+    }
+    __syncthreads();
   }
+  if (!a.xg) return;
+  const int gs = a.din / a.groups;
+  for (int gi = warp; gi < a.groups; gi += kWarps) {
+    float s = 0.f;
+    for (int f = gi * gs + lane; f < (gi + 1) * gs; f += 32) {
+      float v = __bfloat162float(a.x[base + f]);
+      // the staged value's products, unfused: (x * inv) * ln
+      if (a.ln) v = __fmul_rn(__fmul_rn(v, rinv), a.ln[f]);
+      s = __fadd_rn(s, v);
+    }
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
-  if ((threadIdx.x & 31) == 0) part[threadIdx.x >> 5] = s;
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    float t = part[0];
-#pragma unroll
-    for (int w = 1; w < kWarps; ++w) t += part[w];
-    a.inv[blockIdx.x] = rsqrtf(t / (float)a.din + a.eps);
+    for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
+    if (lane == 0) a.xg[(long long)blockIdx.x * a.groups + gi] = s;
   }
 }
 
 }  // namespace
 
 // y[n, dout] = bf16(prologue(x)) @ bf16(code * scale), f32 accumulation,
-// rounded to bf16; x and y bf16.
-// ln may be null (no norm); with ln, inv is an [n] f32 workspace. Returns 0,
-// a CUDA error code from a launch, or kErrShape for a shape the kernel does
-// not take.
+// less the correction, rounded to bf16; x and y bf16. packed: w holds
+// split-half nibbles (off = 8), else int8 codes (off = 0). zeros may be null
+// (symmetric); ln may be null (no norm; with ln, zeros must be null and inv
+// is an [n] f32 workspace); xg is an [n, groups] f32 workspace, needed when
+// packed or with zeros. Returns 0, a CUDA error code from a launch, or
+// kErrShape for a shape the kernel does not take.
 extern "C" int hsd_gptq_mma(const void* x, int n, int din, const void* w,
-                            int dout, const void* scales, int s_bf16,
-                            int groups, const void* ln, float eps, void* inv,
+                            int packed, int dout, const void* scales,
+                            int s_bf16, const void* zeros, int groups,
+                            const void* ln, float eps, void* inv, void* xg,
                             void* out, void* stream) {
   if (n <= 0 || din <= 0 || dout <= 0 || groups <= 0 || din % groups) return kErrShape;
   if ((din / groups) % BK) return kErrShape;
-  if (ln && !inv) return kErrShape;
+  if (packed && (groups % 2)) return kErrShape;   // planes span whole groups
+  if (ln && (!inv || zeros)) return kErrShape;
+  if ((packed || zeros) && !xg) return kErrShape;
   const long long col_blocks = (dout + BN - 1) / BN;
   if (col_blocks > 65535) return kErrShape;
 
   Args a;
   a.x = reinterpret_cast<const __nv_bfloat16*>(x); a.n = n; a.din = din;
   a.w = reinterpret_cast<const uint8_t*>(w); a.dout = dout;
-  a.scales = scales; a.s_bf16 = s_bf16; a.groups = groups;
+  a.scales = scales; a.s_bf16 = s_bf16;
+  a.zeros = reinterpret_cast<const float*>(zeros); a.groups = groups;
   a.ln = reinterpret_cast<const float*>(ln); a.eps = eps;
   a.inv = reinterpret_cast<float*>(inv);
+  a.xg = (packed || zeros) ? reinterpret_cast<float*>(xg) : nullptr;
+  a.off = packed ? 8.f : 0.f;
   a.out = reinterpret_cast<__nv_bfloat16*>(out);
 
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  if (ln) {
-    inv_rms_kernel<<<n, kThreads, 0, s>>>(a);
+  if (a.ln || a.xg) {
+    prep_kernel<<<n, kThreads, 0, s>>>(a);
     const int err = (int)cudaGetLastError();
     if (err) return err;
   }
   const dim3 grid((n + BM - 1) / BM, (unsigned)col_blocks);
-  mma_kernel<<<grid, kThreads, 0, s>>>(a);
+  if (packed) {
+    mma_kernel<true, true><<<grid, kThreads, 0, s>>>(a);
+  } else if (a.xg) {
+    mma_kernel<false, true><<<grid, kThreads, 0, s>>>(a);
+  } else {
+    mma_kernel<false, false><<<grid, kThreads, 0, s>>>(a);
+  }
   return (int)cudaGetLastError();
 }
 

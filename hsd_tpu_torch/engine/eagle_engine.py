@@ -1,9 +1,9 @@
 """EAGLE decode orchestration (port of `hsd_tpu/engine/eagle_engine.py`):
 
     prefill target (collect the feature stream) -> trie draft
-    (models/eagle.py) -> ONE tree-masked target forward over the trie ->
-    trie verification (greedy / typical / trie-HSD) -> path KV compaction
-    -> next trie.
+    (models/eagle.py, or a static tree: models/choices.py) -> ONE
+    tree-masked target forward over the trie -> trie verification (greedy
+    / typical / trie-HSD) -> path KV compaction -> next trie.
 
 As in the JAX package: the head re-absorbs a FIXED window of (feature,
 token) pairs each block, and a feature buffer keeps the target features of
@@ -18,14 +18,17 @@ server's).
 """
 from __future__ import annotations
 
+import dataclasses
+import time
 from typing import NamedTuple, Optional, Tuple
 
 import torch
 
 from ..config import EngineConfig, ModelConfig
 from ..models import transformer
-from ..models.eagle import (EagleConfig, EagleParams, build_trie,
-                            gather_rows, head_forward, init_eagle_kv)
+from ..models.choices import StaticTree, build_static_trie
+from ..models.eagle import (EagleConfig, EagleParams, absorb, build_trie,
+                            gather_rows, init_eagle_kv)
 from ..ops.sampling import processor, sample
 from ..verify.trie import (verify_trie_greedy, verify_trie_hsd,
                            verify_trie_typical)
@@ -50,21 +53,56 @@ def default_feature_layers(cfg: ModelConfig) -> Tuple[int, int, int]:
     return (min(2, L - 1), L // 2, max(L - 3, 0))
 
 
-def _target_forward(cfg_t: ModelConfig, target_forward):
-    """`target_forward`, or the plain target with the final pre-norm hidden
-    state as its feature stream (EAGLE-1/2)."""
+def _target_forward(cfg_t: ModelConfig, ecfg: EagleConfig, target_forward):
+    """`target_forward`, or the plain target with the head's feature
+    stream: the final pre-norm hidden state for EAGLE-1/2, the inputs of
+    three layers for EAGLE-3."""
     if target_forward is not None:
         return target_forward
+    feats = (-1,) if ecfg.version == 1 else default_feature_layers(cfg_t)
     return (lambda p, t, c, ab, pos, lengths=None, staging_at=None,
             last_only=False:
             transformer.forward(cfg_t, p, t, c, attn_bias=ab, positions=pos,
-                                feature_layers=(-1,), lengths=lengths,
+                                feature_layers=feats, lengths=lengths,
                                 staging_at=staging_at, last_only=last_only))
+
+
+def autotune_total_tokens(cfg_t: ModelConfig, ecfg: EagleConfig,
+                          engine: EngineConfig, params_t, params_e,
+                          prompt: torch.Tensor, prompt_len: int,
+                          seed: int = 0, candidates=(23, 47, 59),
+                          mode: str = "hsd"):
+    """Pick the trie size by timing short generates, as the reference's
+    total_token auto-tune does (ea_model.py:143-164): per candidate one
+    warm run, then one timed run (host clock, synchronized). Returns (the
+    fastest EagleConfig, {candidate: committed tokens per second})."""
+    short = dataclasses.replace(engine,
+                                max_new_tokens=min(32, engine.max_new_tokens))
+    dev = prompt.device
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    stats = {}
+    best, best_tps = None, -1.0
+    for tt in candidates:
+        ecfg_c = dataclasses.replace(ecfg, total_tokens=tt)
+        gen = make_eagle_generate(cfg_t, ecfg_c, short, mode=mode)
+        gen(params_t, params_e, prompt, prompt_len,
+            torch.Generator(device=dev).manual_seed(seed))
+        sync()
+        t0 = time.perf_counter()
+        res = gen(params_t, params_e, prompt, prompt_len,
+                  torch.Generator(device=dev).manual_seed(seed + 1))
+        sync()
+        tps = res.ncommit / (time.perf_counter() - t0)
+        stats[tt] = tps
+        if tps > best_tps:
+            best, best_tps = ecfg_c, tps
+    return best, stats
 
 
 def make_eagle_block(cfg_t: ModelConfig, ecfg: EagleConfig,
                      engine: EngineConfig, mode: str = "hsd",
-                     target_forward=None):
+                     target_forward=None,
+                     static_tree: Optional[StaticTree] = None):
     """The reusable pieces of the eagenerate loop: returns `(prefill, block,
     absorb_window, commit)`, shared by `make_eagle_generate` (a loop around
     `block`), `make_eagle_pool` (absorb and commit around ONE slot-batched
@@ -80,9 +118,15 @@ def make_eagle_block(cfg_t: ModelConfig, ecfg: EagleConfig,
     target_forward: optional `(params, tokens, cache, attn_bias, positions,
     lengths=None, staging_at=None, last_only=False) -> (logits, cache,
     feats)`, e.g. eval.synthetic.make_coupled_eagle_target; the prefill
-    passes last_only=True and reads logits[:, -1]."""
-    if ecfg.version != 1:
-        raise NotImplementedError("only the EAGLE-1/2 head is ported so far")
+    passes last_only=True and reads logits[:, -1]. Without one, the plain
+    target runs with the head's feature stream (`_target_forward`).
+    static_tree: draft a fixed choice tree (models/choices.py) in place of
+    the beam trie; pass ecfg = choices.eagle_config_for_tree(ecfg, tree)."""
+    if static_tree is not None and (
+            (static_tree.num_nodes, static_tree.depth)
+            != (ecfg.total_tokens, ecfg.depth)):
+        raise ValueError("pass ecfg = choices.eagle_config_for_tree(ecfg, "
+                         "static_tree)")
     if mode not in ("greedy", "typical", "hsd", "hsd_ref"):
         raise ValueError(f"unknown mode {mode!r}")
     N = ecfg.total_tokens
@@ -92,7 +136,7 @@ def make_eagle_block(cfg_t: ModelConfig, ecfg: EagleConfig,
     temp = processor(engine.temperature, engine.top_k, engine.top_p)
     max_new = engine.max_new_tokens
     eos = cfg_t.eos_token_id
-    tfwd = _target_forward(cfg_t, target_forward)
+    tfwd = _target_forward(cfg_t, ecfg, target_forward)
 
     def prefill(params_t, params_e: EagleParams, prompt: torch.Tensor,
                 prompt_len: int, generator: Optional[torch.Generator]):
@@ -120,10 +164,8 @@ def make_eagle_block(cfg_t: ModelConfig, ecfg: EagleConfig,
         tokens[:, P] = root
         length = torch.full((1,), P + 1, dtype=torch.int64, device=dev)
         # head prefill absorb: pairs (feature_j, token_{j+1})
-        femb = params_e.embed[tokens[:, 1:P]].to(ecfg.dtype)
-        ppos = torch.arange(P - 1, device=dev)[None] - ekv.start[:, None]
-        _, ekv = head_forward(ecfg, params_e, femb, feat_buf[:, :P - 1], ekv,
-                              ppos)
+        _, ekv = absorb(ecfg, params_e, feat_buf[:, :P - 1], tokens[:, 1:P],
+                        ekv, torch.zeros((1,), dtype=torch.int64, device=dev))
         return tokens, length, tcache, ekv, feat_buf
 
     def absorb_window(params_e, ekv, feat_buf, tokens, upto):
@@ -137,8 +179,11 @@ def make_eagle_block(cfg_t: ModelConfig, ecfg: EagleConfig,
         twin = torch.gather(tokens, 1, torch.clamp(idx + 1, 0, S - 1))
         root = torch.gather(tokens, 1, torch.clamp(idx[:, -1:] + 1, 0,
                                                    S - 1))[:, 0]
-        return build_trie(ecfg, params_e, fwin, twin,
-                          ekv._replace(length=s0), s0, root)
+        ekv = ekv._replace(length=s0)
+        if static_tree is not None:
+            return build_static_trie(ecfg, params_e, fwin, twin, ekv, s0,
+                                     root, static_tree)
+        return build_trie(ecfg, params_e, fwin, twin, ekv, s0, root)
 
     def commit(trie, probs, tfeats, tokens, length, feat_buf,
                generator: Optional[torch.Generator]):
@@ -214,7 +259,8 @@ def make_eagle_block(cfg_t: ModelConfig, ecfg: EagleConfig,
 
 def make_eagle_pool(cfg_t: ModelConfig, ecfg: EagleConfig,
                     engine: EngineConfig, mode: str = "hsd",
-                    target_forward=None):
+                    target_forward=None,
+                    static_tree: Optional[StaticTree] = None):
     """Slot-BATCHED eagenerate block: one step for a whole pool of B slots
     with ONE target tree forward over the stacked tries, so the quantized
     products see B * (N+1) rows and stream each weight once (8 slots x 60
@@ -233,9 +279,10 @@ def make_eagle_pool(cfg_t: ModelConfig, ecfg: EagleConfig,
     per-slot math (shared `absorb_window` / `commit`)."""
     N = ecfg.total_tokens
     _, _, absorb_window, commit = make_eagle_block(
-        cfg_t, ecfg, engine, mode=mode, target_forward=target_forward)
+        cfg_t, ecfg, engine, mode=mode, target_forward=target_forward,
+        static_tree=static_tree)
     temp = processor(engine.temperature, engine.top_k, engine.top_p)
-    tfwd = _target_forward(cfg_t, target_forward)
+    tfwd = _target_forward(cfg_t, ecfg, target_forward)
 
     def pool_block(params_t, params_e: EagleParams, tokens, lengths, tcache,
                    ekv, feat_buf, generator: Optional[torch.Generator]):
@@ -267,15 +314,18 @@ def make_eagle_pool(cfg_t: ModelConfig, ecfg: EagleConfig,
 
 def make_eagle_generate(cfg_t: ModelConfig, ecfg: EagleConfig,
                         engine: EngineConfig, mode: str = "hsd",
-                        target_forward=None):
+                        target_forward=None,
+                        static_tree: Optional[StaticTree] = None):
     """Build `generate(params_target, eagle_params, prompt, prompt_len,
     generator) -> EagleGenerateResult` for mode in {'greedy', 'typical',
-    'hsd', 'hsd_ref'}. prompt: [P] int64 on the device, left-padded."""
+    'hsd', 'hsd_ref'}. prompt: [P] int64 on the device, left-padded.
+    static_tree: a fixed choice tree (see make_eagle_block)."""
     N = ecfg.total_tokens
     max_new = engine.max_new_tokens
     eos = cfg_t.eos_token_id
     prefill_fn, block_fn, _, _ = make_eagle_block(
-        cfg_t, ecfg, engine, mode=mode, target_forward=target_forward)
+        cfg_t, ecfg, engine, mode=mode, target_forward=target_forward,
+        static_tree=static_tree)
 
     def generate(params_t, params_e: EagleParams, prompt: torch.Tensor,
                  prompt_len: int, generator: Optional[torch.Generator] = None

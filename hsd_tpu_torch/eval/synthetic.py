@@ -11,10 +11,10 @@ quantization error (and `lam`). Full-width weights are built natively on
 the device from a seeded torch.Generator.
 
 The EAGLE twin (`build_coupled_eagle_pair`): a v1 head that computes an
-exact bigram oracle u(tok) at the full head cost, and a symmetric-int8 big
-trunk whose target logits are scale * standardize(u) + lam *
-standardize(big), so trie acceptance is set by (scale, lam) while every
-position pays the full big forward.
+exact bigram oracle u(tok) at the full head cost, and a symmetric quantized
+big trunk (int8, or packed int4 with big_bits=4) whose target logits are
+scale * standardize(u) + lam * standardize(big), so trie acceptance is set
+by (scale, lam) while every position pays the full big forward.
 """
 from __future__ import annotations
 
@@ -239,8 +239,10 @@ def build_coupled_eagle_pair(seed: int, cfg_big: ModelConfig,
                              lam: float = 0.0, big_bits: int = 8,
                              oov_scale: float = 0.5, device=None):
     """(head_params, CoupledEagleParams) at big geometry: a quantized big
-    trunk (symmetric int8 with big_bits=8) and the bigram-oracle v1 head,
-    sharing embed, fc and lm_head with the target's oracle.
+    trunk (symmetric int8 with big_bits=8, packed int4 with big_bits=4; an
+    int8 embedding and a head of the same width either way) and the
+    bigram-oracle v1 head, sharing embed, fc and lm_head with the target's
+    oracle. The oracle does not depend on big_bits.
 
     With a reduced draft vocab (draft_vocab_size < vocab_size) the head
     ranks the first Vd target ids and the oracle extends the same matrix

@@ -1,9 +1,15 @@
-"""EAGLE feature-level draft head and trie drafting (port of
-`hsd_tpu/models/eagle.py`, version-1 head).
+"""EAGLE feature-level draft heads and trie drafting (port of
+`hsd_tpu/models/eagle.py`).
 
-  * the EAGLE-1/2 head: hidden = fc(cat(token_emb, feature)) + bias, then
-    one decoder layer whose input norm is the identity, and the target's
-    lm_head over the draft vocabulary without an extra norm;
+  * the EAGLE-3 head (version 3): ONE fused decoder layer whose attention
+    reads cat(rmsnorm(token_emb), rmsnorm(hidden)), 2D wide, with the
+    hidden stream as its residual; fc fuses the target's three feature
+    layers (3*Dt -> D) where the head absorbs them; the head's own final
+    norm before its lm_head over the reduced draft vocabulary;
+  * the EAGLE-1/2 head (version 1): hidden = fc(cat(token_emb, feature)) +
+    bias, then one decoder layer whose input norm is the identity, and the
+    target's lm_head over the draft vocabulary without an extra norm;
+  * `quantize_eagle_params`: the head's matmuls as symmetric int8;
   * trie drafting: a depth-step beam search with top_k children per node and
     cumulative log-probs, then a global top-(total_tokens) cut over every
     scored node, the ancestor mask, depths and the leaf-to-root paths sorted
@@ -18,12 +24,14 @@ pointers depth + 1 times instead of scanning the N nodes.
 from __future__ import annotations
 
 import dataclasses
+import json
+import math
 from typing import NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
-from ..ops.linear import apply_linear, rms_norm
+from ..ops.linear import apply_linear, quantize, rms_norm
 from .transformer import resolve_device, rope_apply, rope_tables
 
 
@@ -45,45 +53,89 @@ class EagleConfig:
     total_tokens: int = 59   # nodes in the final trie EXCLUDING the root
     dtype: torch.dtype = torch.bfloat16
     # 3 = EAGLE-3 fused head, 1 = EAGLE-1/2 head (the JAX package's
-    # default and meaning); only version 1 is ported so far
+    # default and meaning)
     version: int = 3
 
     @property
     def head_dim(self) -> int:
         return self.hidden_size // self.num_heads
 
+    @staticmethod
+    def from_json(path: str, **overrides) -> "EagleConfig":
+        """An EAGLE head config JSON (the reference's EConfig files): the
+        fields the head reads, with the reference's defaults."""
+        with open(path) as f:
+            c = json.load(f)
+        d = dict(
+            hidden_size=c["hidden_size"],
+            target_hidden_size=c.get("target_hidden_size", c["hidden_size"]),
+            num_heads=c["num_attention_heads"],
+            num_kv_heads=c.get("num_key_value_heads",
+                               c["num_attention_heads"]),
+            vocab_size=c["vocab_size"],
+            draft_vocab_size=c.get("draft_vocab_size", c["vocab_size"]),
+            rms_norm_eps=c.get("rms_norm_eps", 1e-5),
+            rope_theta=c.get("rope_theta", 500000.0),
+            intermediate_size=c.get("intermediate_size", 0),
+        )
+        d.update(overrides)
+        return EagleConfig(**d)
+
 
 class EagleParams(NamedTuple):
+    """The head's weights; each matmul field is a dense tensor or a
+    QuantizedLinear (`quantize_eagle_params`)."""
+
     embed: torch.Tensor      # [V, D] target embeddings
-    fc: torch.Tensor         # [2*D, D]
-    ln_input: torch.Tensor   # [D] unused by the v1 head (identity)
-    ln_hidden: torch.Tensor  # [D] unused by the v1 head
-    wq: torch.Tensor         # [D, H*hd]
-    wk: torch.Tensor         # [D, Hkv*hd]
-    wv: torch.Tensor         # [D, Hkv*hd]
+    fc: torch.Tensor         # [3*Dt, D] (v3) / [2*D, D] (v1)
+    ln_input: torch.Tensor   # [D] token-embedding norm (v3; v1: unused)
+    ln_hidden: torch.Tensor  # [D] hidden-stream norm (v3; v1: unused)
+    wq: torch.Tensor         # [2D, H*hd] (v3) / [D, H*hd] (v1)
+    wk: torch.Tensor         # [2D, Hkv*hd] / [D, Hkv*hd]
+    wv: torch.Tensor         # [2D, Hkv*hd] / [D, Hkv*hd]
     wo: torch.Tensor         # [H*hd, D]
     ln_post: torch.Tensor    # [D]
     wgate: torch.Tensor      # [D, F]
     wup: torch.Tensor        # [D, F]
     wdown: torch.Tensor      # [F, D]
-    norm: torch.Tensor       # [D] unused by the v1 head
+    norm: torch.Tensor       # [D] final norm before lm_head (v3; v1: unused)
     lm_head: torch.Tensor    # [D, Vd]
     d2t: torch.Tensor        # [Vd] int64: target_id = draft_id + d2t
     t2d: torch.Tensor        # [V] bool membership
-    fc_b: Optional[torch.Tensor] = None   # [D] fc bias
+    fc_b: Optional[torch.Tensor] = None   # [D] fc bias (v1 only)
 
 
-def _check_version(cfg: EagleConfig):
-    if cfg.version != 1:
-        raise NotImplementedError("only the EAGLE-1/2 head (version=1) is "
-                                  "ported so far")
+def init_eagle_params(cfg: EagleConfig, seed: int = 0,
+                      device=None) -> EagleParams:
+    """Random EAGLE-3 head from a seeded torch.Generator on the device:
+    fc [3*Dt, D], the attention 2D wide."""
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    D, Dt = cfg.hidden_size, cfg.target_hidden_size
+    Fi = cfg.intermediate_size or 4 * D
+    H, Hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+
+    def dense(shape):
+        w = torch.randn(shape, generator=gen, device=dev, dtype=torch.float32)
+        return (w * shape[0] ** -0.5).to(cfg.dtype)
+
+    ones = lambda: torch.ones((D,), device=dev)
+    return EagleParams(
+        embed=dense((cfg.vocab_size, D)), fc=dense((3 * Dt, D)),
+        ln_input=ones(), ln_hidden=ones(),
+        wq=dense((2 * D, H * hd)), wk=dense((2 * D, Hkv * hd)),
+        wv=dense((2 * D, Hkv * hd)), wo=dense((H * hd, D)), ln_post=ones(),
+        wgate=dense((D, Fi)), wup=dense((D, Fi)), wdown=dense((Fi, D)),
+        norm=ones(), lm_head=dense((D, cfg.draft_vocab_size)),
+        d2t=torch.zeros((cfg.draft_vocab_size,), dtype=torch.int64,
+                        device=dev),
+        t2d=torch.ones((cfg.vocab_size,), dtype=torch.bool, device=dev))
 
 
 def init_eagle_params_v1(cfg: EagleConfig, seed: int = 0, device=None,
                          target_lm_head: Optional[torch.Tensor] = None
                          ) -> EagleParams:
     """Random EAGLE-1/2 head from a seeded torch.Generator on the device."""
-    _check_version(cfg)
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
     D = cfg.hidden_size
@@ -110,6 +162,26 @@ def init_eagle_params_v1(cfg: EagleConfig, seed: int = 0, device=None,
         t2d=torch.ones((cfg.vocab_size,), dtype=torch.bool, device=dev))
 
 
+def quantize_eagle_params(params: EagleParams, bits: int = 8,
+                          group_size: int = 128) -> EagleParams:
+    """The head's matmuls (fc, wq/wk/wv/wo, wgate/wup/wdown, lm_head) as
+    symmetric GPTQ weights with groups of gcd(rows, group_size), bit for
+    bit as the JAX package quantizes them; embed, the norms, d2t and t2d
+    stay dense. The head only proposes: the verifier keeps the target's
+    law whatever the head's precision, so this moves acceptance rates only.
+    The head's products pass no mxu_bf16, so they keep f32 operands at
+    every row count."""
+    def qz(w):
+        gs = math.gcd(w.shape[0], group_size)
+        return quantize(w.float(), bits=bits, group_size=gs, symmetric=True)
+
+    return params._replace(
+        fc=qz(params.fc), wq=qz(params.wq), wk=qz(params.wk),
+        wv=qz(params.wv), wo=qz(params.wo), wgate=qz(params.wgate),
+        wup=qz(params.wup), wdown=qz(params.wdown),
+        lm_head=qz(params.lm_head))
+
+
 class EagleKV(NamedTuple):
     k: torch.Tensor        # [B, S, Hkv, hd]
     v: torch.Tensor
@@ -130,20 +202,28 @@ def head_forward(cfg: EagleConfig, p: EagleParams, token_emb: torch.Tensor,
                  hidden: torch.Tensor, kv: EagleKV, positions: torch.Tensor,
                  kv_mask: Optional[torch.Tensor] = None
                  ) -> Tuple[torch.Tensor, EagleKV]:
-    """One fused-decoder-layer forward of the v1 head.
+    """One fused-decoder-layer forward of the head.
 
-    token_emb, hidden: [B, T, D]; positions: [B, T] RoPE positions;
+    token_emb: [B, T, D] embeddings of the (shifted) tokens; hidden:
+    [B, T, D] the feature branch (target features through fc for v3, raw
+    for v1, or the head's own outputs during the beam); positions: [B, T];
     kv_mask: [B, T, S] attention mask override (True = attend), else
     causal by slot from each row's frontier. Row b writes its T keys at
     kv.length[b], clipped so they fit (as dynamic_update_slice clips).
     Returns (out_hidden [B, T, D], kv with length += T).
     """
-    _check_version(cfg)
     B, T, D = token_emb.shape
     H, Hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     dev = token_emb.device
-    x = apply_linear(p.fc, torch.cat([token_emb, hidden], -1), p.fc_b)
-    residual = x
+    if cfg.version == 1:
+        # hidden = fc(cat(emb, hidden)) + bias; the input norm is identity
+        x = apply_linear(p.fc, torch.cat([token_emb, hidden], -1), p.fc_b)
+        residual = x
+    else:
+        residual = hidden
+        eps = cfg.rms_norm_eps
+        x = torch.cat([rms_norm(token_emb, p.ln_input, eps),
+                       rms_norm(hidden, p.ln_hidden, eps)], -1)
     tables = rope_tables(positions, hd, cfg.rope_theta, cfg.rope_scaling)
     q = rope_apply(apply_linear(p.wq, x).reshape(B, T, H, hd), tables)
     k = rope_apply(apply_linear(p.wk, x).reshape(B, T, Hkv, hd), tables)
@@ -177,10 +257,11 @@ def head_forward(cfg: EagleConfig, p: EagleParams, token_emb: torch.Tensor,
 
 def draft_logp(cfg: EagleConfig, p: EagleParams,
                hidden: torch.Tensor) -> torch.Tensor:
-    """log-softmax over the DRAFT vocab; the v1 head applies the target
-    lm_head directly, with no extra norm."""
-    _check_version(cfg)
-    return torch.log_softmax(apply_linear(p.lm_head, hidden).float(), -1)
+    """log-softmax over the DRAFT vocab: v3 norms with the head's final
+    norm first; the v1 head applies the target lm_head directly."""
+    h = (hidden if cfg.version == 1
+         else rms_norm(hidden, p.norm, cfg.rms_norm_eps))
+    return torch.log_softmax(apply_linear(p.lm_head, h).float(), -1)
 
 
 class Trie(NamedTuple):
@@ -206,6 +287,22 @@ def gather_rows(t: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return g.reshape(shape)
 
 
+def absorb(cfg: EagleConfig, p: EagleParams, target_features: torch.Tensor,
+           tokens: torch.Tensor, kv: EagleKV, prefix_len: torch.Tensor
+           ) -> Tuple[torch.Tensor, EagleKV]:
+    """Absorb T accepted (feature, token) pairs of every row into the head
+    KV at prefix_len: v3 fuses the feature layers through fc first, v1's fc
+    runs inside head_forward. Returns (out_hidden [B, T, D], kv')."""
+    feat = target_features.to(cfg.dtype)
+    if cfg.version != 1:
+        feat = apply_linear(p.fc, feat)
+    emb = p.embed[tokens].to(cfg.dtype)
+    T = tokens.shape[1]
+    pos = prefix_len[:, None] + torch.arange(T, device=tokens.device)[None] \
+        - kv.start[:, None]
+    return head_forward(cfg, p, emb, feat, kv, pos)
+
+
 def build_trie(cfg: EagleConfig, p: EagleParams,
                target_features: torch.Tensor, tokens: torch.Tensor,
                kv: EagleKV, prefix_len: torch.Tensor,
@@ -214,7 +311,8 @@ def build_trie(cfg: EagleConfig, p: EagleParams,
     cnets.py:670-827).
 
     target_features: [B, T, Dt] target features of the newly accepted
-    tokens; tokens: [B, T] the (shifted) token ids; kv holds the head's
+    tokens ([B, T, 3*Dt], the three feature layers, for v3, absorbed
+    through fc); tokens: [B, T] the (shifted) token ids; kv holds the head's
     prefix KV and prefix_len [B] its valid positions; root_token [B] the
     newest committed token. Returns (Trie, kv') with kv' holding prefix + T
     entries; the trie region written during the beam is scratch past
@@ -224,11 +322,7 @@ def build_trie(cfg: EagleConfig, p: EagleParams,
     B, T = tokens.shape
     dev = tokens.device
     i64 = torch.int64
-    feat = target_features.to(cfg.dtype)
-    emb = p.embed[tokens].to(cfg.dtype)
-    pos = prefix_len[:, None] + torch.arange(T, device=dev)[None] \
-        - kv.start[:, None]
-    out_hidden, kv = head_forward(cfg, p, emb, feat, kv, pos)
+    out_hidden, kv = absorb(cfg, p, target_features, tokens, kv, prefix_len)
     last_hidden = out_hidden[:, -1]                      # [B, D]
     kv_stable = kv
 

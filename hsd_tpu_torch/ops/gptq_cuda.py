@@ -1,8 +1,8 @@
 """GPTQ dequantize-and-matmul kernels for the H100: the port's counterpart of
 `hsd_tpu/ops/gptq_pallas.py`.
 
-One wrapper for each Pallas kernel that the port's paths reach (K1-K7).
-Each has:
+One wrapper for each Pallas kernel that the port's paths reach (K1-K7,
+K7i4). Each has:
   * a plain PyTorch version beside it (`*_plain`), which the wrapper runs
     only for tensors on the CPU; on a CUDA tensor the wrapper launches the
     kernel or raises, never the plain version;
@@ -15,9 +15,10 @@ K1-K6 launch one template in `csrc/gptq.cu` (see its header for the
 design): a block owns 128 output columns for up to 16 activation rows and a
 share of the weight's rows, streams them once in 128-row tiles, dequantizes
 in registers and accumulates in f32; a second pass sums the shares in order.
-K7 is the tensor-core kernel of `csrc/gptq_mma.cu` for the bf16-operand mode
-at 129-1024 rows. In both, nothing in an output's summation order depends on
-the row count, so a row's bits do not either.
+K7 (int8) and K7i4 (packed int4) are the tensor-core template of
+`csrc/gptq_mma.cu` for the bf16-operand mode at 129-1024 rows. In both,
+nothing in an output's summation order depends on the row count, so a
+row's bits do not either.
 
 Layouts are those of `ops/linear.QuantizedLinear`: packed int4 is uint8
 [din/2, dout] split-half with nibbles stored as code+8; int8 is [din, dout];
@@ -48,9 +49,7 @@ def dequantize_int4(qweight: torch.Tensor, scales: torch.Tensor,
                     zeros: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Packed int4 [din/2, dout] -> f32 [din, dout] weight
     (nibble - 8 - zero) * scale, split-half rows."""
-    b = qweight.to(torch.int32)
-    codes = torch.cat([(b & 15) - 8, (b >> 4) - 8], dim=0).float()
-    return _apply_groups(codes, scales, zeros)
+    return _apply_groups(_nibbles(qweight) - 8, scales, zeros)
 
 
 def dequantize_int8(qweight: torch.Tensor, scales: torch.Tensor,
@@ -74,39 +73,79 @@ def _rms_f32(x: torch.Tensor, ln: torch.Tensor, eps: float) -> torch.Tensor:
     return xf * r * ln.float()
 
 
-def int4_ln_matmul_plain(x, qweight, scales, ln, eps):
-    return (_rms_f32(x, ln, eps) @ dequantize_int4(qweight, scales)).to(x.dtype)
-
-
-def int4_matmul_plain(x, qweight, scales, zeros=None):
-    return (x.float() @ dequantize_int4(qweight, scales, zeros)).to(x.dtype)
-
-
 def _bf16_round(t: torch.Tensor) -> torch.Tensor:
     return t.to(torch.bfloat16).float()
 
 
+def _nibbles(qweight: torch.Tensor) -> torch.Tensor:
+    """Packed int4 [din/2, dout] -> the stored UNSIGNED nibbles (code + 8,
+    0..15) as f32 [din, dout], split-half rows."""
+    b = qweight.to(torch.int32)
+    return torch.cat([b & 15, b >> 4], dim=0).float()
+
+
+def _bf16_weight(codes: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
+    """The bf16-operand mode's staged weight: bf16(code * f32(scale)), codes
+    as stored (unsigned nibbles for int4), no zero point."""
+    din, dout = codes.shape
+    g = scales.shape[0]
+    w = codes.reshape(g, din // g, dout) * scales.float()[:, None, :]
+    return _bf16_round(w.reshape(din, dout))
+
+
+def _correction(xf: torch.Tensor, scales: torch.Tensor,
+                zeros: Optional[torch.Tensor], offset: float) -> torch.Tensor:
+    """sum_g xg * (zero + offset) * scale in f32, xg the group sums of the
+    UNROUNDED f32 activations (gptq_pallas.py:515-525): the uniform -8 of
+    the unsigned nibbles (offset 8) and the zero points, which the
+    bf16-operand mode subtracts after its f32 accumulation."""
+    n, din = xf.shape
+    g = scales.shape[0]
+    xg = xf.reshape(n, g, din // g).sum(-1)
+    z = offset if zeros is None else zeros.float() + offset
+    return xg @ (z * scales.float())
+
+
+def int4_ln_matmul_plain(x, qweight, scales, ln, eps, bf16_operands=False):
+    """rmsnorm(x, ln) @ deq(W), packed int4, symmetric: int4_matmul_plain
+    on the f32 normed x (the norm is never rounded), rounded once."""
+    return int4_matmul_plain(_rms_f32(x, ln, eps), qweight, scales,
+                             bf16_operands=bf16_operands).to(x.dtype)
+
+
+def int4_matmul_plain(x, qweight, scales, zeros=None, bf16_operands=False):
+    """x @ deq(W), packed int4, f32 with one rounding at the end.
+    bf16_operands: the mxu_bf16 mode of _kernel_int4 (gptq_pallas.py:
+    157-169) and its correction (:515-526): bf16(x) @ bf16(nibble * scale)
+    with the UNSIGNED nibble, f32 accumulation, then the f32 correction
+    sum_g xg * (zero + 8) * scale on the unrounded x, rounded once."""
+    xf = x.float()
+    if not bf16_operands:
+        return (xf @ dequantize_int4(qweight, scales, zeros)).to(x.dtype)
+    y = (_bf16_round(xf) @ _bf16_weight(_nibbles(qweight), scales)
+         - _correction(xf, scales, zeros, 8.0))
+    return y.to(x.dtype)
+
+
 def int8_matmul_plain(x, qweight, scales, zeros=None, bf16_operands=False):
     """x @ deq(W) in f32. bf16_operands: K7's arithmetic, both operands
-    rounded to bf16 (the weight after code * scale), f32 accumulation;
-    symmetric weights only, as K7."""
-    w = dequantize_int8(qweight, scales, zeros)
+    rounded to bf16 (the weight after code * scale), f32 accumulation; a
+    zero point is subtracted afterwards as the f32 correction
+    sum_g xg * zero * scale on the unrounded x."""
     xf = x.float()
-    if bf16_operands:
-        if zeros is not None:
-            raise ValueError("bf16 operands take symmetric int8 weights only")
-        w, xf = _bf16_round(w), _bf16_round(xf)
-    return (xf @ w).to(x.dtype)
+    if not bf16_operands:
+        return (xf @ dequantize_int8(qweight, scales, zeros)).to(x.dtype)
+    y = _bf16_round(xf) @ _bf16_weight(qweight.float(), scales)
+    if zeros is not None:
+        y = y - _correction(xf, scales, zeros, 0.0)
+    return y.to(x.dtype)
 
 
 def int8_ln_matmul_plain(x, qweight, scales, ln, eps, bf16_operands=False):
-    """rmsnorm(x, ln) @ deq(W): the normed x stays f32 (rounded to bf16 with
-    the weight under bf16_operands); symmetric int8."""
-    xf = _rms_f32(x, ln, eps)
-    w = dequantize_int8(qweight, scales)
-    if bf16_operands:
-        w, xf = _bf16_round(w), _bf16_round(xf)
-    return (xf @ w).to(x.dtype)
+    """rmsnorm(x, ln) @ deq(W), symmetric int8: int8_matmul_plain on the
+    f32 normed x (the norm is never rounded), rounded once."""
+    return int8_matmul_plain(_rms_f32(x, ln, eps), qweight, scales,
+                             bf16_operands=bf16_operands).to(x.dtype)
 
 
 def attn_mlp_int4_plain(att, resid, wo, so, wgu, sg, wdown, sd, ln, eps):
@@ -389,55 +428,105 @@ def int8_ln_matmul(x: torch.Tensor, qweight: torch.Tensor,
 
 
 # --------------------------------------------------------------------------
-# K7 — replaces the mxu_bf16=True mode of gptq_pallas._kernel and
-# _kernel_ln (gptq_pallas.py:72-76, 102-110) for symmetric int8 weights.
-# y = bf16(prologue(x)) @ bf16(code * scale), f32 accumulation.
+# K7 and K7i4 — replace the mxu_bf16=True mode of gptq_pallas._kernel /
+# _kernel_ln (gptq_pallas.py:72-76, 102-110; int8) and of _kernel_int4 /
+# _kernel_int4_ln (:157-169, 207-219; packed int4), with the correction
+# outside the kernel (:500-526) for packed and asymmetric weights.
+# y = bf16(prologue(x)) @ bf16(code * scale) - sum_g xg * (zero + off) *
+# scale, f32 accumulation, one rounding: codes as stored (int8, or the
+# UNSIGNED nibble with off = 8), xg the group sums of the unrounded f32
+# (normed) x. One template in csrc/gptq_mma.cu, the weight format its
+# parameter: mma.sync m16n8k16 bf16 tiles of 128 x 128 outputs over
+# k-slices of 64 staged in shared memory; a per-row pre-pass writes the
+# inverse RMS (with ln) and xg (with a correction); at each group's first
+# k-slice the accumulators take that group's rank-1 correction, groups in
+# order. A packed k-slice reads one nibble plane: a slice never straddles
+# din/2.
 # Bound: operations at the pool forward's 480 rows (Llama-3.1-8B wgu
-# 4096 x 28672: 113 GFLOP, ~0.11 ms at 989 TFLOP/s, against 118 MB of weight,
-# ~0.035 ms). mma.sync m16n8k16 bf16 tiles of 128 x 128 outputs over k-slices
-# of 64 staged in shared memory (csrc/gptq_mma.cu); with ln, the same inverse
-# RMS pass as K5 first.
+# 4096 x 28672: 113 GFLOP, ~0.11 ms at 989 TFLOP/s, against 118 MB of int8
+# or 59 MB of int4 weight, ~0.035 / 0.018 ms).
 BF16_MIN_ROWS, BF16_MAX_ROWS = 129, 1024   # the JAX gate (linear.py:270-275)
 
 
-def int8_matmul_bf16(x: torch.Tensor, qweight: torch.Tensor,
-                     scales: torch.Tensor, ln: Optional[torch.Tensor] = None,
-                     eps: float = 0.0) -> torch.Tensor:
-    """y[n, dout] = bf16(x or rmsnorm(x, ln)) @ bf16(deq(qweight)) with f32
-    accumulation: symmetric int8 codes, bf16 tensor-core operands. The
-    kernel takes bf16 activations only (the mode's one configuration is a
-    bf16 model); the plain version also takes f32."""
-    if not x.is_cuda:
-        if ln is None:
-            return int8_matmul_plain(x, qweight, scales, bf16_operands=True)
-        return int8_ln_matmul_plain(x, qweight, scales, ln, eps,
-                                    bf16_operands=True)
+def _mma(x, qweight, packed, scales, zeros, ln, eps):
     n, din = x.shape
     dout = qweight.shape[-1]
     _check(x, "x", (torch.bfloat16,))
     if x.data_ptr() % 16:
         raise ValueError("x: must start 16-byte aligned")
     if ln is not None:
+        if zeros is not None:
+            raise ValueError("the fused norm takes symmetric weights only")
         _check(ln, "ln", (torch.float32,), (din,))
-    _weight(qweight, scales, None, False, din, dout)
-    out = torch.empty((n, dout), dtype=x.dtype, device=x.device)
-    inv = (torch.empty((n,), dtype=torch.float32, device=x.device)
+    _weight(qweight, scales, zeros, packed, din, dout)
+    dev = x.device
+    groups = scales.shape[0]
+    out = torch.empty((n, dout), dtype=x.dtype, device=dev)
+    inv = (torch.empty((n,), dtype=torch.float32, device=dev)
            if ln is not None else None)
+    xg = (torch.empty((n, groups), dtype=torch.float32, device=dev)
+          if packed or zeros is not None else None)
     lib = _build.lib("gptq_mma")
     err = lib.hsd_gptq_mma(
-        _ptr(x), n, din, _ptr(qweight), dout, _ptr(scales), _bf16(scales),
-        scales.shape[0], _ptr(ln), float(eps), _ptr(inv), _ptr(out),
-        torch.cuda.current_stream(x.device).cuda_stream)
+        _ptr(x), n, din, _ptr(qweight), int(packed), dout, _ptr(scales),
+        _bf16(scales), _ptr(zeros), groups, _ptr(ln), float(eps), _ptr(inv),
+        _ptr(xg), _ptr(out), torch.cuda.current_stream(dev).cuda_stream)
     if err:
         raise RuntimeError(f"GPTQ tensor-core kernel (n={n}, din={din}, "
-                           f"dout={dout}, ln={ln is not None}): "
+                           f"dout={dout}, packed={packed}, ln={ln is not None}"
+                           f", zeros={zeros is not None}): "
                            f"{lib.hsd_mma_error_string(err).decode()}")
+    return out
+
+
+def int8_matmul_bf16(x: torch.Tensor, qweight: torch.Tensor,
+                     scales: torch.Tensor,
+                     zeros: Optional[torch.Tensor] = None,
+                     ln: Optional[torch.Tensor] = None,
+                     eps: float = 0.0) -> torch.Tensor:
+    """K7: y[n, dout] = bf16(x or rmsnorm(x, ln)) @ bf16(code * scale) with
+    f32 accumulation, less the zero-point correction: int8 codes, bf16
+    tensor-core operands. ln takes symmetric weights only. The kernel takes
+    bf16 activations only (the mode's one configuration is a bf16 model);
+    the plain version also takes f32."""
+    if not x.is_cuda:
+        if ln is None:
+            return int8_matmul_plain(x, qweight, scales, zeros,
+                                     bf16_operands=True)
+        if zeros is not None:
+            raise ValueError("the fused norm takes symmetric weights only")
+        return int8_ln_matmul_plain(x, qweight, scales, ln, eps,
+                                    bf16_operands=True)
+    out = _mma(x, qweight, False, scales, zeros, ln, eps)
     int8_matmul_bf16.launches += 1
+    return out
+
+
+def int4_matmul_bf16(x: torch.Tensor, qweight: torch.Tensor,
+                     scales: torch.Tensor,
+                     zeros: Optional[torch.Tensor] = None,
+                     ln: Optional[torch.Tensor] = None,
+                     eps: float = 0.0) -> torch.Tensor:
+    """K7i4: y[n, dout] = bf16(x or rmsnorm(x, ln)) @ bf16(nibble * scale)
+    with f32 accumulation, less the f32 correction sum_g xg * (zero + 8) *
+    scale: packed int4 (split-half, unsigned nibbles), bf16 tensor-core
+    operands. ln takes symmetric weights only. bf16 activations only on the
+    card; the plain version also takes f32."""
+    if not x.is_cuda:
+        if ln is None:
+            return int4_matmul_plain(x, qweight, scales, zeros,
+                                     bf16_operands=True)
+        if zeros is not None:
+            raise ValueError("the fused norm takes symmetric weights only")
+        return int4_ln_matmul_plain(x, qweight, scales, ln, eps,
+                                    bf16_operands=True)
+    out = _mma(x, qweight, True, scales, zeros, ln, eps)
+    int4_matmul_bf16.launches += 1
     return out
 
 
 WRAPPERS = {"K1": int4_ln_matmul, "K2": attn_mlp_int4, "K3": int4_matmul,
             "K4": int8_matmul, "K5": int8_ln_matmul, "K6": mlp_int4,
-            "K7": int8_matmul_bf16}
+            "K7": int8_matmul_bf16, "K7i4": int4_matmul_bf16}
 for _w in WRAPPERS.values():
     _w.launches = 0

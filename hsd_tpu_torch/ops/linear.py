@@ -121,6 +121,82 @@ def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
     return (xf * torch.rsqrt(var + eps) * w).to(x.dtype)
 
 
+# The bf16-operand gate. The JAX auto route runs bf16 operands at 129-1024
+# rows where its Pallas kernel takes the shape (`pallas_supported`,
+# gptq_pallas.py:1117) and a block plan exists beside the wide activation
+# tile (`batched_rows_ok`, :1097), and f32 elsewhere; the two round
+# differently, so the port keeps both decisions, as shape checks. The v5e
+# budgets below only decide WHETHER bf16 operands apply; the block sizes
+# they pick are not ported.
+_MIB = 1024 * 1024
+MAX_PACKED_ROWS = 3584          # one in-block of a packed-int4 weight
+
+
+def _pick_block_in_packed(rows: int, gs: int) -> int:
+    """`_pick_block_in_packed`: all packed rows when they fit
+    MAX_PACKED_ROWS, else the largest multiple of gs that divides them."""
+    if rows <= MAX_PACKED_ROWS:
+        return rows
+    for d in range(MAX_PACKED_ROWS // gs, 0, -1):
+        if rows % (d * gs) == 0:
+            return d * gs
+    return rows
+
+
+def _pick_block_in(din: int, gs: int, target: int = 8192) -> int:
+    """`_pick_block_in` (int8): all of din when it fits the target, else the
+    largest divisor whose group count is a multiple of 8."""
+    if din <= target:
+        return din
+    n_groups = din // gs
+    best = din
+    for d in range(1, n_groups + 1):
+        if n_groups % d == 0 and d % 8 == 0 and d * gs <= target:
+            best = d * gs
+    return best
+
+
+def pallas_supported(w: QuantizedLinear) -> bool:
+    """The Pallas kernel takes the weight's shape: packed int4 with an even
+    group count, groups a multiple of 64 rows and out-width of 128; int8
+    with groups a multiple of 128 rows and out-width of 128."""
+    rows, dout = w.qweight.shape[-2:]
+    groups = w.scales.shape[-2]
+    if w.packed_int4:
+        gs = 2 * rows // groups
+        return not (2 * rows % gs or gs % 64 or dout % 128 or groups % 2)
+    if w.qweight.dtype != torch.int8:
+        return False
+    gs = rows // groups
+    return not (rows % gs or gs % 128 or dout % 128)
+
+
+def batched_rows_ok(w: QuantizedLinear, n: int) -> bool:
+    """A legal (>= 128-wide) out-block survives beside n rows of wide f32
+    activations under the kernel's VMEM budget (`_out_block_limit` with
+    `raw=True` and the auto in-block)."""
+    rows = w.qweight.shape[-2]
+    npad = max(8, -(-n // 8) * 8)
+    if w.packed_int4:
+        gs = 2 * rows // w.scales.shape[-2]
+        block_in = _pick_block_in_packed(rows, gs)
+        limit = 48 * _MIB // (14 * block_in + 16 * npad)
+    else:
+        gs = rows // w.scales.shape[-2]
+        block_in = _pick_block_in(rows, gs)
+        limit = ((24 * _MIB - 4 * npad * block_in)
+                 // (2 * block_in + 16 * npad))
+        limit = min(limit, 8 * _MIB // block_in)
+    return limit >= 128
+
+
+def bf16_route(w: QuantizedLinear, n: int, mxu_bf16: bool) -> bool:
+    """Does an n-row product with `w` take bf16 operands (K7 / K7i4)?"""
+    return (mxu_bf16
+            and gptq_cuda.BF16_MIN_ROWS <= n <= gptq_cuda.BF16_MAX_ROWS
+            and pallas_supported(w) and batched_rows_ok(w, n))
+
+
 def apply_linear(w, x: torch.Tensor, b: Optional[torch.Tensor] = None,
                  layer: Optional[int] = None, norm=None,
                  mxu_bf16: bool = False) -> torch.Tensor:
@@ -133,14 +209,14 @@ def apply_linear(w, x: torch.Tensor, b: Optional[torch.Tensor] = None,
     and rounds to the activation dtype, as the JAX package does
     (`linear.py:277-279`).
     mxu_bf16: bf16 operands with f32 accumulation (`ModelConfig.
-    gptq_mxu_bf16`), taken as the JAX gate does (`linear.py:270-276`): only
-    at 129-1024 rows, and here for symmetric int8 weights (K7). The JAX gate
-    also asks `batched_rows_ok`, which checks that a 128-wide out-block of
-    the Pallas kernel fits the TPU's VMEM budget beside the wide activation
-    tile; it is true at every int8 shape of this path and says nothing
-    about the card, so the port drops it. Packed-int4 and asymmetric
-    weights keep their f32 kernels. K7 takes bf16 activations only: an
-    f32 model with the flag raises on the card.
+    gptq_mxu_bf16`), taken where the JAX auto route takes them on its
+    device (`linear.py:270-276, 221-225`): 129-1024 rows and the Pallas
+    shape gates (`bf16_route`). Every int8 or packed-int4 weight then runs
+    the tensor-core template, K7 (int8) or K7i4 (packed int4), with the
+    zero-point / -8 correction in f32; the norm fuses for symmetric weights
+    only (an asymmetric one norms first and rounds to the activation
+    dtype). The kernels take bf16 activations only: an f32 model with the
+    flag raises on the card.
     """
     ln, eps = norm if norm is not None else (None, 0.0)
     if isinstance(w, QuantizedLinear):
@@ -155,10 +231,13 @@ def apply_linear(w, x: torch.Tensor, b: Optional[torch.Tensor] = None,
         lead = x.shape[:-1]
         x2 = x.reshape(-1, x.shape[-1]).contiguous()
         sym = w.zeros is None
-        bf16_rows = (gptq_cuda.BF16_MIN_ROWS <= x2.shape[0]
-                     <= gptq_cuda.BF16_MAX_ROWS)
-        if mxu_bf16 and bf16_rows and sym and not w.packed_int4:
-            y = gptq_cuda.int8_matmul_bf16(x2, w.qweight, w.scales, ln, eps)
+        if bf16_route(w, x2.shape[0], mxu_bf16):
+            if ln is not None and not sym:
+                x2 = rms_norm(x2, ln, eps)
+                ln = None
+            kern = (gptq_cuda.int4_matmul_bf16 if w.packed_int4
+                    else gptq_cuda.int8_matmul_bf16)
+            y = kern(x2, w.qweight, w.scales, w.zeros, ln, eps)
         elif ln is not None and sym:
             fused = (gptq_cuda.int4_ln_matmul if w.packed_int4
                      else gptq_cuda.int8_ln_matmul)
@@ -208,8 +287,6 @@ def apply_mlp(wgu, wdown, x: torch.Tensor, ln_w: torch.Tensor, eps: float,
 # _attn_mlp_blocks), and a fused route rounds differently from the unfused
 # one, so the port keeps every condition of that plan which decides WHETHER
 # to fuse; the block sizes it picks are not ported.
-MAX_PACKED_ROWS = 3584          # one in-block of the gu / wo phase
-_MIB = 1024 * 1024
 _MLP_GU_BUDGET, _MLP_DOWN_BUDGET = 36 * _MIB, 52 * _MIB
 _AM_WO_BUDGET, _AM_GU_BUDGET, _AM_DOWN_BUDGET = 24 * _MIB, 37 * _MIB, 52 * _MIB
 
@@ -219,17 +296,6 @@ def _out_block_fits(dout: int, budget: int, rows: int, npad: int) -> bool:
     a 128-multiple divisor of dout fits the budget's per-column limit."""
     return dout % 128 == 0 and dout >= 128 and \
         budget // (14 * rows + 16 * npad) >= 128
-
-
-def _down_block_rows(rows: int, gs: int) -> int:
-    """The wdown in-block of `_pick_block_in_packed`: all rows when they fit
-    MAX_PACKED_ROWS, else the largest multiple of gs that divides them."""
-    if rows <= MAX_PACKED_ROWS:
-        return rows
-    for d in range(MAX_PACKED_ROWS // gs, 0, -1):
-        if rows % (d * gs) == 0:
-            return d * gs
-    return rows
 
 
 def _int4_sym(*ws) -> bool:
@@ -259,7 +325,7 @@ def _mlp_plan(wgu, wdown, npad: int):
         return None
     if Rg > MAX_PACKED_ROWS:
         return None
-    bid = _down_block_rows(Rd, gs_d)
+    bid = _pick_block_in_packed(Rd, gs_d)
     if Rd % bid or bid % gs_d:
         return None
     if not (_out_block_fits(GU, _MLP_GU_BUDGET, Rg, npad)

@@ -1,5 +1,5 @@
 """The port's CUDA kernels on the card: each wrapper against its plain
-version (K1-K8), a row's bits independent of the row count, and greedy
+version (K1-K8, K7i4), a row's bits independent of the row count, and greedy
 spec == AR through the kernels. Marked `cuda`; each test skips when no card is present
 (decided in a fixture, never at import). Run on the card with
 `python -m pytest tests/test_torch_cuda.py -q -m cuda`.
@@ -86,9 +86,59 @@ def test_k7_matches_plain(dev, n, dout):
           + 1e-3).to(torch.bfloat16)
     _close(G.int8_matmul_bf16(x, w8, s8),
            G.int8_matmul_plain(x, w8, s8, bf16_operands=True), torch.bfloat16)
-    _close(G.int8_matmul_bf16(x, w8, s8, ln, 1e-6),
+    _close(G.int8_matmul_bf16(x, w8, s8, ln=ln, eps=1e-6),
            G.int8_ln_matmul_plain(x, w8, s8, ln, 1e-6, bf16_operands=True),
            torch.bfloat16)
+
+
+@pytest.mark.parametrize("n", [129, 200, 480])
+@pytest.mark.parametrize("dout", [256, 300, 1000])
+def test_k7i4_matches_plain(dev, n, dout):
+    """K7i4 (packed int4, bf16 tensor-core operands, bf16 activations)
+    against its plain version: plain, with the fused norm, and with zero
+    points; ragged rows and columns included."""
+    g = torch.Generator(device=dev).manual_seed(7 * n + dout)
+    x = torch.randn((n, 512), generator=g, device=dev).to(torch.bfloat16)
+    ln = torch.rand(512, generator=g, device=dev) + 0.5
+    w, s = _q4(g, dev, 512, dout)
+    z = torch.randn((4, dout), generator=g, device=dev)
+    before = G.int4_matmul_bf16.launches
+    _close(G.int4_matmul_bf16(x, w, s),
+           G.int4_matmul_plain(x, w, s, bf16_operands=True), torch.bfloat16)
+    _close(G.int4_matmul_bf16(x, w, s, ln=ln, eps=1e-6),
+           G.int4_ln_matmul_plain(x, w, s, ln, 1e-6, bf16_operands=True),
+           torch.bfloat16)
+    _close(G.int4_matmul_bf16(x, w, s, z),
+           G.int4_matmul_plain(x, w, s, z, bf16_operands=True),
+           torch.bfloat16)
+    assert G.int4_matmul_bf16.launches == before + 3
+
+
+@pytest.mark.parametrize("n", [129, 480])
+def test_k7_int8_zeros_matches_plain(dev, n):
+    g = torch.Generator(device=dev).manual_seed(n)
+    x = torch.randn((n, 512), generator=g, device=dev).to(torch.bfloat16)
+    w8 = torch.empty((512, 384), dtype=torch.int8, device=dev)
+    w8.random_(-128, 128, generator=g)
+    s8 = (torch.rand((4, 384), generator=g, device=dev) * 1e-2
+          + 1e-3).to(torch.bfloat16)
+    z8 = torch.randn((4, 384), generator=g, device=dev)
+    _close(G.int8_matmul_bf16(x, w8, s8, z8),
+           G.int8_matmul_plain(x, w8, s8, z8, bf16_operands=True),
+           torch.bfloat16)
+
+
+def test_k7i4_row_bits_independent_of_row_count(dev):
+    g = torch.Generator(device=dev).manual_seed(3)
+    x = torch.randn((480, 1024), generator=g, device=dev).to(torch.bfloat16)
+    ln = torch.rand(1024, generator=g, device=dev) + 0.5
+    w, s = _q4(g, dev, 1024, 896)
+    z = torch.randn((8, 896), generator=g, device=dev)
+    for kw in ({}, {"ln": ln, "eps": 1e-6}, {"zeros": z}):
+        full = G.int4_matmul_bf16(x, w, s, **kw)
+        for n in (129, 300):
+            assert torch.equal(G.int4_matmul_bf16(x[:n], w, s, **kw),
+                               full[:n]), kw.keys()
 
 
 def test_row_bits_independent_of_row_count(dev):
@@ -105,9 +155,9 @@ def test_row_bits_independent_of_row_count(dev):
     for n in (1, 11, 17):
         assert torch.equal(G.int8_ln_matmul(x[:n], w8, s, ln, 1e-6), full[:n])
     xb = torch.randn((480, 1024), generator=g, device=dev).to(torch.bfloat16)
-    full = G.int8_matmul_bf16(xb, w8, s, ln, 1e-6)
+    full = G.int8_matmul_bf16(xb, w8, s, ln=ln, eps=1e-6)
     for n in (129, 300):
-        assert torch.equal(G.int8_matmul_bf16(xb[:n], w8, s, ln, 1e-6),
+        assert torch.equal(G.int8_matmul_bf16(xb[:n], w8, s, ln=ln, eps=1e-6),
                            full[:n])
 
 
@@ -124,6 +174,12 @@ def test_wrappers_raise_on_bad_input(dev):
     w8 = torch.zeros((512, 256), dtype=torch.int8, device=dev)
     with pytest.raises(ValueError):          # K7 takes bf16 activations only
         G.int8_matmul_bf16(torch.randn((129, 512), device=dev), w8, s)
+    with pytest.raises(ValueError):          # and so does K7i4
+        G.int4_matmul_bf16(torch.randn((129, 512), device=dev), w, s)
+    with pytest.raises(ValueError, match="symmetric"):
+        G.int4_matmul_bf16(torch.randn((129, 512), device=dev).to(
+            torch.bfloat16), w, s, torch.zeros((4, 256), device=dev),
+            torch.ones(512, device=dev), 1e-6)
 
 
 def test_greedy_spec_equals_ar_through_kernels(dev):

@@ -86,7 +86,8 @@ def test_k7_plain_matches_pallas(n, with_ln):
     tq = bridge.convert(jq)
     tx = torch.from_numpy(x)
     tln = torch.from_numpy(ln) if with_ln else None
-    got = _np(G.int8_matmul_bf16(tx, tq.qweight, tq.scales, tln, 1e-5))
+    got = _np(G.int8_matmul_bf16(tx, tq.qweight, tq.scales, ln=tln,
+                                      eps=1e-5))
     xs = G._rms_f32(tx, tln, 1e-5) if with_ln else tx
     w = G.dequantize_int8(tq.qweight, tq.scales)
     mag = _np(xs.abs() @ w.abs()) + 1e-9
@@ -103,7 +104,8 @@ def test_k7_plain_matches_pallas(n, with_ln):
 def test_apply_linear_routes():
     """A symmetric int8 weight with a norm takes K5's route (the normed x
     stays f32); with mxu_bf16, 128 rows stay f32 and 129 rows take the bf16
-    operands (K7); an asymmetric weight keeps norm-then-K4."""
+    operands (K7); an asymmetric weight norms first, rounds, and takes K4,
+    or at 129 rows with mxu_bf16 K7 with its zero-point correction."""
     rng = np.random.default_rng(300)
     tq = bridge.convert(_sym8(rng, 256, 128))
     ln = torch.from_numpy((rng.random(256) + 0.5).astype(np.float32))
@@ -122,10 +124,14 @@ def test_apply_linear_routes():
     assert not torch.equal(plain16, plain32)
     asym = tlin.quantize(torch.randn(256, 128), bits=8)
     x = torch.randn(129, 256)
-    want = G.int8_matmul_plain(tlin.rms_norm(x, ln, 1e-5), asym.qweight,
-                               asym.scales, asym.zeros)
+    xn = tlin.rms_norm(x, ln, 1e-5)
+    want = G.int8_matmul_plain(xn, asym.qweight, asym.scales, asym.zeros,
+                               bf16_operands=True)
     assert torch.equal(tlin.apply_linear(asym, x, norm=(ln, 1e-5),
                                          mxu_bf16=True), want)
+    assert torch.equal(tlin.apply_linear(asym, x, norm=(ln, 1e-5)),
+                       G.int8_matmul_plain(xn, asym.qweight, asym.scales,
+                                           asym.zeros))
 
 
 def test_apply_linear_int8_norm_matches_pallas_route():
