@@ -11,7 +11,8 @@ Phases (any failure exits nonzero, with no result line):
                target (int8 embedding, int4 head) summed with the bf16 0.5B
                trunk, and the asymmetric-int8 0.5B draft (logit_scale 1.467,
                lam 0)
-  4. kernels   K1-K4 at the main path's shapes against their plain PyTorch
+  4. kernels   K1-K4 at the main path's shapes (K4, the draft's asymmetric
+               int8, at 1, 2, 62 and 64 rows) against their plain PyTorch
                versions (max error within 2^-7 of the output's max
                magnitude: two bf16 roundings), timed with CUDA events over
                distinct layers so the weights stream from device memory,
@@ -30,7 +31,8 @@ Phases (any failure exits nonzero, with no result line):
                14B target's 48 layers at 1 and 11 rows, with the launch
                counters zeroed before and read after (one K6 launch a call,
                nothing else), each call against its plain version; timed
-               through the same route
+               through the same route, beside two bf16 matmuls and the
+               SwiGLU on the pre-dequantized weights
   5. main path make_generate with hsd and tokenwise (gamma 10, K 1) on 3
                prompts of bucket 64, 128 new tokens each, with the launch
                counters zeroed before and read after (K8 must not launch:
@@ -63,8 +65,8 @@ Phases (any failure exits nonzero, with no result line):
                tensor-core operands) at 129 and 480 rows, and K4 (symmetric
                int8) at the prefill's shapes (wo, wdown at 64 rows, the head
                at 1 row and at 64) against their plain versions, timed as in
-               phase 4; a row's bits at 1 vs 60 rows (K5), 129 vs 480 rows
-               (K7) and 1 vs 64 rows (K4, wdown)
+               phase 4; a row's bits at 1, 17 and 64 vs 128 rows (K5 wqkv,
+               K4 wdown; bf16 and f32 activations) and 129 vs 480 rows (K7)
   9. eagle serving  one 64-token prefill with the head on the last position
                against one with every position's logits: the last row must
                agree, both timed; then EagleSlotEngine (8 slots, bucket 64, 4
@@ -97,7 +99,8 @@ Phases (any failure exits nonzero, with no result line):
                for the int8 weight, K7i4 never at 128 rows
  12. int4 eagle serving  phase 9's serving run on the int4 pair (hsd_ref,
                hsd, hsd_ref again with identical streams): K7i4, K1 and K3
-               must launch, K7 and K8 must not; the int8 run's BE beside it
+               must launch, K4, K5, K7 and K8 must not; the int8 run's BE
+               beside it
  13. eagle-3 head  the EAGLE3-LLaMA3.1-8B config written to a file and read
                by EagleConfig.from_json, a random v3 head int8-quantized by
                quantize_eagle_params, served (hsd, 8 requests) over the int4
@@ -361,7 +364,7 @@ def kernel_phase(draft, target, cfg_b):
     log("kernels: K4 (int8, zero points)")
     for nm in ("wqkv", "wo", "wgu", "wdown"):
         w = draft.layers[nm]
-        for n in (1, 2, 62):
+        for n in (1, 2, 62, 64):
             linear_case("K4", f"draft {nm} {w.din}x{w.qweight.shape[-1]}",
                         w, n)
 
@@ -530,13 +533,25 @@ def mlp_phase(target, cfg_b):
         worst = max(worst, err)
     log(f"mlp: apply_mlp routed {len(outs)} calls ({L} layers x 1 and 11 "
         f"rows) to K6, max error {worst:.3e}; launches {counts}")
+    # yardstick, not one call: the MLP as two bf16 matmuls against
+    # pre-dequantized weights and the SwiGLU, no norm (JSON library_ms
+    # stays null for K6)
+    w2 = [deq_bf16(w.layer(0)) for w in (wgu, wdown)]
+
+    def two_matmuls(x):
+        gu = torch.matmul(x, w2[0])
+        return torch.matmul(torch.nn.functional.silu(gu[:, :F2 // 2])
+                            * gu[:, F2 // 2:], w2[1])
+
     for n, x in xs.items():
         check_kernel("K6", "target mlp 5120/27648/13824", n,
                      lambda l, x=x: apply_mlp(wgu, wdown, x, ln[l], eps,
                                               layer=l),
-                     lambda l, x=x: plain(x, l), None, 4,
+                     lambda l, x=x: plain(x, l),
+                     lambda l, x=x: two_matmuls(x), 4,
                      qbytes(wgu.layer(0)) + qbytes(wdown.layer(0))
                      + 2 * n * D * 2 + D * 4, 2 * n * (D * F2 + F2 // 2 * D))
+    del w2
     return counts
 
 
@@ -1031,23 +1046,31 @@ def eagle_kernel_phase(target, cfg):
     def act(n, d):
         return torch.randn((n, d), generator=g, device=DEV).to(torch.bfloat16)
 
-    # a row's bits do not depend on how many rows share its launch
+    # a row's bits do not depend on how many rows share its launch: K5
+    # (wqkv) and K4 (wdown) at 1, 17, 64 and 128 rows, in bf16 and in f32;
+    # K7 at 129 and 480 rows
     x = act(rows, D)
     w = big["wqkv"].layer(0)
-    k5 = G.int8_ln_matmul(x[:60], w.qweight, w.scales, ln[0], eps)
-    k7 = G.int8_matmul_bf16(x, w.qweight, w.scales, ln=ln[0], eps=eps)
     wd = big["wdown"].layer(0)
-    xd = act(EAGLE_BUCKET, wd.din)
-    k4 = G.int8_matmul(xd, wd.qweight, wd.scales)
-    if not (torch.equal(G.int8_ln_matmul(x[:1], w.qweight, w.scales, ln[0],
-                                         eps), k5[:1])
-            and torch.equal(G.int8_matmul_bf16(x[:129], w.qweight, w.scales,
-                                               ln=ln[0], eps=eps), k7[:129])
-            and torch.equal(G.int8_matmul(xd[:1], wd.qweight, wd.scales),
-                            k4[:1])):
-        raise AssertionError("K4, K5 or K7 rows differ with the row count")
-    log("eagle kernels: K5 gives the same bits for a row at 1 and 60 rows, "
-        f"K7 at 129 and {rows} rows, K4 (wdown) at 1 and {EAGLE_BUCKET}")
+    xd = act(128, wd.din)
+    for dt in (torch.bfloat16, torch.float32):
+        x5, x4 = x[:128].to(dt), xd.to(dt)
+        k5 = G.int8_ln_matmul(x5, w.qweight, w.scales, ln[0], eps)
+        k4 = G.int8_matmul(x4, wd.qweight, wd.scales)
+        for n in (1, 17, 64):
+            if not (torch.equal(G.int8_ln_matmul(x5[:n], w.qweight, w.scales,
+                                                 ln[0], eps), k5[:n])
+                    and torch.equal(G.int8_matmul(x4[:n], wd.qweight,
+                                                  wd.scales), k4[:n])):
+                raise AssertionError(f"K4 or K5 rows differ between {n} and "
+                                     f"128 rows ({dt})")
+    k7 = G.int8_matmul_bf16(x, w.qweight, w.scales, ln=ln[0], eps=eps)
+    if not torch.equal(G.int8_matmul_bf16(x[:129], w.qweight, w.scales,
+                                          ln=ln[0], eps=eps), k7[:129]):
+        raise AssertionError("K7 rows differ with the row count")
+    log("eagle kernels: K5 (wqkv) and K4 (wdown) give the same bits for a "
+        "row at 1, 17, 64 and 128 rows, in bf16 and in f32; K7 at 129 and "
+        f"{rows} rows")
 
     def case(name, label, w: QuantizedLinear, n, norm):
         quant_case(name, label, w, n, act, ln if norm else None, eps)
@@ -1566,6 +1589,7 @@ def main():
 
     t0 = time.time()
     _build.lib("gptq")           # builds every csrc/*.cu, one nvcc each
+    _build.lib("gptq_i8")
     _build.lib("gptq_mma")
     _build.lib("flash_decode")
     # the K8 routes are opt-in: off unless a phase below turns one on
@@ -1618,7 +1642,8 @@ def main():
     int4_eagle_kernel_phase(etarget, cfg_e)
     serving4 = eagle_serving(etarget, head, cfg_e, ecfg, args.trace,
                              launched=("K1", "K3", "K7i4"),
-                             absent=("K7", "K8"), label="int4 eagle")
+                             absent=("K4", "K5", "K7", "K8"),
+                             label="int4 eagle")
     log("int4 eagle serving: " + ", ".join(
         f"{m} BE {serving4[m]['be']:.4f} over {serving4[m]['blocks']} "
         f"slot-blocks (the int8 pair's {serving[m]['be']:.4f} over "
@@ -1630,6 +1655,7 @@ def main():
     eagle_greedy_v3_small()
 
     src = "hsd_tpu_torch/csrc/gptq.cu"
+    src_i8 = "hsd_tpu_torch/csrc/gptq_i8.cu"
     ecounts = serving["hsd_ref"]["launches"]
     # K6 and K8 over the opted-in runs of phases 5c-5e and 9f (K6: 0, the
     # tail K2 fuses wherever it could); K6's route is phase 4b's apply_mlp
@@ -1644,9 +1670,9 @@ def main():
                       "hsd_tpu/ops/gptq_pallas.py:617", counts["K2"]),
         summary_entry("K3", "target lm_head 5120x151936", 11, src,
                       "hsd_tpu/ops/gptq_pallas.py:117", counts["K3"]),
-        summary_entry("K4", "draft wgu 896x9728", 1, src,
+        summary_entry("K4", "draft wgu 896x9728", 1, src_i8,
                       "hsd_tpu/ops/gptq_pallas.py:44", counts["K4"]),
-        summary_entry("K5", "wqkv 4096x6144", 60, src,
+        summary_entry("K5", "wqkv 4096x6144", 60, src_i8,
                       "hsd_tpu/ops/gptq_pallas.py:83", ecounts["K5"]),
         summary_entry("K6", "target mlp 5120/27648/13824", 11, src,
                       "hsd_tpu/ops/gptq_pallas.py:530", mlp_counts["K6"]),

@@ -1,13 +1,12 @@
 // GPTQ dequantize-and-matvec kernels for Hopper (sm_90a).
 //
 // Hand-written counterparts of the Pallas kernels in hsd_tpu/ops/gptq_pallas.py
-// that the speculative-decoding main path reaches:
+// for packed int4 weights with f32 operands:
 //   K1  _kernel_int4_ln        packed int4, RMSNorm fused in the activation read
 //   K2  _kernel_attn_mlp_int4  the layer tail, as three launches of this template
 //   K3  _kernel_int4           packed int4, no prologue
-//   K4  _kernel                int8 with per-group zero points
-//   K5  _kernel_ln             symmetric int8, RMSNorm fused in the activation read
 //   K6  _kernel_mlp_int4       the SwiGLU MLP, as K2's last two launches
+// (The int8 kernels K4 and K5 are csrc/gptq_i8.cu, on the tensor cores.)
 //
 // One template covers them all. A block owns kCols output columns for up to
 // NR activation rows and walks the whole input dimension in tiles of kTile
@@ -18,7 +17,7 @@
 // row's result never depends on how many rows were launched with it: the
 // same bits at 1, 11 or 63 rows. No floating-point atomics.
 //
-// Narrow outputs (the 14B wqkv, wo and wdown, every 0.5B projection) give
+// Narrow outputs (the 14B wqkv, wo and wdown) give
 // too few column blocks to fill 132 SMs, so the input dimension is split
 // across `splits` blocks (blockIdx.z) chosen from the weight's shape and the
 // card alone, never from the row count. Each split writes its f32 partial to
@@ -29,7 +28,6 @@
 //   packed int4: w [din/2, dout] uint8, split-half: the low nibble of byte
 //     row r is input row r, the high nibble input row r + din/2, both stored
 //     as code + 8. Weight = (nibble - 8 - zero) * scale.
-//   int8: w [din, dout] int8 codes. Weight = (code - zero) * scale.
 //   scales, zeros: [groups, dout]; group g covers input rows [g*gs, (g+1)*gs).
 //
 // Prologues, applied while an activation tile is staged in shared memory:
@@ -113,10 +111,10 @@ __device__ __forceinline__ uint32_t load_w4(const Args& a, int row, int col, boo
   return v;
 }
 
-template <int NR, int PRO, bool PACKED>
+template <int NR, int PRO>
 __global__ void __launch_bounds__(kThreads)
 gptq_matvec_kernel(const Args a) {
-  constexpr int P = PACKED ? 2 : 1;                 // activation planes
+  constexpr int P = 2;                              // activation planes (nibbles)
   __shared__ __align__(16) float xs[NR * P * kTile];
   __shared__ __align__(16) float red[kWarps * kRedRows * kCols];
   __shared__ float inv_rms[NR];
@@ -127,7 +125,7 @@ gptq_matvec_kernel(const Args a) {
   const int col0 = blockIdx.x * kCols + lane * 4;
   const int row0 = blockIdx.y * NR;
   const int nrows = min(NR, a.n - row0);
-  const int R = PACKED ? a.din / 2 : a.din;        // weight rows
+  const int R = a.din / 2;                         // weight rows
   const int gs = a.din / a.groups;
   const bool vec = (a.dout % 4) == 0;
 
@@ -182,7 +180,7 @@ gptq_matvec_kernel(const Args a) {
     float s_lo[4], s_hi[4], z_lo[4], z_hi[4];
     {
       const int g_lo = t0 / gs;
-      const int g_hi = PACKED ? (R + t0) / gs : g_lo;
+      const int g_hi = (R + t0) / gs;
 #pragma unroll
       for (int c = 0; c < 4; ++c) {
         const int col = col0 + c;
@@ -219,24 +217,16 @@ gptq_matvec_kernel(const Args a) {
 #pragma unroll
         for (int c = 0; c < 4; ++c) {
           const uint32_t b = (wv >> (8 * c)) & 0xffu;
-          if (PACKED) {
-            wl[i][c] = ((float)((int)(b & 15u) - 8) - z_lo[c]) * s_lo[c];
-            wh[i][c] = ((float)((int)(b >> 4) - 8) - z_hi[c]) * s_hi[c];
-          } else {
-            wl[i][c] = ((float)(int)(int8_t)b - z_lo[c]) * s_lo[c];
-            wh[i][c] = 0.f;
-          }
+          wl[i][c] = ((float)((int)(b & 15u) - 8) - z_lo[c]) * s_lo[c];
+          wh[i][c] = ((float)((int)(b >> 4) - 8) - z_hi[c]) * s_hi[c];
         }
       }
 #pragma unroll
       for (int r = 0; r < NR; ++r) {
         const float4 e4 = *reinterpret_cast<const float4*>(&xs[(r * P) * kTile + rr]);
         const float xe[4] = {e4.x, e4.y, e4.z, e4.w};
-        float xo[4] = {0.f, 0.f, 0.f, 0.f};
-        if (PACKED) {
-          const float4 o4 = *reinterpret_cast<const float4*>(&xs[(r * P + P - 1) * kTile + rr]);
-          xo[0] = o4.x; xo[1] = o4.y; xo[2] = o4.z; xo[3] = o4.w;
-        }
+        const float4 o4 = *reinterpret_cast<const float4*>(&xs[(r * P + P - 1) * kTile + rr]);
+        const float xo[4] = {o4.x, o4.y, o4.z, o4.w};
         // rows in order, low plane before high plane: the same sequence of
         // fused multiply-adds for every activation row, whatever NR is
 #pragma unroll
@@ -244,7 +234,7 @@ gptq_matvec_kernel(const Args a) {
 #pragma unroll
           for (int c = 0; c < 4; ++c) {
             acc[r][c] = fmaf(xe[i], wl[i][c], acc[r][c]);
-            if (PACKED) acc[r][c] = fmaf(xo[i], wh[i][c], acc[r][c]);
+            acc[r][c] = fmaf(xo[i], wh[i][c], acc[r][c]);
           }
         }
       }
@@ -326,26 +316,26 @@ __global__ void __launch_bounds__(kThreads) splitk_reduce_kernel(const Args a) {
   }
 }
 
-template <int PRO, bool PACKED>
+template <int PRO>
 void launch_rows(int nr, dim3 grid, cudaStream_t stream, const Args& a) {
   switch (nr) {
-    case 1: gptq_matvec_kernel<1, PRO, PACKED><<<grid, kThreads, 0, stream>>>(a); break;
-    case 2: gptq_matvec_kernel<2, PRO, PACKED><<<grid, kThreads, 0, stream>>>(a); break;
-    case 4: gptq_matvec_kernel<4, PRO, PACKED><<<grid, kThreads, 0, stream>>>(a); break;
-    case 8: gptq_matvec_kernel<8, PRO, PACKED><<<grid, kThreads, 0, stream>>>(a); break;
-    default: gptq_matvec_kernel<16, PRO, PACKED><<<grid, kThreads, 0, stream>>>(a); break;
+    case 1: gptq_matvec_kernel<1, PRO><<<grid, kThreads, 0, stream>>>(a); break;
+    case 2: gptq_matvec_kernel<2, PRO><<<grid, kThreads, 0, stream>>>(a); break;
+    case 4: gptq_matvec_kernel<4, PRO><<<grid, kThreads, 0, stream>>>(a); break;
+    case 8: gptq_matvec_kernel<8, PRO><<<grid, kThreads, 0, stream>>>(a); break;
+    default: gptq_matvec_kernel<16, PRO><<<grid, kThreads, 0, stream>>>(a); break;
   }
 }
 
 }  // namespace
 
-// y[n, dout] = prologue(x) @ deq(w) (+ resid), with the input dimension
-// split over `splits` blocks. Workspaces, allocated by the caller:
+// y[n, dout] = prologue(x) @ deq(w) (+ resid), w packed int4, with the input
+// dimension split over `splits` blocks. Workspaces, allocated by the caller:
 // ws [splits, n, dout] f32 (unused when splits == 1) and inv [n] f32
 // (PRO_RMS only). Returns 0, a CUDA error code from a launch, or kErrShape
 // for a shape the kernel does not take.
 extern "C" int hsd_gptq_matvec(const void* x, int x_bf16, long long ldx, int n,
-                               int din, const void* w, int packed, int dout,
+                               int din, const void* w, int dout,
                                const void* scales, int s_bf16, const void* zeros,
                                int groups, const void* ln, float eps, int prologue,
                                const void* resid, int r_bf16, void* out, int o_bf16,
@@ -353,10 +343,9 @@ extern "C" int hsd_gptq_matvec(const void* x, int x_bf16, long long ldx, int n,
   if (n <= 0 || din <= 0 || dout <= 0 || groups <= 0 || din % groups) return kErrShape;
   const int gs = din / groups;
   if (gs % kTile) return kErrShape;
-  if (packed && din % (2 * kTile)) return kErrShape;
-  if (!packed && prologue == PRO_SILU) return kErrShape;
+  if (din % (2 * kTile)) return kErrShape;
   if (prologue == PRO_RMS && (!ln || !inv)) return kErrShape;
-  const int ntiles = (packed ? din / 2 : din) / kTile;
+  const int ntiles = din / 2 / kTile;
   if (splits < 1 || splits > ntiles || (splits > 1 && !ws)) return kErrShape;
 
   Args a;
@@ -377,15 +366,9 @@ extern "C" int hsd_gptq_matvec(const void* x, int x_bf16, long long ldx, int n,
     const int err = (int)cudaGetLastError();
     if (err) return err;
   }
-  if (packed) {
-    if (prologue == PRO_RMS) launch_rows<PRO_RMS, true>(nr, grid, s, a);
-    else if (prologue == PRO_SILU) launch_rows<PRO_SILU, true>(nr, grid, s, a);
-    else launch_rows<PRO_NONE, true>(nr, grid, s, a);
-  } else if (prologue == PRO_RMS) {
-    launch_rows<PRO_RMS, false>(nr, grid, s, a);
-  } else {
-    launch_rows<PRO_NONE, false>(nr, grid, s, a);
-  }
+  if (prologue == PRO_RMS) launch_rows<PRO_RMS>(nr, grid, s, a);
+  else if (prologue == PRO_SILU) launch_rows<PRO_SILU>(nr, grid, s, a);
+  else launch_rows<PRO_NONE>(nr, grid, s, a);
   int err = (int)cudaGetLastError();
   if (err || splits == 1) return err;
   const long long total = (long long)n * dout;

@@ -1,0 +1,582 @@
+// K4 and K5: int8 dequantize-and-matmul on the tensor cores for Hopper
+// (sm_90a), with f32-exact operands.
+//
+// Hand-written counterpart of the f32-operand (mxu_bf16=False) Pallas kernels
+// in hsd_tpu/ops/gptq_pallas.py that take int8 weights:
+//   K4  _kernel     x @ (code * scale), with the rank-1 zero-point correction
+//                   gptq_matmul subtracts outside it (:500-526)
+//   K5  _kernel_ln  rmsnorm(x, ln) @ (code * scale), symmetric; the normed
+//                   activations x * rsqrt(mean(x^2) + eps) * ln stay f32
+//                   (:103-110)
+//
+// Arithmetic. The JAX kernels multiply f32 activations by the f32 weight
+// code * scale below 129 rows, so this kernel must not round an operand to
+// bf16 as K7 does. It splits every f32 activation into three bf16 planes,
+//   hi = bf16(x), mid = bf16(x - hi), lo = bf16(x - hi - mid),
+// which sum to x exactly (each residual is exact in f32 and has at most 16,
+// then 8, significant bits; for |x| above about 2^-110, where lo stays
+// above bf16's subnormal spacing of 2^-133). A bf16 activation is its own
+// hi plane, and its other planes are zero, so it runs one plane. int8 codes
+// are exact in bf16.
+// So every plane x code product on the tensor cores (mma.sync m16n8k16 bf16
+// -> f32) is exact, and the only rounding is the f32 accumulation. The codes
+// of one quantization group accumulate alone (acc); at the group's end the
+// zero point enters as the rank-1 term acc - zero * xg, xg the row's sum of
+// the group's activations (the unrounded x, taken on the tensor cores as the
+// planes times a column of ones), and the group joins the output with
+// out = fmaf(scale, acc, out), groups in order. The zeros are non-integer
+// f32 (ops/linear.quantize), so code - zero is never staged in bf16.
+//
+// Bound on the card: at the 1-row decode calls the weight stream (the
+// Llama-3.1-8B head, 4096 x 128256: 525 MB, ~0.16 ms at 3.35 TB/s); at the
+// 60-80-row prefill and EAGLE-3 beam calls the operations (wgu 4096 x 28672
+// at 60 rows: 14 GFLOP x 3 planes of bf16 mma, ~0.045 ms at 989 TFLOP/s,
+// beside 0.035 ms of weight bytes). The design reads the weight once per
+// call: a block owns 128 output columns for every row of the call up to 128
+// rows (above 128 rows, which only f32 calls reach, rows tile in blocks of
+// 128), so the weight never re-streams per 16 rows as the f32 template in
+// csrc/gptq.cu did, and the products run on the tensor cores instead of f32
+// FMAs.
+//
+// Layout of the mma. The weight is the A operand (16 output columns x 16
+// input features) and the activation rows the B operand (16 features x 8
+// rows), so a 1-8-row call wastes at most 7/8 of an mma while the bytes
+// bound it. A k16 step's 16 features are assigned to the mma's k slots in a
+// permuted order that both operands share (slots 2t, 2t+1, 2t+8, 2t+9 of
+// lane quad t hold features 4t..4t+3), and a lane's two M slots are
+// neighbouring columns. Then a lane's A fragments for two 16-column tiles
+// come from four 32-bit shared-memory words (4 features x 4 columns of
+// int8), and its B fragment is one 8-byte read of 4 consecutive features of
+// one row. int8 converts to bf16 with integer ops and one f32 add per code:
+// (0x4B000000 | (code ^ 0x80)) as f32 is 2^23 + code + 128, less 2^23 + 128
+// the exact code, whose upper 16 bits are its bf16.
+//
+// Pipeline. Each k-slice of 64 features is staged with cp.async, four
+// slices in flight (three where a stage exceeds 24 KB, so that two blocks of
+// 33-64 rows fit an SM): the weight's 64 x 128 bytes and the activation
+// planes' rows, [plane][row][feature] bf16, both in 16-byte chunks whose
+// position in a row is XOR-swizzled so that the fragment reads hit
+// distinct banks. The planes are ready in device memory: a bf16 x is its
+// own plane, and K5's pre-pass writes the three planes of the normed rows
+// once (rather than every column block norming and splitting them again).
+// Only K4 with f32 x splits in the kernel (a pre-pass would add a launch),
+// the next slice's x in registers while the current one computes. One
+// barrier a slice (two with the in-kernel split). Eight
+// warps (four column warps x two row warps) own 32 columns x 32 rows each at
+// 33-64 rows; four warps at up to 32 rows; sixteen at up to 128.
+//
+// Determinism. Narrow outputs split the input dimension across blocks
+// (blockIdx.z), with the split count from the weight's shape and the card
+// only (ops/gptq_cuda.splits_for); each split writes an f32 partial and a
+// second kernel sums them in split order. Each output accumulates its k16
+// steps in order, the planes in order within a step, groups in order, and
+// nothing of that depends on the row count or on the rows beside it: a row
+// gives the same bits at 1, 17, 64 and 128 rows. No floating-point atomics.
+// K5's pre-pass sums each row's squares in a fixed order (lanes, then
+// warps), as the template in csrc/gptq.cu does.
+//
+// Layouts (ops/linear.py of the port): w [din, dout] int8 codes; scales
+// [groups, dout] (bf16 or f32); zeros [groups, dout] f32 or null; group g
+// covers input rows [g*gs, (g+1)*gs), gs a multiple of 128; x [n, din] bf16
+// or f32, 16-byte aligned; ln [din] f32; the output [n, dout] bf16 or f32.
+// Any dout: 16-byte copies where rows are 16-byte aligned, else 4-byte or
+// byte copies, the ragged columns masked.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int BN = 128;                 // output columns per block
+constexpr int BK = 64;                  // input features per k-slice
+constexpr int kTileRows = 128;          // the split unit (splits_for)
+constexpr int kMaxRows = 128;           // rows per block at most
+constexpr uint32_t kOnes = 0x3F803F80u; // two bf16 1.0
+constexpr int kErrShape = 100000;       // unsupported shape
+
+struct Args {
+  const void* x;
+  int x_bf16;
+  int n;                // activation rows
+  int din;
+  const int8_t* w;
+  int dout;
+  const void* scales;
+  int s_bf16;
+  const float* zeros;   // null: symmetric
+  int groups;
+  const float* ln;      // null: no norm
+  float eps;
+  __nv_bfloat16* xp;    // the planes [P][n][din]: bf16 x itself, or K5's pre-pass
+  void* out;            // [n, dout]
+  int o_bf16;
+  int splits;           // input-dimension splits (blockIdx.z)
+  float* ws;            // [splits, n, dout] f32 partials when splits > 1
+  int wvec;             // weight copy width: 16, 4 or 1 bytes
+};
+
+__device__ __forceinline__ float load_val(const void* p, int bf16, long long i) {
+  if (bf16) return __bfloat162float(reinterpret_cast<const __nv_bfloat16*>(p)[i]);
+  return reinterpret_cast<const float*>(p)[i];
+}
+
+__device__ __forceinline__ void store_val(void* p, int bf16, long long i, float v) {
+  if (bf16) {
+    reinterpret_cast<__nv_bfloat16*>(p)[i] = __float2bfloat16_rn(v);
+  } else {
+    reinterpret_cast<float*>(p)[i] = v;
+  }
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, int bytes) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(d), "l"(src), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, int bytes) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               :: "r"(d), "l"(src), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// The code in byte j of u (codes stored with their sign bit flipped) as an
+// exact f32: 2^23 + (code + 128) - (2^23 + 128).
+__device__ __forceinline__ uint32_t code_f32(uint32_t u, int j) {
+  return __float_as_uint(__uint_as_float(__byte_perm(u, 0x4B000000u, 0x7540 + j))
+                         - 8388736.f);
+}
+
+// Two exact f32 codes as a bf16 pair (their upper halves), a in the low half.
+__device__ __forceinline__ uint32_t pack_hi(uint32_t a, uint32_t b) {
+  return __byte_perm(a, b, 0x7632);
+}
+
+// The planes of v after its hi plane bf16(v): mid = v - hi, lo = mid -
+// bf16(mid), both exact in f32; bf16(mid) and bf16(lo) are the planes.
+__device__ __forceinline__ void split3(float v, float& mid, float& lo) {
+  mid = __fsub_rn(v, __bfloat162float(__float2bfloat16_rn(v)));
+  lo = __fsub_rn(mid, __bfloat162float(__float2bfloat16_rn(mid)));
+}
+
+// bf16 bits of four floats, packed two to a word.
+__device__ __forceinline__ uint2 pack4(const float (&v)[4]) {
+  __nv_bfloat162 lo = __floats2bfloat162_rn(v[0], v[1]);
+  __nv_bfloat162 hi = __floats2bfloat162_rn(v[2], v[3]);
+  return make_uint2(*reinterpret_cast<uint32_t*>(&lo), *reinterpret_cast<uint32_t*>(&hi));
+}
+
+// NT: n8 row tiles per block (1, 2, 4, 8 or 16); P: activation planes (1
+// for bf16 x without a norm, else 3); ZEROS: a zero point per group and
+// column; SPLIT: f32 x split into its planes in the kernel (K4 with f32 x),
+// else the planes are read from a.xp (bf16 x itself, or K5's pre-pass).
+template <int NT, int P, bool ZEROS, bool SPLIT>
+struct Tile {
+  static constexpr int NW = NT < 4 ? NT : 4;           // n8 tiles per warp
+  static constexpr int WR = NT / NW;                   // row warps
+  static constexpr int kThreads = 128 * WR;            // four column warps each
+  static constexpr int BR = 8 * NT;                    // rows per block
+  static constexpr int QPT = BR * (BK / 4) / kThreads; // SPLIT: x quads per thread
+  static constexpr int WST = BK * BN;                  // weight bytes a stage
+  static constexpr int XST = P * BR * BK * 2;          // plane bytes a stage
+  static constexpr int STAGE = SPLIT ? WST : WST + XST;
+  // stages in flight: three where a stage is large, so that two blocks of
+  // 33-64 rows fit an SM
+  static constexpr int S = STAGE > 24576 ? 3 : 4;
+  static constexpr int SMEM = S * STAGE + (SPLIT ? XST : 0);
+};
+
+template <int NT, int P, bool ZEROS, bool SPLIT>
+__global__ void __launch_bounds__(Tile<NT, P, ZEROS, SPLIT>::kThreads)
+i8_kernel(const Args a) {
+  using T = Tile<NT, P, ZEROS, SPLIT>;
+  constexpr int NW = T::NW, kThreads = T::kThreads, BR = T::BR, S = T::S;
+  extern __shared__ __align__(16) unsigned char smem[];
+  // stage s: weight [BK][BN] at s * STAGE, then (not SPLIT) planes
+  // [P][BR][BK]; SPLIT: one plane buffer after the S stages. Rows of both
+  // are 16-byte chunks XOR-swizzled by the row (xchunk, and the weight's
+  // in load), so the fragment reads hit distinct banks.
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int wc = warp & 3;                   // column warp: columns [32 wc, 32 wc + 32)
+  const int wr = warp >> 2;                  // row warp: rows [8 NW wr, 8 NW (wr + 1))
+  const int g = lane >> 2;
+  const int tg = lane & 3;
+  const int col0 = blockIdx.x * BN;
+  const int row0 = blockIdx.y * BR;
+  const int gs = a.din / a.groups;
+  const int spg = gs / BK;                   // slices per group
+  const int per_split = (a.din / kTileRows + a.splits - 1) / a.splits;
+  const int s_begin = blockIdx.z * per_split * (kTileRows / BK);
+  const int s_end = min(a.din / kTileRows, (int)(blockIdx.z + 1) * per_split) * (kTileRows / BK);
+  // this lane's four columns, 4g .. 4g + 3 of its warp's 32
+  const int lcol = col0 + 32 * wc + 4 * g;
+
+  auto wstage = [&](int st) { return smem + st * T::STAGE; };
+  // position of feature f of plane row r in a plane buffer
+  auto xpos = [](int r, int f) { return r * BK + 8 * ((f >> 3) ^ ((r & 3) << 1)) + (f & 7); };
+  auto xstage = [&](int st) {
+    return reinterpret_cast<__nv_bfloat16*>(SPLIT ? smem + S * T::STAGE
+                                                  : smem + st * T::STAGE + T::WST);
+  };
+
+  // slice t into stage st: the weight's 64 x 128 bytes (chunks swizzled)
+  // and, unless SPLIT, the planes' BR rows x 64 features
+  auto load = [&](int t, int st) {
+    uint8_t* dst = wstage(st);
+    for (int e = tid; e < BK * (BN / 16); e += kThreads) {
+      const int r = e >> 3;
+      const int c = e & 7;
+      uint8_t* d = dst + r * BN + 16 * (c ^ (((r >> 2) & 3) << 1));
+      const int col = col0 + 16 * c;
+      const int left = a.dout - col;         // bytes of this chunk inside dout
+      const int8_t* s = a.w + (long long)(t * BK + r) * a.dout + col;
+      if (a.wvec == 16) {
+        cp_async16(d, left > 0 ? s : a.w, left > 0 ? 16 : 0);
+      } else if (a.wvec == 4) {
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          cp_async4(d + 4 * q, left > 4 * q ? s + 4 * q : a.w, left > 4 * q ? 4 : 0);
+        }
+      } else {
+#pragma unroll
+        for (int b = 0; b < 16; ++b) d[b] = b < left ? (uint8_t)__ldg(s + b) : (uint8_t)0;
+      }
+    }
+    if constexpr (!SPLIT) {
+      __nv_bfloat16* xd = xstage(st);
+      for (int e = tid; e < P * BR * 8; e += kThreads) {
+        const int c = e & 7;
+        const int r = (e >> 3) % BR;
+        const int p = (e >> 3) / BR;
+        const bool ok = row0 + r < a.n;
+        const __nv_bfloat16* src =
+            a.xp + ((long long)p * a.n + row0 + r) * a.din + t * BK + 8 * c;
+        cp_async16(xd + p * BR * BK + xpos(r, 8 * c), ok ? src : a.xp, ok ? 16 : 0);
+      }
+    }
+  };
+
+  // SPLIT: slice t of the f32 x into registers, then its planes into the
+  // plane buffer
+  auto load_x = [&](int t, float (&xr)[T::QPT][4]) {
+#pragma unroll
+    for (int j = 0; j < T::QPT; ++j) {
+      const int q = tid + j * kThreads;
+      const int r = q >> 4;
+      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (row0 + r < a.n) {
+        v = __ldg(reinterpret_cast<const float4*>(reinterpret_cast<const float*>(a.x)
+                  + (long long)(row0 + r) * a.din + t * BK + (q & 15) * 4));
+      }
+      xr[j][0] = v.x; xr[j][1] = v.y; xr[j][2] = v.z; xr[j][3] = v.w;
+    }
+  };
+  auto store_x = [&](float (&xr)[T::QPT][4]) {
+#pragma unroll
+    for (int j = 0; j < T::QPT; ++j) {
+      const int q = tid + j * kThreads;
+      float mid[4], lo[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) split3(xr[j][e], mid[e], lo[e]);
+      __nv_bfloat16* d = xstage(0) + xpos(q >> 4, (q & 15) * 4);
+      *reinterpret_cast<uint2*>(d) = pack4(xr[j]);
+      *reinterpret_cast<uint2*>(d + BR * BK) = pack4(mid);
+      *reinterpret_cast<uint2*>(d + 2 * BR * BK) = pack4(lo);
+    }
+  };
+
+  float acc[2][NW][4];                     // the current group's code sums
+  float out[2][NW][4];                     // sum over groups of scale * acc
+  float xg[ZEROS ? NW : 1][4];             // the current group's row sums
+#pragma unroll
+  for (int m = 0; m < 2; ++m)
+#pragma unroll
+    for (int j = 0; j < NW; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[m][j][e] = out[m][j][e] = 0.f;
+#pragma unroll
+  for (int j = 0; j < (ZEROS ? NW : 1); ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) xg[j][e] = 0.f;
+  float sc[4], zc[4];
+  float xr[SPLIT ? T::QPT : 1][4];
+
+#pragma unroll
+  for (int s = 0; s < S - 1; ++s) {
+    if (s_begin + s < s_end) load(s_begin + s, s);
+    cp_async_commit();
+  }
+  if constexpr (SPLIT) {
+    load_x(s_begin, xr);
+    store_x(xr);
+  }
+
+  for (int t = s_begin; t < s_end; ++t) {
+    const int stage = (t - s_begin) % S;
+    cp_async_wait<S - 2>();
+    __syncthreads();        // slice t is staged; slice t - 1's stage is free
+    {
+      const int tn = t + S - 1;
+      if (tn < s_end) load(tn, (tn - s_begin) % S);
+      cp_async_commit();
+    }
+    if constexpr (SPLIT) {
+      if (t + 1 < s_end) load_x(t + 1, xr);
+    }
+    if (t == s_begin || t % spg == 0) {    // the group's scales and zeros
+      const long long si = (long long)(t / spg) * a.dout + lcol;
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const bool ok = lcol + c < a.dout;
+        sc[c] = ok ? load_val(a.scales, a.s_bf16, si + c) : 0.f;
+        zc[c] = (ZEROS && ok) ? a.zeros[si + c] : 0.f;
+      }
+    }
+
+    const uint8_t* wst = wstage(stage);
+    const __nv_bfloat16* xst = xstage(stage);
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      // rows kk*16 + 4tg + i, columns lcol .. lcol + 3 (swizzled chunk 2wc + g/4)
+      uint32_t wv[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int rr = kk * 16 + 4 * tg + i;
+        wv[i] = *reinterpret_cast<const uint32_t*>(
+            wst + rr * BN + 16 * ((2 * wc + (g >> 2)) ^ (2 * tg)) + 4 * (g & 3)) ^ 0x80808080u;
+      }
+      // af[m] = {a0, a1, a2, a3} of the 16-column tile m: a0 the M slot g
+      // (column lcol + 2m) at features 4tg, 4tg+1; a1 the slot g + 8
+      // (column lcol + 2m + 1) there; a2, a3 the same at features 4tg+2, +3
+      uint32_t af[2][4];
+#pragma unroll
+      for (int m = 0; m < 2; ++m) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          af[m][2 * h] = pack_hi(code_f32(wv[2 * h], 2 * m), code_f32(wv[2 * h + 1], 2 * m));
+          af[m][2 * h + 1] = pack_hi(code_f32(wv[2 * h], 2 * m + 1),
+                                     code_f32(wv[2 * h + 1], 2 * m + 1));
+        }
+      }
+#pragma unroll
+      for (int p = 0; p < P; ++p) {
+#pragma unroll
+        for (int j = 0; j < NW; ++j) {
+          const int r = wr * NW * 8 + 8 * j + g;
+          const uint2 b = *reinterpret_cast<const uint2*>(
+              xst + p * BR * BK + xpos(r, kk * 16 + 4 * tg));
+          mma_bf16(acc[0][j], af[0], b.x, b.y);
+          mma_bf16(acc[1][j], af[1], b.x, b.y);
+          if (ZEROS) {
+            const uint32_t ones[4] = {kOnes, kOnes, kOnes, kOnes};
+            mma_bf16(xg[j], ones, b.x, b.y);
+          }
+        }
+      }
+    }
+
+    if ((t + 1) % spg == 0 || t + 1 == s_end) {   // the group's end here
+#pragma unroll
+      for (int m = 0; m < 2; ++m)
+#pragma unroll
+        for (int j = 0; j < NW; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int c = 2 * m + (e >> 1);
+            float v = acc[m][j][e];
+            if (ZEROS) v = fmaf(-zc[c], xg[j][e & 1], v);
+            out[m][j][e] = fmaf(sc[c], v, out[m][j][e]);
+            acc[m][j][e] = 0.f;
+          }
+#pragma unroll
+      for (int j = 0; j < (ZEROS ? NW : 1); ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) xg[j][e] = 0.f;
+    }
+    if constexpr (SPLIT) {
+      __syncthreads();      // this slice's planes are consumed
+      if (t + 1 < s_end) store_x(xr);
+    }
+  }
+
+  // out[m][j][e]: column lcol + 2m + e/2, row 8 NW wr + 8j + 2tg + e%2
+#pragma unroll
+  for (int j = 0; j < NW; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+#pragma unroll
+      for (int m = 0; m < 2; ++m) {
+        const int row = row0 + wr * NW * 8 + 8 * j + 2 * tg + (e & 1);
+        const int col = lcol + 2 * m + (e >> 1);
+        if (row >= a.n || col >= a.dout) continue;
+        const long long oi = (long long)row * a.dout + col;
+        if (a.splits > 1) {
+          a.ws[(long long)blockIdx.z * a.n * a.dout + oi] = out[m][j][e];
+        } else {
+          store_val(a.out, a.o_bf16, oi, out[m][j][e]);
+        }
+      }
+    }
+  }
+}
+
+// K5's pre-pass, one block of kPrep threads per row: the row's inverse RMS
+// over its din features (a fixed order: lanes, then warps in order), then
+// the three planes of its normed activations (x * inv) * ln, written to a.xp
+// [3][n][din].
+constexpr int kPrep = 1024;
+__global__ void __launch_bounds__(kPrep) prep_kernel(const Args a) {
+  __shared__ float part[kPrep / 32];
+  __shared__ float rinv;
+  const long long base = (long long)blockIdx.x * a.din;
+  float s = 0.f;
+#pragma unroll 4
+  for (int f = threadIdx.x; f < a.din; f += kPrep) {
+    const float v = load_val(a.x, a.x_bf16, base + f);
+    s = fmaf(v, v, s);
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
+  if ((threadIdx.x & 31) == 0) part[threadIdx.x >> 5] = s;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    float t = part[0];
+#pragma unroll
+    for (int w = 1; w < kPrep / 32; ++w) t += part[w];
+    rinv = rsqrtf(t / (float)a.din + a.eps);
+  }
+  __syncthreads();
+  const long long plane = (long long)a.n * a.din;
+#pragma unroll 4
+  for (int f = threadIdx.x; f < a.din; f += kPrep) {
+    const float v = __fmul_rn(__fmul_rn(load_val(a.x, a.x_bf16, base + f), rinv), a.ln[f]);
+    float mid, lo;
+    split3(v, mid, lo);
+    a.xp[base + f] = __float2bfloat16_rn(v);
+    a.xp[plane + base + f] = __float2bfloat16_rn(mid);
+    a.xp[2 * plane + base + f] = __float2bfloat16_rn(lo);
+  }
+}
+
+// Sum the splits' partials in split order and round to the output.
+__global__ void __launch_bounds__(256) splitk_reduce_kernel(const Args a) {
+  const long long total = (long long)a.n * a.dout;
+  for (long long i = (long long)blockIdx.x * 256 + threadIdx.x; i < total;
+       i += (long long)gridDim.x * 256) {
+    float s = a.ws[i];
+    for (int z = 1; z < a.splits; ++z) s += a.ws[z * total + i];
+    store_val(a.out, a.o_bf16, i, s);
+  }
+}
+
+template <int NT, int P, bool ZEROS, bool SPLIT>
+int launch(dim3 grid, cudaStream_t stream, const Args& a) {
+  using T = Tile<NT, P, ZEROS, SPLIT>;
+  static bool configured = false;        // the opt-in above 48 KB, once
+  if (!configured) {
+    const int err = (int)cudaFuncSetAttribute(
+        i8_kernel<NT, P, ZEROS, SPLIT>, cudaFuncAttributeMaxDynamicSharedMemorySize, T::SMEM);
+    if (err) return err;
+    configured = true;
+  }
+  i8_kernel<NT, P, ZEROS, SPLIT><<<grid, T::kThreads, T::SMEM, stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+// bf16 x: one plane from x itself; a norm: K5's three planes from the
+// pre-pass; f32 x without a norm: three planes split in the kernel.
+template <int NT>
+int launch_nt(dim3 grid, cudaStream_t stream, const Args& a) {
+  if (a.ln) return launch<NT, 3, false, false>(grid, stream, a);
+  if (a.x_bf16) {
+    return a.zeros ? launch<NT, 1, true, false>(grid, stream, a)
+                   : launch<NT, 1, false, false>(grid, stream, a);
+  }
+  return a.zeros ? launch<NT, 3, true, true>(grid, stream, a)
+                 : launch<NT, 3, false, true>(grid, stream, a);
+}
+
+}  // namespace
+
+// y[n, dout] = prologue(x) @ ((code - zero) * scale), f32-exact operands on
+// the tensor cores, f32 accumulation, rounded once to the output's type.
+// ln may be null (K4); with ln (K5) zeros must be null and planes is a
+// [3, n, din] bf16 workspace for the pre-pass. ws is an [splits, n, dout]
+// f32 workspace (unused when splits == 1). Returns 0, a CUDA error code from
+// a launch, or kErrShape for a shape the kernel does not take.
+extern "C" int hsd_gptq_i8(const void* x, int x_bf16, int n, int din,
+                           const void* w, int dout, const void* scales,
+                           int s_bf16, const void* zeros, int groups,
+                           const void* ln, float eps, void* out, int o_bf16,
+                           int splits, void* ws, void* planes, void* stream) {
+  if (n <= 0 || din <= 0 || dout <= 0 || groups <= 0 || din % groups) return kErrShape;
+  if ((din / groups) % kTileRows) return kErrShape;
+  if (ln && (!planes || zeros)) return kErrShape;
+  if (splits < 1 || splits > din / kTileRows || (splits > 1 && !ws)) return kErrShape;
+  if (reinterpret_cast<uintptr_t>(x) % 16 || reinterpret_cast<uintptr_t>(planes) % 16) {
+    return kErrShape;
+  }
+  const long long row_blocks = (n + kMaxRows - 1) / kMaxRows;
+  if (row_blocks > 65535 || splits > 65535) return kErrShape;
+
+  Args a;
+  a.x = x; a.x_bf16 = x_bf16; a.n = n; a.din = din;
+  a.w = reinterpret_cast<const int8_t*>(w); a.dout = dout;
+  a.scales = scales; a.s_bf16 = s_bf16;
+  a.zeros = reinterpret_cast<const float*>(zeros); a.groups = groups;
+  a.ln = reinterpret_cast<const float*>(ln); a.eps = eps;
+  a.xp = reinterpret_cast<__nv_bfloat16*>(ln ? planes : const_cast<void*>(x));
+  a.out = out; a.o_bf16 = o_bf16;
+  a.splits = splits; a.ws = reinterpret_cast<float*>(ws);
+  const uintptr_t wp = reinterpret_cast<uintptr_t>(w);
+  a.wvec = (dout % 16 == 0 && wp % 16 == 0) ? 16 : (dout % 4 == 0 && wp % 4 == 0) ? 4 : 1;
+
+  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  if (a.ln) {
+    prep_kernel<<<n, kPrep, 0, s>>>(a);
+    const int err = (int)cudaGetLastError();
+    if (err) return err;
+  }
+  const int nt = n > 64 ? 16 : n > 32 ? 8 : n > 16 ? 4 : n > 8 ? 2 : 1;
+  const dim3 grid((dout + BN - 1) / BN, (unsigned)(n > kMaxRows ? row_blocks : 1), splits);
+  int err;
+  switch (nt) {
+    case 1: err = launch_nt<1>(grid, s, a); break;
+    case 2: err = launch_nt<2>(grid, s, a); break;
+    case 4: err = launch_nt<4>(grid, s, a); break;
+    case 8: err = launch_nt<8>(grid, s, a); break;
+    default: err = launch_nt<16>(grid, s, a); break;
+  }
+  if (err || splits == 1) return err;
+  const long long total = (long long)n * dout;
+  const int blocks = (int)((total + 255) / 256 < 1024 ? (total + 255) / 256 : 1024);
+  splitk_reduce_kernel<<<blocks, 256, 0, s>>>(a);
+  return (int)cudaGetLastError();
+}
+
+extern "C" const char* hsd_i8_error_string(int code) {
+  if (code == kErrShape) return "shape not supported by the int8 tensor-core kernel";
+  return cudaGetErrorString((cudaError_t)code);
+}

@@ -11,14 +11,17 @@ K7i4). Each has:
     reads every kernel's, `reset_launches()` zeroes them);
   * a note naming the TPU kernel it replaces and what bounds it on the card.
 
-K1-K6 launch one template in `csrc/gptq.cu` (see its header for the
-design): a block owns 128 output columns for up to 16 activation rows and a
-share of the weight's rows, streams them once in 128-row tiles, dequantizes
-in registers and accumulates in f32; a second pass sums the shares in order.
-K7 (int8) and K7i4 (packed int4) are the tensor-core template of
-`csrc/gptq_mma.cu` for the bf16-operand mode at 129-1024 rows. In both,
-nothing in an output's summation order depends on the row count, so a
-row's bits do not either.
+K1-K3 and K6 (packed int4, f32 operands) launch one template in
+`csrc/gptq.cu` (see its header for the design): a block owns 128 output
+columns for up to 16 activation rows and a share of the weight's rows,
+streams them once in 128-row tiles, dequantizes in registers and
+accumulates in f32; a second pass sums the shares in order. K4 and K5
+(int8, f32 operands) are the tensor-core kernel of `csrc/gptq_i8.cu`: f32
+activations split into three bf16 planes that sum to them exactly, so the
+products stay exact. K7 (int8) and K7i4 (packed int4) are the tensor-core
+template of `csrc/gptq_mma.cu` for the bf16-operand mode at 129-1024 rows.
+In all three, nothing in an output's summation order depends on the row
+count, so a row's bits do not either.
 
 Layouts are those of `ops/linear.QuantizedLinear`: packed int4 is uint8
 [din/2, dout] split-half with nibbles stored as code+8; int8 is [din, dout];
@@ -200,7 +203,9 @@ def _bf16(t: Optional[torch.Tensor]) -> int:
     return int(t is not None and t.dtype == torch.bfloat16)
 
 
-TILE_ROWS, BLOCK_COLS = 128, 128     # csrc/gptq.cu kTile, kCols
+# The split unit and the nominal column block: csrc/gptq.cu kTile, kCols
+# (in packed rows) and csrc/gptq_i8.cu kTileRows, BN.
+TILE_ROWS, BLOCK_COLS = 128, 128
 
 
 @functools.lru_cache(maxsize=None)
@@ -219,8 +224,8 @@ def splits_for(weight_rows: int, dout: int, sms: int) -> int:
     return -(-tiles // per_split)
 
 
-def _launch(x, ldx, n, din, qweight, packed, scales, zeros, ln, eps,
-            prologue, resid, out):
+def _launch(x, ldx, n, din, qweight, scales, zeros, ln, eps, prologue,
+            resid, out):
     dout = out.shape[-1]
     lib = _build.lib("gptq")
     splits = splits_for(qweight.shape[0], dout, _sm_count(x.device.index or 0))
@@ -229,7 +234,7 @@ def _launch(x, ldx, n, din, qweight, packed, scales, zeros, ln, eps,
     inv = (torch.empty((n,), dtype=torch.float32, device=x.device)
            if prologue == PRO_RMS else None)
     err = lib.hsd_gptq_matvec(
-        _ptr(x), _bf16(x), ldx, n, din, _ptr(qweight), int(packed), dout,
+        _ptr(x), _bf16(x), ldx, n, din, _ptr(qweight), dout,
         _ptr(scales), _bf16(scales), _ptr(zeros), scales.shape[0], _ptr(ln),
         float(eps), prologue, _ptr(resid), _bf16(resid), _ptr(out), _bf16(out),
         splits, _ptr(ws), _ptr(inv),
@@ -262,8 +267,8 @@ def int4_ln_matmul(x: torch.Tensor, qweight: torch.Tensor,
     _check(ln, "ln", (torch.float32,), (din,))
     _weight(qweight, scales, None, True, din, dout)
     out = torch.empty((n, dout), dtype=x.dtype, device=x.device)
-    _launch(x, din, n, din, qweight, True, scales, None, ln, eps, PRO_RMS,
-            None, out)
+    _launch(x, din, n, din, qweight, scales, None, ln, eps, PRO_RMS, None,
+            out)
     int4_ln_matmul.launches += 1
     return out
 
@@ -285,34 +290,67 @@ def int4_matmul(x: torch.Tensor, qweight: torch.Tensor, scales: torch.Tensor,
     _check(x, "x", _ACT)
     _weight(qweight, scales, zeros, True, din, dout)
     out = torch.empty((n, dout), dtype=x.dtype, device=x.device)
-    _launch(x, din, n, din, qweight, True, scales, zeros, None, 0.0,
-            PRO_NONE, None, out)
+    _launch(x, din, n, din, qweight, scales, zeros, None, 0.0, PRO_NONE,
+            None, out)
     int4_matmul.launches += 1
     return out
 
 
 # --------------------------------------------------------------------------
+# K4 and K5 — one tensor-core kernel, `csrc/gptq_i8.cu` (see its header),
+# with f32-exact operands: f32 activations split into three bf16 planes
+# (hi, mid, lo) that sum to them exactly, bf16 activations are one plane,
+# int8 codes are exact in bf16, so each mma.sync product is exact and only
+# the f32 accumulation rounds. A group's code sums take the zero point as the
+# rank-1 term acc - zero * xg and join the output as fmaf(scale, acc, out),
+# groups in order. A block owns 128 columns for every row up to 128, so the
+# weight streams once per call. Splits of the input dimension come from
+# `splits_for` (the weight's shape and the card only), summed in order by a
+# second launch. K5 adds a per-row pre-pass first, which writes the inverse
+# RMS's normed activations as three planes (a [3, n, din] bf16 workspace).
+
+def _launch_i8(x, qweight, scales, zeros, ln, eps):
+    n, din = x.shape
+    dout = qweight.shape[-1]
+    _check(x, "x", _ACT)
+    if x.data_ptr() % 16:
+        raise ValueError("x: must start 16-byte aligned")
+    if ln is not None:
+        _check(ln, "ln", (torch.float32,), (din,))
+    _weight(qweight, scales, zeros, False, din, dout)
+    dev = x.device
+    splits = splits_for(din, dout, _sm_count(dev.index or 0))
+    out = torch.empty((n, dout), dtype=x.dtype, device=dev)
+    ws = (torch.empty((splits, n, dout), dtype=torch.float32, device=dev)
+          if splits > 1 else None)
+    planes = (torch.empty((3, n, din), dtype=torch.bfloat16, device=dev)
+              if ln is not None else None)
+    lib = _build.lib("gptq_i8")
+    err = lib.hsd_gptq_i8(
+        _ptr(x), _bf16(x), n, din, _ptr(qweight), dout, _ptr(scales),
+        _bf16(scales), _ptr(zeros), scales.shape[0], _ptr(ln), float(eps),
+        _ptr(out), _bf16(out), splits, _ptr(ws), _ptr(planes),
+        torch.cuda.current_stream(dev).cuda_stream)
+    if err:
+        raise RuntimeError(f"int8 GPTQ kernel (n={n}, din={din}, dout={dout}"
+                           f", ln={ln is not None}, zeros={zeros is not None}"
+                           f"): {lib.hsd_i8_error_string(err).decode()}")
+    return out
+
+
 # K4 — replaces gptq_pallas.gptq_matmul int8: _kernel (gptq_pallas.py:44)
-# plus its rank-1 zero-point correction (:500-526), folded here into the
-# dequantization (code - zero) * scale. y = x @ deq(W).
-# Bound: the weight stream plus f32 scales and zeros, din * dout * (1 + 8/128)
-# bytes (one 0.5B draft layer, 896 x 1152 + 896 x 896 + 896 x 9728 +
-# 4864 x 896: 14.9 MB, ~4.4 us at 3.35 TB/s). The draft's narrow outputs
-# (896 columns = 7 column blocks) would leave most SMs idle, so the input
-# dimension is split across blocks (`splits_for`).
+# plus its rank-1 zero-point correction (:500-526). y = x @ deq(W).
+# Bound: the weight stream plus scales and zeros at decode rows (one 0.5B
+# draft layer, 896 x 1152 + 896 x 896 + 896 x 9728 + 4864 x 896: 14.9 MB,
+# ~4.4 us at 3.35 TB/s); the operations at the 64-80-row prefill and
+# EAGLE-3 beam calls (one plane of bf16 mma for bf16 x, three for f32).
 
 def int8_matmul(x: torch.Tensor, qweight: torch.Tensor, scales: torch.Tensor,
                 zeros: Optional[torch.Tensor] = None) -> torch.Tensor:
     """y[n, dout] = x[n, din] @ deq(qweight): int8 codes, optional zeros."""
     if not x.is_cuda:
         return int8_matmul_plain(x, qweight, scales, zeros)
-    n, din = x.shape
-    dout = qweight.shape[-1]
-    _check(x, "x", _ACT)
-    _weight(qweight, scales, zeros, False, din, dout)
-    out = torch.empty((n, dout), dtype=x.dtype, device=x.device)
-    _launch(x, din, n, din, qweight, False, scales, zeros, None, 0.0,
-            PRO_NONE, None, out)
+    out = _launch_i8(x, qweight, scales, zeros, None, 0.0)
     int8_matmul.launches += 1
     return out
 
@@ -355,10 +393,9 @@ def attn_mlp_int4(att: torch.Tensor, resid: torch.Tensor,
     xp = torch.empty((n, d), dtype=torch.float32, device=dev)
     gu = torch.empty((n, gu_out), dtype=torch.float32, device=dev)
     out = torch.empty((n, d), dtype=resid.dtype, device=dev)
-    _launch(att, dh, n, dh, wo, True, so, None, None, 0.0, PRO_NONE, resid, xp)
-    _launch(xp, d, n, d, wgu, True, sg, None, ln, eps, PRO_RMS, None, gu)
-    _launch(gu, gu_out, n, f, wdown, True, sd, None, None, 0.0, PRO_SILU, xp,
-            out)
+    _launch(att, dh, n, dh, wo, so, None, None, 0.0, PRO_NONE, resid, xp)
+    _launch(xp, d, n, d, wgu, sg, None, ln, eps, PRO_RMS, None, gu)
+    _launch(gu, gu_out, n, f, wdown, sd, None, None, 0.0, PRO_SILU, xp, out)
     attn_mlp_int4.launches += 1
     return out
 
@@ -392,21 +429,23 @@ def mlp_int4(x: torch.Tensor, wgu: torch.Tensor, sg: torch.Tensor,
     _weight(wdown, sd, None, True, f, dout)
     gu = torch.empty((n, gu_out), dtype=torch.float32, device=x.device)
     out = torch.empty((n, dout), dtype=x.dtype, device=x.device)
-    _launch(x, d, n, d, wgu, True, sg, None, ln, eps, PRO_RMS, None, gu)
-    _launch(gu, gu_out, n, f, wdown, True, sd, None, None, 0.0, PRO_SILU,
-            None, out)
+    _launch(x, d, n, d, wgu, sg, None, ln, eps, PRO_RMS, None, gu)
+    _launch(gu, gu_out, n, f, wdown, sd, None, None, 0.0, PRO_SILU, None,
+            out)
     mlp_int4.launches += 1
     return out
 
 
 # --------------------------------------------------------------------------
 # K5 — replaces gptq_pallas.gptq_matmul(..., ln=) int8: _kernel_ln
-# (gptq_pallas.py:83). y = rmsnorm(x, ln) @ (code * scale), symmetric.
-# Bound: the weight stream (Llama-3.1-8B wqkv 4096 x 6144: 25.2 MB + 0.4 MB
-# of scales, ~7.6 us at 3.35 TB/s; wgu 4096 x 28672 ~35 us). As K1: a
-# one-block-per-row pass writes each row's inverse RMS and the matvec
-# applies x * inv * ln while staging activations, so the normed x stays f32
-# and never reaches device memory.
+# (gptq_pallas.py:83). y = rmsnorm(x, ln) @ (code * scale), symmetric: K4's
+# kernel on the three planes of the f32 normed activations, which the
+# per-row pre-pass writes once (6 bytes a feature) instead of every column
+# block norming and splitting them again.
+# Bound: the weight stream at 1 row (Llama-3.1-8B wqkv 4096 x 6144: 25.2 MB
+# + 0.4 MB of scales, ~7.6 us at 3.35 TB/s); the three planes' operations
+# at the 60-row prefill (wgu 4096 x 28672: 42 GFLOP, ~0.043 ms at 989
+# TFLOP/s, beside ~0.035 ms of weight bytes).
 
 def int8_ln_matmul(x: torch.Tensor, qweight: torch.Tensor,
                    scales: torch.Tensor, ln: torch.Tensor,
@@ -415,14 +454,7 @@ def int8_ln_matmul(x: torch.Tensor, qweight: torch.Tensor,
     symmetric (no zeros)."""
     if not x.is_cuda:
         return int8_ln_matmul_plain(x, qweight, scales, ln, eps)
-    n, din = x.shape
-    dout = qweight.shape[-1]
-    _check(x, "x", _ACT)
-    _check(ln, "ln", (torch.float32,), (din,))
-    _weight(qweight, scales, None, False, din, dout)
-    out = torch.empty((n, dout), dtype=x.dtype, device=x.device)
-    _launch(x, din, n, din, qweight, False, scales, None, ln, eps, PRO_RMS,
-            None, out)
+    out = _launch_i8(x, qweight, scales, None, ln, eps)
     int8_ln_matmul.launches += 1
     return out
 

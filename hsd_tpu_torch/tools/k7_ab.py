@@ -1,23 +1,29 @@
-"""Time the port's tensor-core kernels K7 (int8) and K7i4 (packed int4),
-`hsd_tpu_torch/csrc/gptq_mma.cu`, at the Llama-3.1-8B EAGLE pool forward's
-shapes (480 rows), for one or more checkouts of the repository in turns, on
-one CUDA card.
+"""Time the port's GPTQ kernels for one or more checkouts of the repository
+in turns, on one CUDA card:
+  * K7 (int8) and K7i4 (packed int4), `csrc/gptq_mma.cu`, at the
+    Llama-3.1-8B EAGLE pool forward's shapes (480 rows);
+  * K4 and K5 (int8, f32-exact operands) at the shapes where the int8 EAGLE
+    prefill (60-64 rows), the EAGLE-3 head's beam (80 rows) and the decode
+    calls (1 row) launch them;
+  * K1 and K3 (packed int4, f32 operands), the control, at 11 and 64 rows.
 
     python hsd_tpu_torch/tools/k7_ab.py                  # this checkout
     python hsd_tpu_torch/tools/k7_ab.py --roots A B B A  # checkouts in turns
 
 Each root runs in a process of its own (every checkout defines
 `hsd_tpu_torch`), builds its own kernels and prints one JSON line: the
-device median ms of one call per shape (cold L2, CUDA events), a sha256 of
-each output, and the MMA kernels' registers and spills from
-`nvcc -Xptxas -v`. K7i4 is timed where the checkout has it. Weights are
-random codes with bf16 scales, one group per 128 input rows, and the
-activations random bf16, all made from --seed. The last line is a table of
-each shape's medians by root. Imports torch only.
+device median ms of one call per shape (cold L2, CUDA events) and a sha256
+of each output. K7i4 is timed where the checkout has it. Weights are random
+codes with bf16 scales, one group per 128 input rows (the draft's case with
+f32 zeros too), and the activations random bf16, all made from --seed. The
+registers and spills of each checkout's kernels (`nvcc -Xptxas -v`) follow,
+and the last line is a table of each shape's medians by root. Imports torch
+only.
 """
 from __future__ import annotations
 
 import argparse
+import glob
 import hashlib
 import json
 import os
@@ -27,36 +33,56 @@ import subprocess
 import sys
 import tempfile
 
-ROWS = 480                                 # 8 slots x 60 tree nodes
-SHAPES = (("wqkv 4096x6144 +norm", 4096, 6144, True),
-          ("wgu 4096x28672 +norm", 4096, 28672, True),
-          ("wo 4096x4096", 4096, 4096, False),
-          ("wdown 14336x4096", 14336, 4096, False),
-          ("lm_head 4096x128256", 4096, 128256, False))
+MMA_ROWS = 480                             # 8 slots x 60 tree nodes
+MMA_SHAPES = (("wqkv 4096x6144 +norm", 4096, 6144, True),
+              ("wgu 4096x28672 +norm", 4096, 28672, True),
+              ("wo 4096x4096", 4096, 4096, False),
+              ("wdown 14336x4096", 14336, 4096, False),
+              ("lm_head 4096x128256", 4096, 128256, False))
+# (kernel, label, din, dout, rows, zeros); K1 and K5 take the norm
+F32_SHAPES = (("K5", "wgu 4096x28672 +norm", 4096, 28672, 60, False),
+              ("K5", "wqkv 4096x6144 +norm", 4096, 6144, 60, False),
+              ("K4", "wdown 14336x4096", 14336, 4096, 64, False),
+              ("K4", "wo 4096x4096", 4096, 4096, 64, False),
+              ("K4", "eagle-3 head wdown 14336x4096", 14336, 4096, 80, False),
+              ("K4", "eagle-3 head lm_head 4096x32000", 4096, 32000, 80,
+               False),
+              ("K4", "lm_head 4096x128256", 4096, 128256, 1, False),
+              ("K5", "wqkv 4096x6144 +norm", 4096, 6144, 1, False),
+              ("K4", "0.5B draft wgu 896x9728 zeros", 896, 9728, 1, True),
+              ("K1", "wgu 4096x28672 +norm", 4096, 28672, 11, False),
+              ("K1", "wgu 4096x28672 +norm", 4096, 28672, 64, False),
+              ("K3", "wdown 14336x4096", 14336, 4096, 11, False),
+              ("K3", "wdown 14336x4096", 14336, 4096, 64, False))
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3")
+KERNELS = re.compile(r"mma_kernel|i8_kernel|gptq_matvec_kernel")
 
 
 def ptxas_info(root: str) -> dict:
-    """{kernel: 'N registers, S bytes spill stores'} of gptq_mma.cu."""
-    src = os.path.join(root, "hsd_tpu_torch", "csrc", "gptq_mma.cu")
-    with tempfile.TemporaryDirectory() as d:
-        out = subprocess.run(
-            ["/usr/local/cuda/bin/nvcc", *NVCC_FLAGS, "-cubin", "-Xptxas", "-v",
-             "-o", os.path.join(d, "k.cubin"), src],
-            capture_output=True, text=True, check=True)
-    info, fn = {}, None
-    for line in (out.stdout + out.stderr).splitlines():
-        m = re.search(r"Compiling entry function '(\w+)'", line)
-        if m:
-            fn = m.group(1)
-            continue
-        if fn and "mma_kernel" in fn:
-            m = re.search(r"(\d+) bytes spill stores", line)
+    """{source: {kernel: {registers, spill_stores}}} of the checkout's GPTQ
+    sources."""
+    info = {}
+    for src in sorted(glob.glob(os.path.join(root, "hsd_tpu_torch", "csrc",
+                                             "gptq*.cu"))):
+        with tempfile.TemporaryDirectory() as d:
+            out = subprocess.run(
+                ["/usr/local/cuda/bin/nvcc", *NVCC_FLAGS, "-cubin", "-Xptxas",
+                 "-v", "-o", os.path.join(d, "k.cubin"), src],
+                capture_output=True, text=True, check=True)
+        rows, fn = {}, None
+        for line in (out.stdout + out.stderr).splitlines():
+            m = re.search(r"Compiling entry function '(\w+)'", line)
             if m:
-                info.setdefault(fn, {})["spill_stores"] = int(m.group(1))
-            m = re.search(r"Used (\d+) registers", line)
-            if m:
-                info.setdefault(fn, {})["registers"] = int(m.group(1))
+                fn = m.group(1) if KERNELS.search(m.group(1)) else None
+                continue
+            if fn:
+                m = re.search(r"(\d+) bytes spill stores", line)
+                if m:
+                    rows.setdefault(fn, {})["spill_stores"] = int(m.group(1))
+                m = re.search(r"Used (\d+) registers", line)
+                if m:
+                    rows.setdefault(fn, {})["registers"] = int(m.group(1))
+        info[os.path.basename(src)] = rows
     return info
 
 
@@ -88,25 +114,50 @@ def worker(root: str, seed: int, repeats: int) -> dict:
         return hashlib.sha256(t.view(torch.int16).cpu().numpy()
                               .tobytes()).hexdigest()[:16]
 
-    res = {"root": root, "ptxas": ptxas_info(root), "ms": {}, "sha256": {}}
-    for label, din, dout, norm in SHAPES:
-        x = torch.randn((ROWS, din), generator=gen, device=dev).to(torch.bfloat16)
-        ln = (torch.rand((din,), generator=gen, device=dev) + 0.5) if norm else None
-        kw = {"ln": ln, "eps": 1e-5} if norm else {}
+    def weights(din, dout, packed):
         s = (torch.randn((din // 128, dout), generator=gen, device=dev).abs()
              * 1e-2 + 1e-3).to(torch.bfloat16)
-        w8 = torch.empty((din, dout), dtype=torch.int8, device=dev)
-        w8.random_(-127, 128, generator=gen)
+        if packed:
+            w = torch.empty((din // 2, dout), dtype=torch.uint8, device=dev)
+            w.random_(0, 256, generator=gen)
+        else:
+            w = torch.empty((din, dout), dtype=torch.int8, device=dev)
+            w.random_(-127, 128, generator=gen)
+        return w, s
+
+    def act(n, din):
+        return torch.randn((n, din), generator=gen, device=dev).to(
+            torch.bfloat16)
+
+    res = {"root": root, "ms": {}, "sha256": {}}
+
+    def run(key, fn):
+        res["sha256"][key] = digest(fn())
+        res["ms"][key] = timed(fn)
+
+    for label, din, dout, norm in MMA_SHAPES:
+        x = act(MMA_ROWS, din)
+        ln = (torch.rand((din,), generator=gen, device=dev) + 0.5) if norm else None
+        kw = {"ln": ln, "eps": 1e-5} if norm else {}
+        w8, s = weights(din, dout, False)
         w4 = torch.empty((din // 2, dout), dtype=torch.uint8, device=dev)
         w4.random_(0, 256, generator=gen)
-        cases = {"K7": lambda: G.int8_matmul_bf16(x, w8, s, **kw)}
+        run(f"K7 {label}", lambda: G.int8_matmul_bf16(x, w8, s, **kw))
         if hasattr(G, "int4_matmul_bf16"):
-            cases["K7i4"] = lambda: G.int4_matmul_bf16(x, w4, s, **kw)
-        for name, fn in cases.items():
-            key = f"{name} {label}"
-            res["sha256"][key] = digest(fn())
-            res["ms"][key] = timed(fn)
+            run(f"K7i4 {label}", lambda: G.int4_matmul_bf16(x, w4, s, **kw))
         del w8, w4
+    for name, label, din, dout, n, zeros in F32_SHAPES:
+        x = act(n, din)
+        ln = torch.rand((din,), generator=gen, device=dev) + 0.5
+        w, s = weights(din, dout, name in ("K1", "K3"))
+        z = (torch.randn((din // 128, dout), generator=gen, device=dev) * 40
+             if zeros else None)
+        call = {"K1": lambda: G.int4_ln_matmul(x, w, s, ln, 1e-5),
+                "K3": lambda: G.int4_matmul(x, w, s),
+                "K4": lambda: G.int8_matmul(x, w, s, z),
+                "K5": lambda: G.int8_ln_matmul(x, w, s, ln, 1e-5)}[name]
+        run(f"{name} {label}, {n} rows", call)
+        del w
     return res
 
 
@@ -137,6 +188,9 @@ def main():
             sys.exit(f"{root}: exit {out.returncode}\n{out.stderr[-4000:]}")
         runs.append(json.loads(out.stdout.strip().splitlines()[-1]))
         print(json.dumps(runs[-1]), flush=True)
+    for root in dict.fromkeys(os.path.abspath(r) for r in args.roots):
+        print(json.dumps({"root": root, "ptxas": ptxas_info(root)}),
+              flush=True)
     table = {}
     for r in runs:
         for key, ms in r["ms"].items():

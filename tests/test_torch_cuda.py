@@ -1,5 +1,6 @@
 """The port's CUDA kernels on the card: each wrapper against its plain
-version (K1-K8, K7i4), a row's bits independent of the row count, and greedy
+version (K1-K8, K7i4; K4 and K5 at every row tiling of their tensor-core
+kernel), a row's bits independent of the row count, and greedy
 spec == AR through the kernels. Marked `cuda`; each test skips when no card is present
 (decided in a fixture, never at import). Run on the card with
 `python -m pytest tests/test_torch_cuda.py -q -m cuda`.
@@ -69,6 +70,75 @@ def test_kernels_match_plain(dev, dtype, n):
     s8sym = (s8 + 1e-3).to(torch.bfloat16)
     _close(G.int8_ln_matmul(x, w8, s8sym, ln, 1e-6),
            G.int8_ln_matmul_plain(x, w8, s8sym, ln, 1e-6), dtype)
+
+
+I8_ROWS = [1, 2, 8, 9, 16, 17, 64, 80, 128]
+
+
+def _i8_case(dev, seed, din, dout, groups, zeros):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    w8 = torch.empty((din, dout), dtype=torch.int8, device=dev)
+    w8.random_(-128, 128, generator=g)
+    s8 = torch.rand((groups, dout), generator=g, device=dev) * 1e-2 + 1e-3
+    z8 = (torch.randn((groups, dout), generator=g, device=dev) * 40
+          if zeros else None)
+    return g, w8, s8, z8
+
+
+@pytest.mark.parametrize("zeros", [False, True])
+@pytest.mark.parametrize("dout", [300, 384])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_int8_tensor_core_matches_plain(dev, dtype, dout, zeros):
+    """K4 (with and without zero points, bf16 and f32 scales) and K5 on the
+    tensor-core kernel against their plain versions at every row count of
+    the tiling (1-8, 9-16, 17-32, 33-64, 65-128 rows per block, and f32 at
+    200 rows, two row blocks), ragged dout included; one launch a call."""
+    g, w8, s8, z8 = _i8_case(dev, dout + 7 * zeros, 512, dout, 4, zeros)
+    ln = torch.rand(512, generator=g, device=dev) + 0.5
+    rows = I8_ROWS + ([200] if dtype == torch.float32 else [])
+    for n in rows:
+        x = torch.randn((n, 512), generator=g, device=dev).to(dtype)
+        for s in (s8, s8.to(torch.bfloat16)):
+            before = G.int8_matmul.launches
+            _close(G.int8_matmul(x, w8, s, z8),
+                   G.int8_matmul_plain(x, w8, s, z8), dtype)
+            assert G.int8_matmul.launches == before + 1
+            if not zeros:
+                _close(G.int8_ln_matmul(x, w8, s, ln, 1e-6),
+                       G.int8_ln_matmul_plain(x, w8, s, ln, 1e-6), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_int8_row_bits_independent_of_row_count(dev, dtype):
+    """A row's bits from K4 and K5 are the same at every row count, and
+    with the input dimension split across blocks (896 x 896: 7 splits)."""
+    g, w8, s8, z8 = _i8_case(dev, 11, 896, 896, 7, True)
+    ln = torch.rand(896, generator=g, device=dev) + 0.5
+    x = torch.randn((200, 896), generator=g, device=dev).to(dtype)
+    calls = (lambda x: G.int8_matmul(x, w8, s8),
+             lambda x: G.int8_matmul(x, w8, s8, z8),
+             lambda x: G.int8_ln_matmul(x, w8, s8, ln, 1e-6))
+    for call in calls:
+        full = call(x[:128])
+        for n in I8_ROWS:
+            assert torch.equal(call(x[:n]), full[:n]), n
+        if dtype == torch.float32:
+            assert torch.equal(call(x)[:128], full)
+
+
+def test_int8_tensor_core_raises_on_unsupported_shape(dev):
+    g, w8, s8, _ = _i8_case(dev, 5, 512, 256, 8, False)   # groups of 64
+    x = torch.randn((2, 512), generator=g, device=dev)
+    with pytest.raises(RuntimeError, match="shape not supported"):
+        G.int8_matmul(x, w8, s8)
+    with pytest.raises(RuntimeError, match="shape not supported"):
+        G.int8_ln_matmul(x, w8, s8, torch.ones(512, device=dev), 1e-6)
+    _, w8, s8, _ = _i8_case(dev, 6, 512, 256, 4, False)
+    off = torch.randn(2 * 512 + 1, generator=g, device=dev)[1:].view(2, 512)
+    with pytest.raises(ValueError, match="aligned"):
+        G.int8_matmul(off, w8, s8)
+    with pytest.raises(ValueError):
+        G.int8_matmul(x.to(torch.float16), w8, s8)
 
 
 @pytest.mark.parametrize("n", [129, 200, 480])
