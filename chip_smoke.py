@@ -11,15 +11,20 @@ Phases (any failure exits nonzero, with no result line):
                target (int8 embedding, int4 head) summed with the bf16 0.5B
                trunk, and the asymmetric-int8 0.5B draft (logit_scale 1.467,
                lam 0)
-  4. kernels   K1-K4 at the main path's shapes (K4, the draft's asymmetric
-               int8, at 1, 2, 62 and 64 rows) against their plain PyTorch
-               versions (max error within 2^-7 of the output's max
-               magnitude: two bf16 roundings), timed with CUDA events over
-               distinct layers so the weights stream from device memory,
-               beside the plain version, one bf16 torch.matmul against the
-               pre-dequantized weight, and the bound: the larger of bytes
-               over 3.35 TB/s and operations over the 989 TFLOP/s bf16
-               tensor-core rate
+  4. kernels   K1-K4 at the main path's shapes (K1 and K3 at 1, 11, 63, 121
+               and 128 rows; K4, the draft's asymmetric int8, at 1, 2, 62
+               and 64 rows) against their plain PyTorch versions (max error
+               within 2^-7 of the output's max magnitude: two bf16
+               roundings), timed with CUDA events over distinct layers so
+               the weights stream from device memory, beside the plain
+               version, one bf16 torch.matmul against the pre-dequantized
+               weight, and the bound: the larger of bytes over 3.35 TB/s
+               and operations over the 989 TFLOP/s bf16 tensor-core rate;
+               a row's bits at 1, 11, 63 and 121 vs 128 rows (K1, K3);
+               route A, the dequantize-then-dot route of apply_linear above
+               128 rows, at 200 and 693 rows on the 14B wqkv with the norm
+               and wdown: no kernel launches, within 2^-7 of the f32 plain
+               version, timed, with the memory it allocates
   4a. attention K8 (flash-decode) at the shapes of the paths below (14B
                verify, 0.5B draft, 8B EAGLE tree with its bias and prefill
                with a zero bias, long-context decode), with q rotated
@@ -96,7 +101,9 @@ Phases (any failure exits nonzero, with no result line):
                plain versions, timed as in phase 4; a row's bits at 129 vs
                480 rows; an asymmetric int4 and int8 weight through the
                bf16 route (apply_linear) vs plain; K7 (int8) launches only
-               for the int8 weight, K7i4 never at 128 rows
+               for the int8 weight, K7i4 never at 128 rows; at 129 rows
+               without mxu_bf16, route A on wqkv and wgu with the norm and
+               the head: no kernel launches
  12. int4 eagle serving  phase 9's serving run on the int4 pair (hsd_ref,
                hsd, hsd_ref again with identical streams): K7i4, K1 and K3
                must launch, K4, K5, K7 and K8 must not; the int8 run's BE
@@ -315,6 +322,53 @@ def quant_case(name, label, w: QuantizedLinear, n, act, ln, eps):
     del w_bf16
 
 
+ROUTE_A_ROWS = []     # one dict per (shape, rows) of the dequantize route
+
+
+def route_a_case(label, w: QuantizedLinear, rows, act, ln, eps,
+                 mxu_bf16=False):
+    """apply_linear on up to four layers of a stacked weight at each row
+    count of `rows`, all above 128 and outside the bf16 route: the
+    reference's dequantize-then-dot route, which must launch no kernel and
+    agree with the f32 plain version within TOL (the route rounds the
+    normed x and the weight to bf16). Timed as check_kernel times a
+    kernel, with the device memory it allocates beyond its output."""
+    stacked = w.qweight.dim() == 3
+    n_sets = min(4, w.qweight.shape[0]) if stacked else 1
+    ws = [w.layer(l) if stacked else w for l in range(n_sets)]
+    for n in rows:
+        x = act(n, w.din)
+        norm = (lambda l: None) if ln is None else (lambda l: (ln[l], eps))
+        run = lambda l: apply_linear(ws[l], x, norm=norm(l),
+                                     mxu_bf16=mxu_bf16)
+        before = launch_counts()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        got = run(0)
+        torch.cuda.synchronize()
+        extra = (torch.cuda.max_memory_allocated() - base
+                 - got.numel() * got.element_size())
+        used = {k: v - before[k] for k, v in launch_counts().items()
+                if v != before[k]}
+        if used:
+            raise AssertionError(f"route A {label} n={n} launched {used}")
+        xs = G._rms_f32(x, ln[0], eps) if ln is not None else x
+        plain = (G.int4_matmul_plain if w.packed_int4
+                 else G.int8_matmul_plain)
+        want = plain(xs, ws[0].qweight, ws[0].scales, ws[0].zeros)
+        err = (got.float() - want.float()).abs().max().item()
+        scale = want.float().abs().max().item()
+        ms = timed(run, n_sets)
+        ROUTE_A_ROWS.append(dict(label=label, n=n, ms=ms, alloc_gib=extra
+                                 / 2**30, max_abs_err=err))
+        log(f"route A {label:<28} n={n:<3} no kernel launches, err={err:.3e}"
+            f" (rel {err / scale:.2e}, tol {TOL:.2e}) {ms:.4f}ms, "
+            f"{extra / 2**30:.3f} GiB allocated beside the output")
+        if not (math.isfinite(err) and err <= TOL * scale):
+            raise AssertionError(f"route A {label} n={n}: error {err}")
+
+
 def kernel_phase(draft, target, cfg_b):
     g = torch.Generator(device=DEV).manual_seed(123)
     big = target.big.layers
@@ -330,25 +384,27 @@ def kernel_phase(draft, target, cfg_b):
         quant_case(name, label, w, n, act, ln if name == "K1" else None, eps)
 
     # a row's bits do not depend on how many rows share its launch
-    x = act(63, D)
-    w, dw = big["wqkv"].layer(0), draft.layers["wgu"].layer(0)
-    xd = act(62, dw.din)
+    x = act(128, D)
+    w, wd = big["wqkv"].layer(0), big["wdown"].layer(0)
+    dw = draft.layers["wgu"].layer(0)
+    xd, xf = act(62, dw.din), act(128, wd.din)
+    k1 = lambda x: G.int4_ln_matmul(x, w.qweight, w.scales, ln[0], eps)
+    k3 = lambda x: G.int4_matmul(x, wd.qweight, wd.scales)
+    k4 = lambda x: G.int8_matmul(x, dw.qweight, dw.scales, dw.zeros)
+    full1, full3, full4 = k1(x), k3(xf), k4(xd)
+    for n in (1, 11, 63, 121):
+        if not (torch.equal(k1(x[:n]), full1[:n])
+                and torch.equal(k3(xf[:n]), full3[:n])):
+            raise AssertionError(f"K1/K3 rows differ between {n} and 128 "
+                                 "rows")
     for n in (1, 2, 11):
-        same = (torch.equal(G.int4_ln_matmul(x[:n], w.qweight, w.scales,
-                                             ln[0], eps),
-                            G.int4_ln_matmul(x, w.qweight, w.scales, ln[0],
-                                             eps)[:n])
-                and torch.equal(G.int8_matmul(xd[:n], dw.qweight, dw.scales,
-                                              dw.zeros),
-                                G.int8_matmul(xd, dw.qweight, dw.scales,
-                                              dw.zeros)[:n]))
-        if not same:
-            raise AssertionError(f"rows differ between {n} and 63 rows")
-    log("kernels: K1 and K4 give the same bits for a row at 1, 2, 11 and "
-        "62/63 rows")
+        if not torch.equal(k4(xd[:n]), full4[:n]):
+            raise AssertionError(f"K4 rows differ between {n} and 62 rows")
+    log("kernels: K1 (wqkv) and K3 (wdown) give the same bits for a row at "
+        "1, 11, 63, 121 and 128 rows; K4 at 1, 2, 11 and 62")
 
     log("kernels: K1 (int4, fused RMSNorm)")
-    for n in (1, 11, 63, 7):
+    for n in (1, 11, 63, 121, 128, 7):
         linear_case("K1", "target wqkv 5120x7168", big["wqkv"], n)
     linear_case("K1", "target wgu 5120x27648", big["wgu"], 63)
 
@@ -356,10 +412,15 @@ def kernel_phase(draft, target, cfg_b):
     for n in (1, 11):
         linear_case("K3", "target lm_head 5120x151936", target.big.lm_head, n)
     linear_case("K3", "target wo 5120x5120", big["wo"], 63)
-    linear_case("K3", "target wdown 13824x5120", big["wdown"], 63)
+    for n in (63, 121, 128):
+        linear_case("K3", "target wdown 13824x5120", big["wdown"], n)
     ragged = QuantizedLinear(big["wo"].qweight[0, :, :1000].contiguous(),
                              big["wo"].scales[0, :, :1000].contiguous(), None)
     linear_case("K3", "ragged 5120x1000", ragged, 7)
+    route_a_case("target wqkv 5120x7168 +norm", big["wqkv"], (200, 693),
+                 act, ln, eps)
+    route_a_case("target wdown 13824x5120", big["wdown"], (200, 693), act,
+                 None, eps)
 
     log("kernels: K4 (int8, zero points)")
     for nm in ("wqkv", "wo", "wgu", "wdown"):
@@ -868,8 +929,9 @@ def trace_window(gen, draft, target, prompt):
         wall_us = (time.perf_counter() - t0) * 1e6
     rows = device_rows(prof)
     busy = sum(r[0] for r in rows)
-    ours = sum(r[0] for r in rows if "gptq_matvec" in r[2]
-               or "splitk_reduce" in r[2] or "inv_rms" in r[2])
+    ours = sum(r[0] for r in rows if any(
+        k in r[2] for k in ("gptq_matvec", "i8_kernel", "splitk_reduce",
+                            "inv_rms", "prep_kernel")))
     k8 = sum(r[0] for r in rows if "flash_" in r[2])
     out = dict(wall_ms=wall_us / 1e3, device_busy_ms=busy / 1e3,
                idle_share=1 - busy / wall_us, gptq_kernels_ms=ours / 1e3,
@@ -1401,6 +1463,11 @@ def int4_eagle_kernel_phase(target, cfg):
         "asymmetric int8 weight only")
     if after["K7"] != 1:
         raise AssertionError(f"K7 launches over phase 11: {after['K7']}")
+    # at 129 rows without mxu_bf16: the dequantize-then-dot route, no kernel
+    route_a_case("wqkv 4096x6144 +norm", big["wqkv"], (129,), act, ln, eps)
+    route_a_case("wgu 4096x28672 +norm", big["wgu"], (129,), act, ln, eps)
+    route_a_case("lm_head 4096x128256", target.big.lm_head, (129,), act,
+                 None, eps)
 
 
 EAGLE3_CONFIG = {   # yuhuili/EAGLE3-LLaMA3.1-Instruct-8B, config.json
@@ -1664,11 +1731,11 @@ def main():
                     longctx["counts"], eagle1["counts"]]
     k6k8 = {k: sum(c[k] for c in opted_counts) for k in ("K6", "K8")}
     kernels = [
-        summary_entry("K1", "target wqkv 5120x7168", 11, src,
+        summary_entry("K1", "target wqkv 5120x7168", 11, src_i8,
                       "hsd_tpu/ops/gptq_pallas.py:176", counts["K1"]),
         summary_entry("K2", "target tail 5120/27648/13824", 11, src,
                       "hsd_tpu/ops/gptq_pallas.py:617", counts["K2"]),
-        summary_entry("K3", "target lm_head 5120x151936", 11, src,
+        summary_entry("K3", "target lm_head 5120x151936", 11, src_i8,
                       "hsd_tpu/ops/gptq_pallas.py:117", counts["K3"]),
         summary_entry("K4", "draft wgu 896x9728", 1, src_i8,
                       "hsd_tpu/ops/gptq_pallas.py:44", counts["K4"]),

@@ -1,14 +1,13 @@
 // GPTQ dequantize-and-matvec kernels for Hopper (sm_90a).
 //
-// Hand-written counterparts of the Pallas kernels in hsd_tpu/ops/gptq_pallas.py
-// for packed int4 weights with f32 operands:
-//   K1  _kernel_int4_ln        packed int4, RMSNorm fused in the activation read
+// Hand-written counterparts of the fused Pallas kernels in
+// hsd_tpu/ops/gptq_pallas.py for packed int4 weights with f32 operands:
 //   K2  _kernel_attn_mlp_int4  the layer tail, as three launches of this template
-//   K3  _kernel_int4           packed int4, no prologue
 //   K6  _kernel_mlp_int4       the SwiGLU MLP, as K2's last two launches
-// (The int8 kernels K4 and K5 are csrc/gptq_i8.cu, on the tensor cores.)
+// (The single products, K1 _kernel_int4_ln and K3 _kernel_int4 for packed
+// int4 and K4 and K5 for int8, are csrc/gptq_i8.cu, on the tensor cores.)
 //
-// One template covers them all. A block owns kCols output columns for up to
+// One template covers them both. A block owns kCols output columns for up to
 // NR activation rows and walks the whole input dimension in tiles of kTile
 // weight rows. Each lane loads 4 consecutive weight bytes of a row (one
 // 128-byte coalesced transaction per warp and row), dequantizes them in

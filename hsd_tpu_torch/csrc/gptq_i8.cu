@@ -1,13 +1,19 @@
-// K4 and K5: int8 dequantize-and-matmul on the tensor cores for Hopper
-// (sm_90a), with f32-exact operands.
+// K4 and K5 (int8), K1 and K3 (packed int4): GPTQ dequantize-and-matmul on
+// the tensor cores for Hopper (sm_90a), with f32-exact operands.
 //
 // Hand-written counterpart of the f32-operand (mxu_bf16=False) Pallas kernels
-// in hsd_tpu/ops/gptq_pallas.py that take int8 weights:
-//   K4  _kernel     x @ (code * scale), with the rank-1 zero-point correction
-//                   gptq_matmul subtracts outside it (:500-526)
-//   K5  _kernel_ln  rmsnorm(x, ln) @ (code * scale), symmetric; the normed
-//                   activations x * rsqrt(mean(x^2) + eps) * ln stay f32
-//                   (:103-110)
+// in hsd_tpu/ops/gptq_pallas.py:
+//   K4  _kernel          int8: x @ (code * scale), with the rank-1 zero-point
+//                        correction gptq_matmul subtracts outside it (:500-526)
+//   K5  _kernel_ln       int8: rmsnorm(x, ln) @ (code * scale), symmetric; the
+//                        normed activations x * rsqrt(mean(x^2) + eps) * ln
+//                        stay f32 (:103-110)
+//   K3  _kernel_int4     packed int4: x @ (nibble * scale), with the rank-1
+//                        correction of the -8 and the zero points (:500-526)
+//   K1  _kernel_int4_ln  packed int4: rmsnorm(x, ln) @ (nibble * scale) less
+//                        8 * scale times the normed group sums, symmetric
+//                        (:196-219)
+// (K2 and K6 stay on the f32 template of csrc/gptq.cu.)
 //
 // Arithmetic. The JAX kernels multiply f32 activations by the f32 weight
 // code * scale below 129 rows, so this kernel must not round an operand to
@@ -17,26 +23,35 @@
 // then 8, significant bits; for |x| above about 2^-110, where lo stays
 // above bf16's subnormal spacing of 2^-133). A bf16 activation is its own
 // hi plane, and its other planes are zero, so it runs one plane. int8 codes
-// are exact in bf16.
+// and the stored int4 nibbles (0..15) are exact in bf16.
 // So every plane x code product on the tensor cores (mma.sync m16n8k16 bf16
 // -> f32) is exact, and the only rounding is the f32 accumulation. The codes
 // of one quantization group accumulate alone (acc); at the group's end the
-// zero point enters as the rank-1 term acc - zero * xg, xg the row's sum of
-// the group's activations (the unrounded x, taken on the tensor cores as the
-// planes times a column of ones), and the group joins the output with
-// out = fmaf(scale, acc, out), groups in order. The zeros are non-integer
-// f32 (ops/linear.quantize), so code - zero is never staged in bf16.
+// offset enters as the rank-1 term acc - c * xg, xg the row's sum of the
+// group's activations (the unrounded x, taken on the tensor cores as the
+// planes times a column of ones; K1 takes it from its pre-pass, which saves
+// a third of its mma), c the zero point (int8) or 8 + zero (int4:
+// the nibbles are stored as code + 8; zero is 0 for a symmetric weight),
+// and the group joins the output with out = fmaf(scale, acc, out), groups
+// in order. The zeros are non-integer f32 (ops/linear.quantize), so code -
+// zero is never staged in bf16, and JAX multiplies by the stored nibble
+// (gptq_pallas.py:155-160, 196-201), so the -8 is not staged either.
 //
 // Bound on the card: at the 1-row decode calls the weight stream (the
-// Llama-3.1-8B head, 4096 x 128256: 525 MB, ~0.16 ms at 3.35 TB/s); at the
-// 60-80-row prefill and EAGLE-3 beam calls the operations (wgu 4096 x 28672
-// at 60 rows: 14 GFLOP x 3 planes of bf16 mma, ~0.045 ms at 989 TFLOP/s,
-// beside 0.035 ms of weight bytes). The design reads the weight once per
-// call: a block owns 128 output columns for every row of the call up to 128
-// rows (above 128 rows, which only f32 calls reach, rows tile in blocks of
-// 128), so the weight never re-streams per 16 rows as the f32 template in
-// csrc/gptq.cu did, and the products run on the tensor cores instead of f32
-// FMAs.
+// Llama-3.1-8B head, 4096 x 128256: 525 MB of int8, ~0.16 ms at 3.35 TB/s);
+// at the 60-128-row prefill, verify and EAGLE-3 beam calls the operations
+// (wgu 4096 x 28672 at 60 rows: 14 GFLOP x 3 planes of bf16 mma, ~0.045 ms
+// at 989 TFLOP/s, beside 0.035 ms of int8 weight bytes). The design reads
+// the weight once per call: a block owns 128 output columns for every row of
+// the call up to 128 rows (int8; above that, which only direct calls reach,
+// rows tile in such blocks), so the weight never re-streams per 16 rows as
+// the f32 template in csrc/gptq.cu does, and the products run on the tensor
+// cores instead of f32 FMAs. int4 keeps two runs of accumulators, which
+// leave too few registers for wide row tiles: its blocks own up to 32 rows,
+// two to an SM, and a column block's row blocks launch side by side, so
+// they read its weight from device memory once and share it through L2 (at
+// 33-64 rows this measured 15-20% faster than 64-row blocks of 16 warps, one
+// to an SM).
 //
 // Layout of the mma. The weight is the A operand (16 output columns x 16
 // input features) and the activation rows the B operand (16 features x 8
@@ -45,25 +60,38 @@
 // permuted order that both operands share (slots 2t, 2t+1, 2t+8, 2t+9 of
 // lane quad t hold features 4t..4t+3), and a lane's two M slots are
 // neighbouring columns. Then a lane's A fragments for two 16-column tiles
-// come from four 32-bit shared-memory words (4 features x 4 columns of
-// int8), and its B fragment is one 8-byte read of 4 consecutive features of
+// come from four 32-bit shared-memory words (4 weight rows x 4 columns of
+// bytes), and its B fragment is one 8-byte read of 4 consecutive features of
 // one row. int8 converts to bf16 with integer ops and one f32 add per code:
 // (0x4B000000 | (code ^ 0x80)) as f32 is 2^23 + code + 128, less 2^23 + 128
-// the exact code, whose upper 16 bits are its bf16.
+// the exact code, whose upper 16 bits are its bf16. Packed int4 is
+// split-half: byte row r holds feature r in its low nibble and feature
+// r + din/2 in its high nibble, so the same four words give 4 low and 4
+// high features, which belong to two k16 steps: one over x's first half,
+// one over its second. A nibble pair converts as the bf16 bits 0x4300 | n,
+// which are 128 + n, less 128 in one bf16x2 subtraction (exact).
 //
-// Pipeline. Each k-slice of 64 features is staged with cp.async, four
+// Pipeline. Each k-slice of 64 weight rows is staged with cp.async, four
 // slices in flight (three where a stage exceeds 24 KB, so that two blocks of
 // 33-64 rows fit an SM): the weight's 64 x 128 bytes and the activation
-// planes' rows, [plane][row][feature] bf16, both in 16-byte chunks whose
-// position in a row is XOR-swizzled so that the fragment reads hit
-// distinct banks. The planes are ready in device memory: a bf16 x is its
-// own plane, and K5's pre-pass writes the three planes of the normed rows
-// once (rather than every column block norming and splitting them again).
-// Only K4 with f32 x splits in the kernel (a pre-pass would add a launch),
-// the next slice's x in registers while the current one computes. One
-// barrier a slice (two with the in-kernel split). Eight
-// warps (four column warps x two row warps) own 32 columns x 32 rows each at
-// 33-64 rows; four warps at up to 32 rows; sixteen at up to 128.
+// planes' rows, [run][plane][row][feature] bf16 (int8: one run of 64
+// features; int4: the two runs [r0, r0 + 64) and [din/2 + r0, din/2 + r0 +
+// 64) that the slice's nibbles multiply), both in 16-byte chunks whose
+// position in a row is XOR-swizzled so that the fragment reads hit distinct
+// banks. A packed group spans a multiple of 64 byte rows in each nibble
+// plane, so a slice never straddles one; its low run is in group
+// r0 / gs and its high run in group G/2 + r0 / gs, whose accumulators run
+// side by side and join the output at their common end, low then high. The
+// planes are ready in device memory: a bf16 x is its own plane, and the
+// norm's pre-pass (K5, K1) writes the three planes of the normed rows once
+// (rather than every column block norming and splitting them again). Only
+// f32 x without a norm (K4, K3) splits in the kernel (a pre-pass would add
+// a launch), the next slice's x in registers while the current one
+// computes. One barrier a slice (two with the in-kernel split). Eight warps
+// (four column warps x two row warps) own 32 columns x 32 rows each at
+// 33-64 int8 rows; four warps at up to 32 rows; sixteen at up to 128. For
+// int4 a warp owns at most 16 rows: four warps up to 16 rows, eight up to
+// 32.
 //
 // Determinism. Narrow outputs split the input dimension across blocks
 // (blockIdx.z), with the split count from the weight's shape and the card
@@ -72,15 +100,17 @@
 // steps in order, the planes in order within a step, groups in order, and
 // nothing of that depends on the row count or on the rows beside it: a row
 // gives the same bits at 1, 17, 64 and 128 rows. No floating-point atomics.
-// K5's pre-pass sums each row's squares in a fixed order (lanes, then
+// The norm's pre-pass sums each row's squares in a fixed order (lanes, then
 // warps), as the template in csrc/gptq.cu does.
 //
-// Layouts (ops/linear.py of the port): w [din, dout] int8 codes; scales
+// Layouts (ops/linear.py of the port): w [din, dout] int8 codes, or [din/2,
+// dout] packed int4 (uint8, split-half, nibbles stored as code + 8); scales
 // [groups, dout] (bf16 or f32); zeros [groups, dout] f32 or null; group g
-// covers input rows [g*gs, (g+1)*gs), gs a multiple of 128; x [n, din] bf16
-// or f32, 16-byte aligned; ln [din] f32; the output [n, dout] bf16 or f32.
-// Any dout: 16-byte copies where rows are 16-byte aligned, else 4-byte or
-// byte copies, the ragged columns masked.
+// covers input rows [g*gs, (g+1)*gs), gs a multiple of 128 (int8), or of 64
+// with an even group count (int4); x [n, din] bf16 or f32, 16-byte aligned;
+// ln [din] f32; the output [n, dout] bf16 or f32. Any dout: 16-byte copies
+// where rows are 16-byte aligned, else 4-byte or byte copies, the ragged
+// columns masked.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -89,9 +119,10 @@
 namespace {
 
 constexpr int BN = 128;                 // output columns per block
-constexpr int BK = 64;                  // input features per k-slice
+constexpr int BK = 64;                  // weight rows per k-slice
 constexpr int kTileRows = 128;          // the split unit (splits_for)
 constexpr int kMaxRows = 128;           // rows per block at most
+constexpr int kMaxRowsI4 = 32;          // int4: rows per block at most
 constexpr uint32_t kOnes = 0x3F803F80u; // two bf16 1.0
 constexpr int kErrShape = 100000;       // unsupported shape
 
@@ -100,7 +131,7 @@ struct Args {
   int x_bf16;
   int n;                // activation rows
   int din;
-  const int8_t* w;
+  const int8_t* w;       // int8 codes, or packed int4 bytes
   int dout;
   const void* scales;
   int s_bf16;
@@ -115,6 +146,11 @@ struct Args {
   float* ws;            // [splits, n, dout] f32 partials when splits > 1
   int wvec;             // weight copy width: 16, 4 or 1 bytes
 };
+
+// K1's group sums: [n][groups] f32 after the three [n][din] planes of a.xp.
+__device__ __forceinline__ float* group_sums(const Args& a) {
+  return reinterpret_cast<float*>(a.xp + 3LL * a.n * a.din);
+}
 
 __device__ __forceinline__ float load_val(const void* p, int bf16, long long i) {
   if (bf16) return __bfloat162float(reinterpret_cast<const __nv_bfloat16*>(p)[i]);
@@ -178,6 +214,15 @@ __device__ __forceinline__ void split3(float v, float& mid, float& lo) {
   lo = __fsub_rn(mid, __bfloat162float(__float2bfloat16_rn(mid)));
 }
 
+// The nibbles in bits 0-3 and 16-19 of t as a bf16 pair: the bits
+// 0x4300 | n are the bf16 128 + n, and 128 + n - 128 is n exactly.
+__device__ __forceinline__ uint32_t nib_pair(uint32_t t) {
+  const uint32_t biased = (t & 0x000F000Fu) | 0x43004300u;
+  const __nv_bfloat162 v = __hsub2(*reinterpret_cast<const __nv_bfloat162*>(&biased),
+                                   __floats2bfloat162_rn(128.f, 128.f));
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
 // bf16 bits of four floats, packed two to a word.
 __device__ __forceinline__ uint2 pack4(const float (&v)[4]) {
   __nv_bfloat162 lo = __floats2bfloat162_rn(v[0], v[1]);
@@ -185,19 +230,23 @@ __device__ __forceinline__ uint2 pack4(const float (&v)[4]) {
   return make_uint2(*reinterpret_cast<uint32_t*>(&lo), *reinterpret_cast<uint32_t*>(&hi));
 }
 
-// NT: n8 row tiles per block (1, 2, 4, 8 or 16); P: activation planes (1
-// for bf16 x without a norm, else 3); ZEROS: a zero point per group and
-// column; SPLIT: f32 x split into its planes in the kernel (K4 with f32 x),
-// else the planes are read from a.xp (bf16 x itself, or K5's pre-pass).
-template <int NT, int P, bool ZEROS, bool SPLIT>
+// NT: n8 row tiles per block (1, 2, 4, 8 or 16; int4 1, 2 or 4); P:
+// activation planes (1 for bf16 x without a norm, else 3); ZEROS: a zero
+// point per group and column (int8; int4 reads its zeros at run time);
+// SPLIT: f32 x split into its planes in the kernel (K4 and K3 with f32 x),
+// else the planes are read from a.xp (bf16 x itself, or the norm's
+// pre-pass); I4: packed int4 weight bytes, two activation runs a slice.
+template <int NT, int P, bool ZEROS, bool SPLIT, bool I4>
 struct Tile {
-  static constexpr int NW = NT < 4 ? NT : 4;           // n8 tiles per warp
+  static constexpr int H = I4 ? 2 : 1;                 // activation runs a slice
+  static constexpr int MW = I4 ? 2 : 4;                // most n8 tiles a warp
+  static constexpr int NW = NT < MW ? NT : MW;         // n8 tiles per warp
   static constexpr int WR = NT / NW;                   // row warps
   static constexpr int kThreads = 128 * WR;            // four column warps each
   static constexpr int BR = 8 * NT;                    // rows per block
-  static constexpr int QPT = BR * (BK / 4) / kThreads; // SPLIT: x quads per thread
+  static constexpr int QPT = BR * (H * BK / 4) / kThreads; // SPLIT: x quads per thread
   static constexpr int WST = BK * BN;                  // weight bytes a stage
-  static constexpr int XST = P * BR * BK * 2;          // plane bytes a stage
+  static constexpr int XST = H * P * BR * BK * 2;      // plane bytes a stage
   static constexpr int STAGE = SPLIT ? WST : WST + XST;
   // stages in flight: three where a stage is large, so that two blocks of
   // 33-64 rows fit an SM
@@ -205,15 +254,18 @@ struct Tile {
   static constexpr int SMEM = S * STAGE + (SPLIT ? XST : 0);
 };
 
-template <int NT, int P, bool ZEROS, bool SPLIT>
-__global__ void __launch_bounds__(Tile<NT, P, ZEROS, SPLIT>::kThreads)
+template <int NT, int P, bool ZEROS, bool SPLIT, bool I4>
+__global__ void __launch_bounds__(Tile<NT, P, ZEROS, SPLIT, I4>::kThreads)
 i8_kernel(const Args a) {
-  using T = Tile<NT, P, ZEROS, SPLIT>;
-  constexpr int NW = T::NW, kThreads = T::kThreads, BR = T::BR, S = T::S;
+  using T = Tile<NT, P, ZEROS, SPLIT, I4>;
+  constexpr int NW = T::NW, kThreads = T::kThreads, BR = T::BR, S = T::S, H = T::H;
+  constexpr bool XG = ZEROS || I4;         // a rank-1 term per group
+  // K1 (int4 with the norm's planes): the group sums come from the pre-pass
+  constexpr bool PXG = I4 && P == 3 && !SPLIT;
   extern __shared__ __align__(16) unsigned char smem[];
   // stage s: weight [BK][BN] at s * STAGE, then (not SPLIT) planes
-  // [P][BR][BK]; SPLIT: one plane buffer after the S stages. Rows of both
-  // are 16-byte chunks XOR-swizzled by the row (xchunk, and the weight's
+  // [H][P][BR][BK]; SPLIT: one plane buffer after the S stages. Rows of both
+  // are 16-byte chunks XOR-swizzled by the row (xpos, and the weight's
   // in load), so the fragment reads hit distinct banks.
 
   const int tid = threadIdx.x;
@@ -223,13 +275,23 @@ i8_kernel(const Args a) {
   const int wr = warp >> 2;                  // row warp: rows [8 NW wr, 8 NW (wr + 1))
   const int g = lane >> 2;
   const int tg = lane & 3;
-  const int col0 = blockIdx.x * BN;
-  const int row0 = blockIdx.y * BR;
-  const int gs = a.din / a.groups;
+  // int4: row blocks fastest, so a column block's row blocks run side by
+  // side and share its weight through L2
+  const int col0 = (I4 ? blockIdx.y : blockIdx.x) * BN;
+  const int row0 = (I4 ? blockIdx.x : blockIdx.y) * BR;
+  const int gs = a.din / a.groups;           // int4: byte rows per group too
   const int spg = gs / BK;                   // slices per group
-  const int per_split = (a.din / kTileRows + a.splits - 1) / a.splits;
+  // int4: splits of 128-row tiles of the a.din / 2 byte rows, the last one
+  // taking a trailing 64-row slice
+  const int krows = I4 ? a.din / 2 : a.din;
+  const int per_split = I4 ? (max(krows / kTileRows, 1) + a.splits - 1) / a.splits
+                           : (a.din / kTileRows + a.splits - 1) / a.splits;
   const int s_begin = blockIdx.z * per_split * (kTileRows / BK);
-  const int s_end = min(a.din / kTileRows, (int)(blockIdx.z + 1) * per_split) * (kTileRows / BK);
+  const int s_end =
+      I4 ? ((int)blockIdx.z + 1 == a.splits
+                ? krows / BK
+                : min(krows / BK, (int)(blockIdx.z + 1) * per_split * (kTileRows / BK)))
+         : min(a.din / kTileRows, (int)(blockIdx.z + 1) * per_split) * (kTileRows / BK);
   // this lane's four columns, 4g .. 4g + 3 of its warp's 32
   const int lcol = col0 + 32 * wc + 4 * g;
 
@@ -242,7 +304,7 @@ i8_kernel(const Args a) {
   };
 
   // slice t into stage st: the weight's 64 x 128 bytes (chunks swizzled)
-  // and, unless SPLIT, the planes' BR rows x 64 features
+  // and, unless SPLIT, the planes' BR rows x 64 features of each run
   auto load = [&](int t, int st) {
     uint8_t* dst = wstage(st);
     for (int e = tid; e < BK * (BN / 16); e += kThreads) {
@@ -266,29 +328,32 @@ i8_kernel(const Args a) {
     }
     if constexpr (!SPLIT) {
       __nv_bfloat16* xd = xstage(st);
-      for (int e = tid; e < P * BR * 8; e += kThreads) {
+      for (int e = tid; e < H * P * BR * 8; e += kThreads) {
         const int c = e & 7;
         const int r = (e >> 3) % BR;
-        const int p = (e >> 3) / BR;
+        const int hp = (e >> 3) / BR;      // run * P + plane
+        const int p = I4 ? hp % P : hp;
+        const int f = (I4 ? (hp / P) * (a.din / 2) : 0) + t * BK + 8 * c;
         const bool ok = row0 + r < a.n;
-        const __nv_bfloat16* src =
-            a.xp + ((long long)p * a.n + row0 + r) * a.din + t * BK + 8 * c;
-        cp_async16(xd + p * BR * BK + xpos(r, 8 * c), ok ? src : a.xp, ok ? 16 : 0);
+        const __nv_bfloat16* src = a.xp + ((long long)p * a.n + row0 + r) * a.din + f;
+        cp_async16(xd + hp * BR * BK + xpos(r, 8 * c), ok ? src : a.xp, ok ? 16 : 0);
       }
     }
   };
 
   // SPLIT: slice t of the f32 x into registers, then its planes into the
-  // plane buffer
+  // plane buffer; quad q is row q / (16 H), features 4 (q % 16) of run
+  // (q / 16) % H
   auto load_x = [&](int t, float (&xr)[T::QPT][4]) {
 #pragma unroll
     for (int j = 0; j < T::QPT; ++j) {
       const int q = tid + j * kThreads;
-      const int r = q >> 4;
+      const int r = I4 ? q >> 5 : q >> 4;
+      const int f = (I4 ? ((q >> 4) & 1) * (a.din / 2) : 0) + t * BK + (q & 15) * 4;
       float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
       if (row0 + r < a.n) {
         v = __ldg(reinterpret_cast<const float4*>(reinterpret_cast<const float*>(a.x)
-                  + (long long)(row0 + r) * a.din + t * BK + (q & 15) * 4));
+                  + (long long)(row0 + r) * a.din + f));
       }
       xr[j][0] = v.x; xr[j][1] = v.y; xr[j][2] = v.z; xr[j][3] = v.w;
     }
@@ -300,7 +365,8 @@ i8_kernel(const Args a) {
       float mid[4], lo[4];
 #pragma unroll
       for (int e = 0; e < 4; ++e) split3(xr[j][e], mid[e], lo[e]);
-      __nv_bfloat16* d = xstage(0) + xpos(q >> 4, (q & 15) * 4);
+      __nv_bfloat16* d = xstage(0) + (I4 ? ((q >> 4) & 1) * P * BR * BK : 0)
+                         + xpos(I4 ? q >> 5 : q >> 4, (q & 15) * 4);
       *reinterpret_cast<uint2*>(d) = pack4(xr[j]);
       *reinterpret_cast<uint2*>(d + BR * BK) = pack4(mid);
       *reinterpret_cast<uint2*>(d + 2 * BR * BK) = pack4(lo);
@@ -308,19 +374,32 @@ i8_kernel(const Args a) {
   };
 
   float acc[2][NW][4];                     // the current group's code sums
+  float acch[I4 ? 2 : 1][I4 ? NW : 1][4];  // int4: the high run's group's
   float out[2][NW][4];                     // sum over groups of scale * acc
-  float xg[ZEROS ? NW : 1][4];             // the current group's row sums
+  // the current group's row sums: int8 [j][e % 2]; int4 the low run's
+  // group in [j][0..1], the high run's in [j][2..3]
+  float xg[XG ? NW : 1][4];
 #pragma unroll
   for (int m = 0; m < 2; ++m)
 #pragma unroll
     for (int j = 0; j < NW; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[m][j][e] = out[m][j][e] = 0.f;
+  if constexpr (I4) {
 #pragma unroll
-  for (int j = 0; j < (ZEROS ? NW : 1); ++j)
+    for (int m = 0; m < 2; ++m)
+#pragma unroll
+      for (int j = 0; j < NW; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acch[m][j][e] = 0.f;
+  }
+#pragma unroll
+  for (int j = 0; j < (XG ? NW : 1); ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) xg[j][e] = 0.f;
-  float sc[4], zc[4];
+  // scales and offsets of this lane's four columns: int8 (sc, zc); int4
+  // the low run's group (sc, zc) and the high run's (sch, zch), zc = 8 + zero
+  float sc[4], zc[4], sch[I4 ? 4 : 1], zch[I4 ? 4 : 1];
   float xr[SPLIT ? T::QPT : 1][4];
 
 #pragma unroll
@@ -347,11 +426,18 @@ i8_kernel(const Args a) {
     }
     if (t == s_begin || t % spg == 0) {    // the group's scales and zeros
       const long long si = (long long)(t / spg) * a.dout + lcol;
+      const long long sh = si + (long long)(a.groups / 2) * a.dout;
 #pragma unroll
       for (int c = 0; c < 4; ++c) {
         const bool ok = lcol + c < a.dout;
         sc[c] = ok ? load_val(a.scales, a.s_bf16, si + c) : 0.f;
-        zc[c] = (ZEROS && ok) ? a.zeros[si + c] : 0.f;
+        if constexpr (I4) {
+          zc[c] = 8.f + ((a.zeros && ok) ? a.zeros[si + c] : 0.f);
+          sch[c] = ok ? load_val(a.scales, a.s_bf16, sh + c) : 0.f;
+          zch[c] = 8.f + ((a.zeros && ok) ? a.zeros[sh + c] : 0.f);
+        } else {
+          zc[c] = (ZEROS && ok) ? a.zeros[si + c] : 0.f;
+        }
       }
     }
 
@@ -365,8 +451,48 @@ i8_kernel(const Args a) {
       for (int i = 0; i < 4; ++i) {
         const int rr = kk * 16 + 4 * tg + i;
         wv[i] = *reinterpret_cast<const uint32_t*>(
-            wst + rr * BN + 16 * ((2 * wc + (g >> 2)) ^ (2 * tg)) + 4 * (g & 3)) ^ 0x80808080u;
+            wst + rr * BN + 16 * ((2 * wc + (g >> 2)) ^ (2 * tg)) + 4 * (g & 3));
       }
+      if constexpr (I4) {
+        // the same slots from the low nibbles (features r0 + kk*16 + 4tg ..
+        // + 3, run 0) and the high ones (the same of run 1): byte j of
+        // words 2h and 2h + 1 is column lcol + j at features 4tg + 2h and
+        // 4tg + 2h + 1
+        uint32_t al[2][4], ah[2][4];
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const uint32_t pr = __byte_perm(wv[2 * h], wv[2 * h + 1], j | ((j + 4) << 8));
+            al[j >> 1][2 * h + (j & 1)] = nib_pair(pr);
+            ah[j >> 1][2 * h + (j & 1)] = nib_pair(pr >> 4);
+          }
+        }
+        // ones on the k slots of the low run for M slot g, of the high run
+        // for g + 8: one mma sums half a step of both runs' features
+        const uint32_t ones[4] = {kOnes, 0u, 0u, kOnes};
+#pragma unroll
+        for (int p = 0; p < P; ++p) {
+#pragma unroll
+          for (int j = 0; j < NW; ++j) {
+            const int r = wr * NW * 8 + 8 * j + g;
+            const __nv_bfloat16* xb = xst + p * BR * BK + xpos(r, kk * 16 + 4 * tg);
+            const uint2 bl = *reinterpret_cast<const uint2*>(xb);
+            const uint2 bh = *reinterpret_cast<const uint2*>(xb + P * BR * BK);
+            mma_bf16(acc[0][j], al[0], bl.x, bl.y);
+            mma_bf16(acc[1][j], al[1], bl.x, bl.y);
+            mma_bf16(acch[0][j], ah[0], bh.x, bh.y);
+            mma_bf16(acch[1][j], ah[1], bh.x, bh.y);
+            if constexpr (!PXG) {
+              mma_bf16(xg[j], ones, bl.x, bh.x);
+              mma_bf16(xg[j], ones, bl.y, bh.y);
+            }
+          }
+        }
+        continue;
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i) wv[i] ^= 0x80808080u;
       // af[m] = {a0, a1, a2, a3} of the 16-column tile m: a0 the M slot g
       // (column lcol + 2m) at features 4tg, 4tg+1; a1 the slot g + 8
       // (column lcol + 2m + 1) there; a2, a3 the same at features 4tg+2, +3
@@ -398,6 +524,22 @@ i8_kernel(const Args a) {
     }
 
     if ((t + 1) % spg == 0 || t + 1 == s_end) {   // the group's end here
+      if constexpr (PXG) {
+        // the pre-pass's sums of the whole groups; a split that ends inside
+        // a group leaves the term to the split that ends the group
+        const bool whole = (t + 1) % spg == 0;
+        const int gl = t / spg;
+#pragma unroll
+        for (int j = 0; j < NW; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int row = row0 + wr * NW * 8 + 8 * j + 2 * tg + e;
+            const bool ok = whole && row < a.n;
+            const float* xs = group_sums(a) + (long long)row * a.groups + gl;
+            xg[j][e] = ok ? xs[0] : 0.f;
+            xg[j][2 + e] = ok ? xs[a.groups / 2] : 0.f;
+          }
+      }
 #pragma unroll
       for (int m = 0; m < 2; ++m)
 #pragma unroll
@@ -406,12 +548,17 @@ i8_kernel(const Args a) {
           for (int e = 0; e < 4; ++e) {
             const int c = 2 * m + (e >> 1);
             float v = acc[m][j][e];
-            if (ZEROS) v = fmaf(-zc[c], xg[j][e & 1], v);
+            if (XG) v = fmaf(-zc[c], xg[j][e & 1], v);
             out[m][j][e] = fmaf(sc[c], v, out[m][j][e]);
             acc[m][j][e] = 0.f;
+            if constexpr (I4) {          // then the high run's group
+              v = fmaf(-zch[c], xg[j][2 + (e & 1)], acch[m][j][e]);
+              out[m][j][e] = fmaf(sch[c], v, out[m][j][e]);
+              acch[m][j][e] = 0.f;
+            }
           }
 #pragma unroll
-      for (int j = 0; j < (ZEROS ? NW : 1); ++j)
+      for (int j = 0; j < (XG ? NW : 1); ++j)
 #pragma unroll
         for (int e = 0; e < 4; ++e) xg[j][e] = 0.f;
     }
@@ -442,11 +589,14 @@ i8_kernel(const Args a) {
   }
 }
 
-// K5's pre-pass, one block of kPrep threads per row: the row's inverse RMS
+// The norm's pre-pass (K5, K1), one block of kPrep threads per row: the row's inverse RMS
 // over its din features (a fixed order: lanes, then warps in order), then
 // the three planes of its normed activations (x * inv) * ln, written to a.xp
-// [3][n][din].
+// [3][n][din]; XGS (K1): also each group's sum of those f32 values, warp w
+// taking groups w, w + 32, ... (lanes in a fixed order, then a butterfly),
+// written after the planes (group_sums).
 constexpr int kPrep = 1024;
+template <bool XGS>
 __global__ void __launch_bounds__(kPrep) prep_kernel(const Args a) {
   __shared__ float part[kPrep / 32];
   __shared__ float rinv;
@@ -478,6 +628,19 @@ __global__ void __launch_bounds__(kPrep) prep_kernel(const Args a) {
     a.xp[plane + base + f] = __float2bfloat16_rn(mid);
     a.xp[2 * plane + base + f] = __float2bfloat16_rn(lo);
   }
+  if constexpr (XGS) {
+    const int gs = a.din / a.groups;
+    const int lane = threadIdx.x & 31;
+    for (int g = threadIdx.x >> 5; g < a.groups; g += kPrep / 32) {
+      float s = 0.f;
+      for (int f = g * gs + lane; f < (g + 1) * gs; f += 32) {
+        s += __fmul_rn(__fmul_rn(load_val(a.x, a.x_bf16, base + f), rinv), a.ln[f]);
+      }
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
+      if (lane == 0) group_sums(a)[(long long)blockIdx.x * a.groups + g] = s;
+    }
+  }
 }
 
 // Sum the splits' partials in split order and round to the output.
@@ -491,55 +654,59 @@ __global__ void __launch_bounds__(256) splitk_reduce_kernel(const Args a) {
   }
 }
 
-template <int NT, int P, bool ZEROS, bool SPLIT>
+template <int NT, int P, bool ZEROS, bool SPLIT, bool I4>
 int launch(dim3 grid, cudaStream_t stream, const Args& a) {
-  using T = Tile<NT, P, ZEROS, SPLIT>;
+  using T = Tile<NT, P, ZEROS, SPLIT, I4>;
   static bool configured = false;        // the opt-in above 48 KB, once
   if (!configured) {
     const int err = (int)cudaFuncSetAttribute(
-        i8_kernel<NT, P, ZEROS, SPLIT>, cudaFuncAttributeMaxDynamicSharedMemorySize, T::SMEM);
+        i8_kernel<NT, P, ZEROS, SPLIT, I4>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        T::SMEM);
     if (err) return err;
     configured = true;
   }
-  i8_kernel<NT, P, ZEROS, SPLIT><<<grid, T::kThreads, T::SMEM, stream>>>(a);
+  i8_kernel<NT, P, ZEROS, SPLIT, I4><<<grid, T::kThreads, T::SMEM, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
-// bf16 x: one plane from x itself; a norm: K5's three planes from the
-// pre-pass; f32 x without a norm: three planes split in the kernel.
-template <int NT>
+// bf16 x: one plane from x itself; a norm: three planes from the pre-pass;
+// f32 x without a norm: three planes split in the kernel. int4 reads its
+// zeros at run time.
+template <int NT, bool I4>
 int launch_nt(dim3 grid, cudaStream_t stream, const Args& a) {
-  if (a.ln) return launch<NT, 3, false, false>(grid, stream, a);
+  if (a.ln) return launch<NT, 3, false, false, I4>(grid, stream, a);
   if (a.x_bf16) {
-    return a.zeros ? launch<NT, 1, true, false>(grid, stream, a)
-                   : launch<NT, 1, false, false>(grid, stream, a);
+    return (a.zeros && !I4) ? launch<NT, 1, !I4, false, I4>(grid, stream, a)
+                            : launch<NT, 1, false, false, I4>(grid, stream, a);
   }
-  return a.zeros ? launch<NT, 3, true, true>(grid, stream, a)
-                 : launch<NT, 3, false, true>(grid, stream, a);
+  return (a.zeros && !I4) ? launch<NT, 3, !I4, true, I4>(grid, stream, a)
+                          : launch<NT, 3, false, true, I4>(grid, stream, a);
 }
 
-}  // namespace
-
-// y[n, dout] = prologue(x) @ ((code - zero) * scale), f32-exact operands on
-// the tensor cores, f32 accumulation, rounded once to the output's type.
-// ln may be null (K4); with ln (K5) zeros must be null and planes is a
-// [3, n, din] bf16 workspace for the pre-pass. ws is an [splits, n, dout]
-// f32 workspace (unused when splits == 1). Returns 0, a CUDA error code from
-// a launch, or kErrShape for a shape the kernel does not take.
-extern "C" int hsd_gptq_i8(const void* x, int x_bf16, int n, int din,
-                           const void* w, int dout, const void* scales,
-                           int s_bf16, const void* zeros, int groups,
-                           const void* ln, float eps, void* out, int o_bf16,
-                           int splits, void* ws, void* planes, void* stream) {
+// Checks the shape, runs the pre-pass (with ln), the kernel and (splits >
+// 1) the ordered sum of the splits. Returns 0, a CUDA error code from a
+// launch, or kErrShape.
+template <bool I4>
+int run(const void* x, int x_bf16, int n, int din, const void* w, int dout,
+        const void* scales, int s_bf16, const void* zeros, int groups, const void* ln,
+        float eps, void* out, int o_bf16, int splits, void* ws, void* planes,
+        void* stream) {
   if (n <= 0 || din <= 0 || dout <= 0 || groups <= 0 || din % groups) return kErrShape;
-  if ((din / groups) % kTileRows) return kErrShape;
+  const int gs = din / groups;
+  // int8: groups of a multiple of 128 rows; int4: an even group count (each
+  // nibble plane spans whole groups) of a multiple of 64 features
+  if (I4 ? (groups % 2 || gs % BK) : gs % kTileRows) return kErrShape;
   if (ln && (!planes || zeros)) return kErrShape;
-  if (splits < 1 || splits > din / kTileRows || (splits > 1 && !ws)) return kErrShape;
+  const int krows = I4 ? din / 2 : din;
+  const int tiles = krows / kTileRows > 0 ? krows / kTileRows : 1;
+  if (splits < 1 || splits > tiles || (splits > 1 && !ws)) return kErrShape;
   if (reinterpret_cast<uintptr_t>(x) % 16 || reinterpret_cast<uintptr_t>(planes) % 16) {
     return kErrShape;
   }
-  const long long row_blocks = (n + kMaxRows - 1) / kMaxRows;
-  if (row_blocks > 65535 || splits > 65535) return kErrShape;
+  const int max_rows = I4 ? kMaxRowsI4 : kMaxRows;
+  const long long row_blocks = (n + max_rows - 1) / max_rows;
+  const long long col_blocks = (dout + BN - 1) / BN;
+  if ((I4 ? col_blocks : row_blocks) > 65535 || splits > 65535) return kErrShape;
 
   Args a;
   a.x = x; a.x_bf16 = x_bf16; a.n = n; a.din = din;
@@ -555,19 +722,27 @@ extern "C" int hsd_gptq_i8(const void* x, int x_bf16, int n, int din,
 
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   if (a.ln) {
-    prep_kernel<<<n, kPrep, 0, s>>>(a);
+    prep_kernel<I4><<<n, kPrep, 0, s>>>(a);
     const int err = (int)cudaGetLastError();
     if (err) return err;
   }
-  const int nt = n > 64 ? 16 : n > 32 ? 8 : n > 16 ? 4 : n > 8 ? 2 : 1;
-  const dim3 grid((dout + BN - 1) / BN, (unsigned)(n > kMaxRows ? row_blocks : 1), splits);
+  const int nt = I4 ? (n > 16 ? 4 : n > 8 ? 2 : 1)
+                    : (n > 64 ? 16 : n > 32 ? 8 : n > 16 ? 4 : n > 8 ? 2 : 1);
+  const unsigned rb = (unsigned)(n > max_rows ? row_blocks : 1);
+  const dim3 grid = I4 ? dim3(rb, (unsigned)col_blocks, splits)
+                       : dim3((unsigned)col_blocks, rb, splits);
   int err;
   switch (nt) {
-    case 1: err = launch_nt<1>(grid, s, a); break;
-    case 2: err = launch_nt<2>(grid, s, a); break;
-    case 4: err = launch_nt<4>(grid, s, a); break;
-    case 8: err = launch_nt<8>(grid, s, a); break;
-    default: err = launch_nt<16>(grid, s, a); break;
+    case 1: err = launch_nt<1, I4>(grid, s, a); break;
+    case 2: err = launch_nt<2, I4>(grid, s, a); break;
+    case 4: err = launch_nt<4, I4>(grid, s, a); break;
+    default:
+      if constexpr (I4) {
+        return kErrShape;
+      } else {
+        err = nt == 8 ? launch_nt<8, false>(grid, s, a) : launch_nt<16, false>(grid, s, a);
+      }
+      break;
   }
   if (err || splits == 1) return err;
   const long long total = (long long)n * dout;
@@ -576,7 +751,39 @@ extern "C" int hsd_gptq_i8(const void* x, int x_bf16, int n, int din,
   return (int)cudaGetLastError();
 }
 
+}  // namespace
+
+// y[n, dout] = prologue(x) @ ((code - zero) * scale), f32-exact operands on
+// the tensor cores, f32 accumulation, rounded once to the output's type.
+// ln may be null (K4); with ln (K5) zeros must be null and planes is a
+// [3, n, din] bf16 workspace for the pre-pass. ws is an [splits, n, dout]
+// f32 workspace (unused when splits == 1). Returns 0, a CUDA error code from
+// a launch, or kErrShape for a shape the kernel does not take.
+extern "C" int hsd_gptq_i8(const void* x, int x_bf16, int n, int din,
+                           const void* w, int dout, const void* scales,
+                           int s_bf16, const void* zeros, int groups,
+                           const void* ln, float eps, void* out, int o_bf16,
+                           int splits, void* ws, void* planes, void* stream) {
+  return run<false>(x, x_bf16, n, din, w, dout, scales, s_bf16, zeros, groups, ln, eps,
+                    out, o_bf16, splits, ws, planes, stream);
+}
+
+// y[n, dout] = prologue(x) @ ((nibble - 8 - zero) * scale) for packed int4
+// w [din/2, dout]: K3 (ln null) and K1 (ln, zeros null), with the
+// arguments and workspaces of hsd_gptq_i8, except that K1's planes
+// workspace holds [n, groups] f32 group sums after its three bf16 planes
+// (3 n din + 2 n groups bf16 elements). Splits count 128-row tiles of the
+// packed rows.
+extern "C" int hsd_gptq_i4(const void* x, int x_bf16, int n, int din,
+                           const void* w, int dout, const void* scales,
+                           int s_bf16, const void* zeros, int groups,
+                           const void* ln, float eps, void* out, int o_bf16,
+                           int splits, void* ws, void* planes, void* stream) {
+  return run<true>(x, x_bf16, n, din, w, dout, scales, s_bf16, zeros, groups, ln, eps,
+                   out, o_bf16, splits, ws, planes, stream);
+}
+
 extern "C" const char* hsd_i8_error_string(int code) {
-  if (code == kErrShape) return "shape not supported by the int8 tensor-core kernel";
+  if (code == kErrShape) return "shape not supported by the GPTQ tensor-core kernel";
   return cudaGetErrorString((cudaError_t)code);
 }

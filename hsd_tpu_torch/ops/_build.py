@@ -38,6 +38,8 @@ SIGNATURES = {
     "gptq_i8": {
         "hsd_gptq_i8": (_I, [_P, _I, _I, _I, _P, _I, _P, _I, _P, _I, _P, _F,
                              _P, _I, _I, _P, _P, _P]),
+        "hsd_gptq_i4": (_I, [_P, _I, _I, _I, _P, _I, _P, _I, _P, _I, _P, _F,
+                             _P, _I, _I, _P, _P, _P]),
         "hsd_i8_error_string": (ctypes.c_char_p, [_I]),
     },
     "gptq_mma": {

@@ -11,17 +11,18 @@ K7i4). Each has:
     reads every kernel's, `reset_launches()` zeroes them);
   * a note naming the TPU kernel it replaces and what bounds it on the card.
 
-K1-K3 and K6 (packed int4, f32 operands) launch one template in
-`csrc/gptq.cu` (see its header for the design): a block owns 128 output
-columns for up to 16 activation rows and a share of the weight's rows,
-streams them once in 128-row tiles, dequantizes in registers and
-accumulates in f32; a second pass sums the shares in order. K4 and K5
-(int8, f32 operands) are the tensor-core kernel of `csrc/gptq_i8.cu`: f32
-activations split into three bf16 planes that sum to them exactly, so the
-products stay exact. K7 (int8) and K7i4 (packed int4) are the tensor-core
-template of `csrc/gptq_mma.cu` for the bf16-operand mode at 129-1024 rows.
-In all three, nothing in an output's summation order depends on the row
-count, so a row's bits do not either.
+K2 and K6 (packed int4, f32 operands, the fused layer tail and MLP)
+launch one template in `csrc/gptq.cu` (see its header for the design): a
+block owns 128 output columns for up to 16 activation rows and a share of
+the weight's rows, streams them once in 128-row tiles, dequantizes in
+registers and accumulates in f32; a second pass sums the shares in order.
+K1 and K3 (packed int4) and K4 and K5 (int8), the f32-operand products, are
+the tensor-core kernel of `csrc/gptq_i8.cu`: f32 activations split into
+three bf16 planes that sum to them exactly, so the products stay exact. K7
+(int8) and K7i4 (packed int4) are the tensor-core template of
+`csrc/gptq_mma.cu` for the bf16-operand mode at 129-1024 rows. In all
+three, nothing in an output's summation order depends on the row count, so
+a row's bits do not either.
 
 Layouts are those of `ops/linear.QuantizedLinear`: packed int4 is uint8
 [din/2, dout] split-half with nibbles stored as code+8; int8 is [din, dout];
@@ -52,7 +53,7 @@ def dequantize_int4(qweight: torch.Tensor, scales: torch.Tensor,
                     zeros: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Packed int4 [din/2, dout] -> f32 [din, dout] weight
     (nibble - 8 - zero) * scale, split-half rows."""
-    return _apply_groups(_nibbles(qweight) - 8, scales, zeros)
+    return _apply_groups(_nibbles(qweight).sub_(8), scales, zeros)
 
 
 def dequantize_int8(qweight: torch.Tensor, scales: torch.Tensor,
@@ -62,12 +63,15 @@ def dequantize_int8(qweight: torch.Tensor, scales: torch.Tensor,
 
 
 def _apply_groups(codes, scales, zeros):
+    """(codes - zero) * scale per group, in place on the f32 codes (one
+    [din, dout] f32 buffer: the dequantize route above 128 rows runs this on
+    a whole head)."""
     din, dout = codes.shape
     g = scales.shape[0]
     c = codes.reshape(g, din // g, dout)
     if zeros is not None:
-        c = c - zeros.float()[:, None, :]
-    return (c * scales.float()[:, None, :]).reshape(din, dout)
+        c.sub_(zeros.float()[:, None, :])
+    return c.mul_(scales.float()[:, None, :]).reshape(din, dout)
 
 
 def _rms_f32(x: torch.Tensor, ln: torch.Tensor, eps: float) -> torch.Tensor:
@@ -83,8 +87,12 @@ def _bf16_round(t: torch.Tensor) -> torch.Tensor:
 def _nibbles(qweight: torch.Tensor) -> torch.Tensor:
     """Packed int4 [din/2, dout] -> the stored UNSIGNED nibbles (code + 8,
     0..15) as f32 [din, dout], split-half rows."""
-    b = qweight.to(torch.int32)
-    return torch.cat([b & 15, b >> 4], dim=0).float()
+    rows = qweight.shape[0]
+    out = torch.empty((2 * rows, qweight.shape[1]), dtype=torch.float32,
+                      device=qweight.device)
+    out[:rows] = qweight & 15
+    out[rows:] = qweight >> 4
+    return out
 
 
 def _bf16_weight(codes: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
@@ -246,13 +254,61 @@ def _launch(x, ldx, n, din, qweight, scales, zeros, ln, eps, prologue,
 
 
 # --------------------------------------------------------------------------
+# K1, K3, K4 and K5 — one tensor-core kernel, `csrc/gptq_i8.cu` (see its
+# header), with f32-exact operands: f32 activations split into three bf16
+# planes (hi, mid, lo) that sum to them exactly, bf16 activations are one
+# plane, int8 codes and the stored int4 nibbles are exact in bf16, so each
+# mma.sync product is exact and only the f32 accumulation rounds. A group's
+# code sums take the offset as the rank-1 term acc - c * xg (c: the int8
+# zero point, or 8 + zero for the unsigned nibbles) and join the output as
+# fmaf(scale, acc, out), groups in order. A block owns 128 columns for every
+# row up to 128 (int8) or 32 (int4, whose row blocks run side by side and
+# share the weight through L2), so the weight streams once per call. Splits of the input dimension come from
+# `splits_for` on the weight's rows (the weight's shape and the card only),
+# summed in order by a second launch. K5 and K1 add a per-row pre-pass
+# first, which writes the inverse RMS's normed activations as three planes
+# (a [3, n, din] bf16 workspace), and for K1 each group's sum of them after
+# the planes ([n, groups] f32) in place of the ones column's mma.
+
+def _launch_i8(x, qweight, scales, zeros, ln, eps, packed=False):
+    n, din = x.shape
+    dout = qweight.shape[-1]
+    _check(x, "x", _ACT)
+    if x.data_ptr() % 16:
+        raise ValueError("x: must start 16-byte aligned")
+    if ln is not None:
+        _check(ln, "ln", (torch.float32,), (din,))
+    _weight(qweight, scales, zeros, packed, din, dout)
+    dev = x.device
+    splits = splits_for(qweight.shape[0], dout, _sm_count(dev.index or 0))
+    out = torch.empty((n, dout), dtype=x.dtype, device=dev)
+    ws = (torch.empty((splits, n, dout), dtype=torch.float32, device=dev)
+          if splits > 1 else None)
+    # K1: the group sums, [n, groups] f32, after the planes
+    extra = 2 * n * scales.shape[0] if packed else 0
+    planes = (torch.empty((3 * n * din + extra,), dtype=torch.bfloat16,
+                          device=dev) if ln is not None else None)
+    lib = _build.lib("gptq_i8")
+    err = (lib.hsd_gptq_i4 if packed else lib.hsd_gptq_i8)(
+        _ptr(x), _bf16(x), n, din, _ptr(qweight), dout, _ptr(scales),
+        _bf16(scales), _ptr(zeros), scales.shape[0], _ptr(ln), float(eps),
+        _ptr(out), _bf16(out), splits, _ptr(ws), _ptr(planes),
+        torch.cuda.current_stream(dev).cuda_stream)
+    if err:
+        raise RuntimeError(f"{'int4' if packed else 'int8'} GPTQ kernel "
+                           f"(n={n}, din={din}, dout={dout}, ln="
+                           f"{ln is not None}, zeros={zeros is not None}): "
+                           f"{lib.hsd_i8_error_string(err).decode()}")
+    return out
+
+
 # K1 — replaces gptq_pallas.gptq_matmul(..., ln=) packed: _kernel_int4_ln
-# (hsd_tpu/ops/gptq_pallas.py:176). y = rmsnorm(x, ln) @ deq(W).
-# Bound: the weight stream, din/2 * dout bytes (target wqkv 2560 x 7168:
-# 18.4 MB + 0.6 MB of scales, ~5.6 us at 3.35 TB/s). A one-block-per-row
-# pass writes each row's inverse RMS (n floats); the matvec applies the norm
-# while staging activations, so the normed x never goes to device memory.
-# The -8 shift is folded into the dequantization.
+# (hsd_tpu/ops/gptq_pallas.py:176). y = rmsnorm(x, ln) @ deq(W), the normed
+# x kept f32 (three planes from the pre-pass), the -8 as the rank-1 term on
+# the normed group sums.
+# Bound: the weight stream at 1-11 rows (target wqkv 2560 x 7168: 18.4 MB +
+# 0.6 MB of scales, ~5.6 us at 3.35 TB/s); the three planes' operations at
+# the 60-128-row prefill and verify calls.
 
 def int4_ln_matmul(x: torch.Tensor, qweight: torch.Tensor,
                    scales: torch.Tensor, ln: torch.Tensor,
@@ -261,80 +317,25 @@ def int4_ln_matmul(x: torch.Tensor, qweight: torch.Tensor,
     symmetric (no zeros)."""
     if not x.is_cuda:
         return int4_ln_matmul_plain(x, qweight, scales, ln, eps)
-    n, din = x.shape
-    dout = qweight.shape[-1]
-    _check(x, "x", _ACT)
-    _check(ln, "ln", (torch.float32,), (din,))
-    _weight(qweight, scales, None, True, din, dout)
-    out = torch.empty((n, dout), dtype=x.dtype, device=x.device)
-    _launch(x, din, n, din, qweight, scales, None, ln, eps, PRO_RMS, None,
-            out)
+    out = _launch_i8(x, qweight, scales, None, ln, eps, packed=True)
     int4_ln_matmul.launches += 1
     return out
 
 
-# --------------------------------------------------------------------------
 # K3 — replaces gptq_pallas.gptq_matmul packed without ln: _kernel_int4
-# (gptq_pallas.py:117) plus its rank-1 -8 correction (:500-526), folded here
-# into the dequantization. y = x @ deq(W).
-# Bound: the weight stream (target lm_head 2560 x 151936: 389 MB + 12 MB of
-# scales, ~120 us at 3.35 TB/s). 1187 blocks of 128 columns fill the card.
+# (gptq_pallas.py:117) plus its rank-1 -8 / zero-point correction
+# (:500-526). y = x @ deq(W).
+# Bound: the weight stream at 1-11 rows (target lm_head 2560 x 151936: 389
+# MB + 12 MB of scales, ~120 us at 3.35 TB/s); the operations at the
+# 60-128-row calls (one plane of bf16 mma for bf16 x, three for f32).
 
 def int4_matmul(x: torch.Tensor, qweight: torch.Tensor, scales: torch.Tensor,
                 zeros: Optional[torch.Tensor] = None) -> torch.Tensor:
     """y[n, dout] = x[n, din] @ deq(qweight): packed int4."""
     if not x.is_cuda:
         return int4_matmul_plain(x, qweight, scales, zeros)
-    n, din = x.shape
-    dout = qweight.shape[-1]
-    _check(x, "x", _ACT)
-    _weight(qweight, scales, zeros, True, din, dout)
-    out = torch.empty((n, dout), dtype=x.dtype, device=x.device)
-    _launch(x, din, n, din, qweight, scales, zeros, None, 0.0, PRO_NONE,
-            None, out)
+    out = _launch_i8(x, qweight, scales, zeros, None, 0.0, packed=True)
     int4_matmul.launches += 1
-    return out
-
-
-# --------------------------------------------------------------------------
-# K4 and K5 — one tensor-core kernel, `csrc/gptq_i8.cu` (see its header),
-# with f32-exact operands: f32 activations split into three bf16 planes
-# (hi, mid, lo) that sum to them exactly, bf16 activations are one plane,
-# int8 codes are exact in bf16, so each mma.sync product is exact and only
-# the f32 accumulation rounds. A group's code sums take the zero point as the
-# rank-1 term acc - zero * xg and join the output as fmaf(scale, acc, out),
-# groups in order. A block owns 128 columns for every row up to 128, so the
-# weight streams once per call. Splits of the input dimension come from
-# `splits_for` (the weight's shape and the card only), summed in order by a
-# second launch. K5 adds a per-row pre-pass first, which writes the inverse
-# RMS's normed activations as three planes (a [3, n, din] bf16 workspace).
-
-def _launch_i8(x, qweight, scales, zeros, ln, eps):
-    n, din = x.shape
-    dout = qweight.shape[-1]
-    _check(x, "x", _ACT)
-    if x.data_ptr() % 16:
-        raise ValueError("x: must start 16-byte aligned")
-    if ln is not None:
-        _check(ln, "ln", (torch.float32,), (din,))
-    _weight(qweight, scales, zeros, False, din, dout)
-    dev = x.device
-    splits = splits_for(din, dout, _sm_count(dev.index or 0))
-    out = torch.empty((n, dout), dtype=x.dtype, device=dev)
-    ws = (torch.empty((splits, n, dout), dtype=torch.float32, device=dev)
-          if splits > 1 else None)
-    planes = (torch.empty((3, n, din), dtype=torch.bfloat16, device=dev)
-              if ln is not None else None)
-    lib = _build.lib("gptq_i8")
-    err = lib.hsd_gptq_i8(
-        _ptr(x), _bf16(x), n, din, _ptr(qweight), dout, _ptr(scales),
-        _bf16(scales), _ptr(zeros), scales.shape[0], _ptr(ln), float(eps),
-        _ptr(out), _bf16(out), splits, _ptr(ws), _ptr(planes),
-        torch.cuda.current_stream(dev).cuda_stream)
-    if err:
-        raise RuntimeError(f"int8 GPTQ kernel (n={n}, din={din}, dout={dout}"
-                           f", ln={ln is not None}, zeros={zeros is not None}"
-                           f"): {lib.hsd_i8_error_string(err).decode()}")
     return out
 
 

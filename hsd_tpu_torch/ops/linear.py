@@ -3,8 +3,11 @@
 The port of `hsd_tpu/ops/linear.py`. A quantized weight is a
 `QuantizedLinear` of int8 or packed-int4 codes with per-group scales and
 optional zero points; it drops into the same `apply_linear` call sites as a
-dense tensor. On a CUDA tensor every quantized matmul runs a hand-written
-kernel (`ops/gptq_cuda.py`); on a CPU tensor the kernel's plain version.
+dense tensor. A quantized matmul takes a hand-written kernel
+(`ops/gptq_cuda.py`; on a CPU tensor the kernel's plain version) where the
+JAX package takes its Pallas kernel on its device (`kernel_route`), and
+every other product of more than 128 rows the reference's XLA route,
+dequantize-then-dot in plain PyTorch (`dequant_matmul`).
 """
 from __future__ import annotations
 
@@ -197,17 +200,54 @@ def bf16_route(w: QuantizedLinear, n: int, mxu_bf16: bool) -> bool:
             and pallas_supported(w) and batched_rows_ok(w, n))
 
 
+KERNEL_MAX_ROWS = 128      # the JAX gate's decode regime (linear.py:221-223)
+
+
+def kernel_route(w: QuantizedLinear, n: int, mxu_bf16: bool) -> bool:
+    """Does an n-row product with `w` take a kernel? The port's form of the
+    JAX package's on-device rule (`_use_pallas`, linear.py:193-225): the
+    Pallas kernel takes the shape, and the call has at most 128 rows or
+    takes the bf16 operands. apply_linear sends every other call of more
+    than 128 rows to `dequant_matmul`; one of at most 128 rows whose shape
+    the kernels do not take still reaches its kernel, which raises on the
+    card."""
+    return pallas_supported(w) and (n <= KERNEL_MAX_ROWS
+                                    or bf16_route(w, n, mxu_bf16))
+
+
+def dequant_matmul(x: torch.Tensor, w: QuantizedLinear) -> torch.Tensor:
+    """x @ dequantize(w, x.dtype) as one torch.matmul: the JAX package's
+    route for products of more than 128 rows that its kernel does not take
+    (the `n_rows > 64` branch of `_gptq_matmul_xla`, linear.py:124-143,
+    168-170): the weight rounds to the activation dtype, as
+    bf16((code - zero) * scale) in a bf16 model, and the dot accumulates in
+    f32. XLA code in the reference, so plain PyTorch here, not a kernel: no
+    launch counter. cuBLAS picks its algorithm by shape, so a row's bits
+    may depend on the row count, as the reference's do. An f32 product runs
+    in f32: TF32 must be off (checked here, not set)."""
+    if x.dtype == torch.float32 and torch.backends.cuda.matmul.allow_tf32:
+        raise RuntimeError("dequant_matmul: an f32 product needs "
+                           "torch.backends.cuda.matmul.allow_tf32 = False")
+    return torch.matmul(x, dequantize(w, x.dtype))
+
+
 def apply_linear(w, x: torch.Tensor, b: Optional[torch.Tensor] = None,
                  layer: Optional[int] = None, norm=None,
                  mxu_bf16: bool = False) -> torch.Tensor:
     """y = x @ w (+ b) for dense tensors or QuantizedLinear weights.
 
     layer: select this layer of a LAYER-STACKED weight ([L, in, out]).
-    norm: optional (norm_weight [in], eps): y = rmsnorm(x) @ w. For a
-    SYMMETRIC weight the norm is fused into the kernel's activation read
-    and stays f32 (K1 packed int4, K5 int8); every other weight norms first
-    and rounds to the activation dtype, as the JAX package does
-    (`linear.py:277-279`).
+    norm: optional (norm_weight [in], eps): y = rmsnorm(x) @ w. On a
+    kernel route with a SYMMETRIC weight the norm is fused into the
+    kernel's activation read and stays f32 (K1 packed int4, K5 int8);
+    everywhere else it norms first and rounds to the activation dtype, as
+    the JAX package does (`linear.py:277-279`).
+    Routes, as the JAX package's on its device (`kernel_route`): at most
+    128 rows, the f32-operand kernels (K1, K3, K4, K5); 129-1024 rows with
+    mxu_bf16, the bf16-operand ones (below); every other product of more
+    than 128 rows, `dequant_matmul` (the norm first, rounded, then the
+    weight dequantized to the activation dtype and one dot). No call falls
+    from a kernel to that route.
     mxu_bf16: bf16 operands with f32 accumulation (`ModelConfig.
     gptq_mxu_bf16`), taken where the JAX auto route takes them on its
     device (`linear.py:270-276, 221-225`): 129-1024 rows and the Pallas
@@ -230,8 +270,13 @@ def apply_linear(w, x: torch.Tensor, b: Optional[torch.Tensor] = None,
             w = w._replace(perm=None)
         lead = x.shape[:-1]
         x2 = x.reshape(-1, x.shape[-1]).contiguous()
+        n = x2.shape[0]
         sym = w.zeros is None
-        if bf16_route(w, x2.shape[0], mxu_bf16):
+        if n > KERNEL_MAX_ROWS and not kernel_route(w, n, mxu_bf16):
+            if ln is not None:
+                x2 = rms_norm(x2, ln, eps)
+            y = dequant_matmul(x2, w)
+        elif bf16_route(w, n, mxu_bf16):
             if ln is not None and not sym:
                 x2 = rms_norm(x2, ln, eps)
                 ln = None

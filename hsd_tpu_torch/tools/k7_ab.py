@@ -5,7 +5,11 @@ in turns, on one CUDA card:
   * K4 and K5 (int8, f32-exact operands) at the shapes where the int8 EAGLE
     prefill (60-64 rows), the EAGLE-3 head's beam (80 rows) and the decode
     calls (1 row) launch them;
-  * K1 and K3 (packed int4, f32 operands), the control, at 11 and 64 rows.
+  * K1 and K3 (packed int4, f32-exact operands) at the speculative main
+    path's 14B-geometry shapes: the decode (1 row), the K = 1 verify (11
+    rows), the prefill (63 rows) and the K = 11 verify (121 rows), and at
+    the int4 EAGLE prefill's Llama-3.1-8B shapes (11 and 64 rows);
+  * K2 (the fused 14B layer tail, 11 rows), a control.
 
     python hsd_tpu_torch/tools/k7_ab.py                  # this checkout
     python hsd_tpu_torch/tools/k7_ab.py --roots A B B A  # checkouts in turns
@@ -15,7 +19,8 @@ Each root runs in a process of its own (every checkout defines
 device median ms of one call per shape (cold L2, CUDA events) and a sha256
 of each output. K7i4 is timed where the checkout has it. Weights are random
 codes with bf16 scales, one group per 128 input rows (the draft's case with
-f32 zeros too), and the activations random bf16, all made from --seed. The
+f32 zeros too), and the activations random bf16, all made from --seed (the
+same draws, shape by shape, in every checkout). The
 registers and spills of each checkout's kernels (`nvcc -Xptxas -v`) follow,
 and the last line is a table of each shape's medians by root. Imports torch
 only.
@@ -53,7 +58,17 @@ F32_SHAPES = (("K5", "wgu 4096x28672 +norm", 4096, 28672, 60, False),
               ("K1", "wgu 4096x28672 +norm", 4096, 28672, 11, False),
               ("K1", "wgu 4096x28672 +norm", 4096, 28672, 64, False),
               ("K3", "wdown 14336x4096", 14336, 4096, 11, False),
-              ("K3", "wdown 14336x4096", 14336, 4096, 64, False))
+              ("K3", "wdown 14336x4096", 14336, 4096, 64, False),
+              ("K1", "14B wqkv 5120x7168 +norm", 5120, 7168, 1, False),
+              ("K1", "14B wqkv 5120x7168 +norm", 5120, 7168, 11, False),
+              ("K1", "14B wqkv 5120x7168 +norm", 5120, 7168, 63, False),
+              ("K1", "14B wqkv 5120x7168 +norm", 5120, 7168, 121, False),
+              ("K1", "14B wgu 5120x27648 +norm", 5120, 27648, 63, False),
+              ("K3", "14B lm_head 5120x151936", 5120, 151936, 1, False),
+              ("K3", "14B lm_head 5120x151936", 5120, 151936, 11, False),
+              ("K3", "14B wo 5120x5120", 5120, 5120, 63, False),
+              ("K3", "14B wdown 13824x5120", 13824, 5120, 63, False),
+              ("K2", "14B tail 5120/27648/13824", 5120, 27648, 11, False))
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3")
 KERNELS = re.compile(r"mma_kernel|i8_kernel|gptq_matvec_kernel")
 
@@ -149,13 +164,20 @@ def worker(root: str, seed: int, repeats: int) -> dict:
     for name, label, din, dout, n, zeros in F32_SHAPES:
         x = act(n, din)
         ln = torch.rand((din,), generator=gen, device=dev) + 0.5
-        w, s = weights(din, dout, name in ("K1", "K3"))
+        w, s = weights(din, dout, name in ("K1", "K2", "K3"))
         z = (torch.randn((din // 128, dout), generator=gen, device=dev) * 40
              if zeros else None)
-        call = {"K1": lambda: G.int4_ln_matmul(x, w, s, ln, 1e-5),
-                "K3": lambda: G.int4_matmul(x, w, s),
-                "K4": lambda: G.int8_matmul(x, w, s, z),
-                "K5": lambda: G.int8_ln_matmul(x, w, s, ln, 1e-5)}[name]
+        if name == "K2":     # wo [din, din], wgu [din, dout], wdown [dout/2, din]
+            wo, so = weights(din, din, True)
+            wd, sd = weights(dout // 2, din, True)
+            resid = act(n, din)
+            call = lambda: G.attn_mlp_int4(x, resid, wo, so, w, s, wd, sd,
+                                           ln, 1e-5)
+        else:
+            call = {"K1": lambda: G.int4_ln_matmul(x, w, s, ln, 1e-5),
+                    "K3": lambda: G.int4_matmul(x, w, s),
+                    "K4": lambda: G.int8_matmul(x, w, s, z),
+                    "K5": lambda: G.int8_ln_matmul(x, w, s, ln, 1e-5)}[name]
         run(f"{name} {label}, {n} rows", call)
         del w
     return res

@@ -1,7 +1,8 @@
 """The port's CUDA kernels on the card: each wrapper against its plain
-version (K1-K8, K7i4; K4 and K5 at every row tiling of their tensor-core
-kernel), a row's bits independent of the row count, and greedy
-spec == AR through the kernels. Marked `cuda`; each test skips when no card is present
+version (K1-K8, K7i4; K1, K3, K4 and K5 at every row tiling of their
+tensor-core kernel), a row's bits independent of the row count, the
+dequantize-then-dot route above 128 rows (no kernel, near the plain
+result), and greedy spec == AR through the kernels. Marked `cuda`; each test skips when no card is present
 (decided in a fixture, never at import). Run on the card with
 `python -m pytest tests/test_torch_cuda.py -q -m cuda`.
 
@@ -19,7 +20,7 @@ from hsd_tpu_torch.models.transformer import (fuse_params, init_params,
 from hsd_tpu_torch.ops import flash_decode as FD
 from hsd_tpu_torch.ops import gptq_cuda as G
 from hsd_tpu_torch.ops import launch_counts, reset_launches
-from hsd_tpu_torch.ops.linear import QuantizedLinear, apply_mlp
+from hsd_tpu_torch.ops.linear import QuantizedLinear, apply_linear, apply_mlp
 
 pytestmark = pytest.mark.cuda
 
@@ -139,6 +140,107 @@ def test_int8_tensor_core_raises_on_unsupported_shape(dev):
         G.int8_matmul(off, w8, s8)
     with pytest.raises(ValueError):
         G.int8_matmul(x.to(torch.float16), w8, s8)
+
+
+I4_ROWS = [1, 2, 7, 11, 16, 17, 63, 64, 121, 128]
+
+
+def _i4_case(dev, seed, din, dout, zeros):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    w, s = _q4(g, dev, din, dout)
+    z = (torch.randn((din // 128, dout), generator=g, device=dev) * 3
+         if zeros else None)
+    ln = torch.rand(din, generator=g, device=dev) + 0.5
+    return g, w, s, z, ln
+
+
+@pytest.mark.parametrize("zeros", [False, True])
+@pytest.mark.parametrize("dout", [640, 1000])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_int4_tensor_core_matches_plain(dev, dtype, dout, zeros):
+    """K1 and K3 (with and without zero points, bf16 and f32 scales) on the
+    tensor-core kernel against their plain versions at every row tiling
+    (1-8, 9-16, 17-32, 33-64 rows a block, and two blocks up to 128; 200
+    rows, four blocks, only direct calls reach), ragged dout included; one
+    launch a call."""
+    g, w, s, z, ln = _i4_case(dev, dout + 7 * zeros, 1024, dout, zeros)
+    for n in I4_ROWS + [200]:
+        x = torch.randn((n, 1024), generator=g, device=dev).to(dtype)
+        for sc in (s, s.float()):
+            before = G.int4_matmul.launches
+            _close(G.int4_matmul(x, w, sc, z),
+                   G.int4_matmul_plain(x, w, sc, z), dtype)
+            assert G.int4_matmul.launches == before + 1
+            if not zeros:
+                before = G.int4_ln_matmul.launches
+                _close(G.int4_ln_matmul(x, w, sc, ln, 1e-6),
+                       G.int4_ln_matmul_plain(x, w, sc, ln, 1e-6), dtype)
+                assert G.int4_ln_matmul.launches == before + 1
+
+
+@pytest.mark.parametrize("gs", [64, 192])
+def test_int4_group_sizes_match_plain(dev, gs):
+    """K1 and K3 at groups of 64 features (the smallest the Pallas kernel
+    takes) and of 192, whose groups span three k-slices, so that the
+    128-row splits of a 3072 x 256 weight (12 splits) end inside groups."""
+    g = torch.Generator(device=dev).manual_seed(gs)
+    din, dout = 3072, 256
+    w = torch.empty((din // 2, dout), dtype=torch.uint8, device=dev)
+    w.random_(0, 256, generator=g)
+    s = (torch.rand((din // gs, dout), generator=g, device=dev) * 1e-2
+         + 1e-3).to(torch.bfloat16)
+    z = torch.randn((din // gs, dout), generator=g, device=dev) * 3
+    ln = torch.rand(din, generator=g, device=dev) + 0.5
+    for n in (1, 11, 40):
+        for dtype in (torch.bfloat16, torch.float32):
+            x = torch.randn((n, din), generator=g, device=dev).to(dtype)
+            _close(G.int4_matmul(x, w, s, z), G.int4_matmul_plain(x, w, s, z),
+                   dtype)
+            _close(G.int4_ln_matmul(x, w, s, ln, 1e-6),
+                   G.int4_ln_matmul_plain(x, w, s, ln, 1e-6), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_int4_row_bits_independent_of_row_count(dev, dtype):
+    """A row's bits from K1 and K3 are the same at every row count, direct
+    calls of 200 rows included, and with the input dimension split across
+    blocks (1792 x 896: 7 splits)."""
+    g, w, s, z, ln = _i4_case(dev, 12, 1792, 896, True)
+    x = torch.randn((200, 1792), generator=g, device=dev).to(dtype)
+    calls = (lambda x: G.int4_matmul(x, w, s),
+             lambda x: G.int4_matmul(x, w, s, z),
+             lambda x: G.int4_ln_matmul(x, w, s, ln, 1e-6))
+    assert G.splits_for(896, 896, G._sm_count(dev.index or 0)) > 1
+    for call in calls:
+        full = call(x[:128])
+        for n in I4_ROWS:
+            assert torch.equal(call(x[:n]), full[:n]), n
+        assert torch.equal(call(x)[:128], full)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_dequant_route_above_128_rows(dev, dtype):
+    """apply_linear at 129 and 693 rows without mxu_bf16 takes the
+    dequantize-then-dot route: no kernel launches, and the result within
+    the tolerance of the f32 plain version (bf16: the route rounds the
+    normed x and the weight to bf16, as the reference does)."""
+    g, w, s, z, ln = _i4_case(dev, 21, 1024, 640, True)
+    w8 = torch.empty((1024, 384), dtype=torch.int8, device=dev)
+    w8.random_(-127, 128, generator=g)
+    s8 = torch.rand((8, 384), generator=g, device=dev) * 1e-2 + 1e-3
+    cases = [(QuantizedLinear(w, s, None), True),
+             (QuantizedLinear(w, s, z), False),
+             (QuantizedLinear(w8, s8, None), True)]
+    for n in (129, 693):
+        x = torch.randn((n, 1024), generator=g, device=dev).to(dtype)
+        for qw, norm in cases:
+            plain = (G.int4_matmul_plain if qw.packed_int4
+                     else G.int8_matmul_plain)
+            reset_launches()
+            got = apply_linear(qw, x, norm=(ln, 1e-6) if norm else None)
+            assert not any(launch_counts().values()), launch_counts()
+            xs = G._rms_f32(x, ln, 1e-6) if norm else x
+            _close(got, plain(xs, qw.qweight, qw.scales, qw.zeros), dtype)
 
 
 @pytest.mark.parametrize("n", [129, 200, 480])

@@ -103,9 +103,12 @@ def test_k7_plain_matches_pallas(n, with_ln):
 
 def test_apply_linear_routes():
     """A symmetric int8 weight with a norm takes K5's route (the normed x
-    stays f32); with mxu_bf16, 128 rows stay f32 and 129 rows take the bf16
-    operands (K7); an asymmetric weight norms first, rounds, and takes K4,
-    or at 129 rows with mxu_bf16 K7 with its zero-point correction."""
+    stays f32) up to 128 rows, and at 129 rows without mxu_bf16 the
+    reference's dequantize-then-dot route (the norm first, rounded to the
+    activation dtype); with mxu_bf16, 128 rows stay f32 and 129 rows take
+    the bf16 operands (K7); an asymmetric weight norms first, rounds, and
+    takes K4, or at 129 rows with mxu_bf16 K7 with its zero-point
+    correction, and without it the dequantize-then-dot route."""
     rng = np.random.default_rng(300)
     tq = bridge.convert(_sym8(rng, 256, 128))
     ln = torch.from_numpy((rng.random(256) + 0.5).astype(np.float32))
@@ -114,14 +117,28 @@ def test_apply_linear_routes():
         plain32 = G.int8_ln_matmul_plain(x, tq.qweight, tq.scales, ln, 1e-5)
         plain16 = G.int8_ln_matmul_plain(x, tq.qweight, tq.scales, ln, 1e-5,
                                          bf16_operands=True)
-        assert torch.equal(tlin.apply_linear(tq, x, norm=(ln, 1e-5)), plain32)
+        routed = tlin.dequant_matmul(tlin.rms_norm(x, ln, 1e-5), tq)
+        assert torch.equal(tlin.apply_linear(tq, x, norm=(ln, 1e-5)),
+                           routed if n == 129 else plain32), n
         got = tlin.apply_linear(tq, x, norm=(ln, 1e-5), mxu_bf16=True)
         assert torch.equal(got, plain16 if n == 129 else plain32), n
         got = tlin.apply_linear(tq, x, mxu_bf16=True)
         want = G.int8_matmul_plain(x, tq.qweight, tq.scales,
                                    bf16_operands=n == 129)
         assert torch.equal(got, want), n
+        got = tlin.apply_linear(tq, x)
+        want = (tlin.dequant_matmul(x, tq) if n == 129 else
+                G.int8_matmul_plain(x, tq.qweight, tq.scales))
+        assert torch.equal(got, want), n
     assert not torch.equal(plain16, plain32)
+    # in bf16 the 129-row route rounds the normed x and the weight, where
+    # K5's fused route did not
+    xb = x.to(torch.bfloat16)
+    got = tlin.apply_linear(tq, xb, norm=(ln, 1e-5))
+    assert torch.equal(got, tlin.dequant_matmul(tlin.rms_norm(xb, ln, 1e-5),
+                                                tq))
+    assert not torch.equal(got, G.int8_ln_matmul_plain(xb, tq.qweight,
+                                                       tq.scales, ln, 1e-5))
     asym = tlin.quantize(torch.randn(256, 128), bits=8)
     x = torch.randn(129, 256)
     xn = tlin.rms_norm(x, ln, 1e-5)
@@ -130,8 +147,10 @@ def test_apply_linear_routes():
     assert torch.equal(tlin.apply_linear(asym, x, norm=(ln, 1e-5),
                                          mxu_bf16=True), want)
     assert torch.equal(tlin.apply_linear(asym, x, norm=(ln, 1e-5)),
-                       G.int8_matmul_plain(xn, asym.qweight, asym.scales,
-                                           asym.zeros))
+                       tlin.dequant_matmul(xn, asym))
+    assert torch.equal(tlin.apply_linear(asym, x[:128], norm=(ln, 1e-5)),
+                       G.int8_matmul_plain(xn[:128], asym.qweight,
+                                           asym.scales, asym.zeros))
 
 
 def test_apply_linear_int8_norm_matches_pallas_route():
