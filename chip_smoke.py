@@ -13,14 +13,16 @@ Phases (any failure exits nonzero, with no result line):
                lam 0)
   4. kernels   K1-K4 at the main path's shapes (K1 and K3 at 1, 11, 63, 121
                and 128 rows; K4, the draft's asymmetric int8, at 1, 2, 62
-               and 64 rows) against their plain PyTorch versions (max error
+               and 64 rows; K2, the fused int4 layer tail, at 1, 7, 11 and
+               32 rows) against their plain PyTorch versions (max error
                within 2^-7 of the output's max magnitude: two bf16
                roundings), timed with CUDA events over distinct layers so
                the weights stream from device memory, beside the plain
                version, one bf16 torch.matmul against the pre-dequantized
                weight, and the bound: the larger of bytes over 3.35 TB/s
                and operations over the 989 TFLOP/s bf16 tensor-core rate;
-               a row's bits at 1, 11, 63 and 121 vs 128 rows (K1, K3);
+               a row's bits at 1, 11, 63 and 121 vs 128 rows (K1, K3) and
+               at 1, 7 and 11 vs 32 rows (K2);
                route A, the dequantize-then-dot route of apply_linear above
                128 rows, at 200 and 693 rows on the 14B wqkv with the norm
                and wdown: no kernel launches, within 2^-7 of the f32 plain
@@ -37,14 +39,15 @@ Phases (any failure exits nonzero, with no result line):
                counters zeroed before and read after (one K6 launch a call,
                nothing else), each call against its plain version; timed
                through the same route, beside two bf16 matmuls and the
-               SwiGLU on the pre-dequantized weights
+               SwiGLU on the pre-dequantized weights; K6 at 7 and 32 rows
+               vs plain, and a row's bits at 1, 7 and 11 vs 32 rows
   5. main path make_generate with hsd and tokenwise (gamma 10, K 1) on 3
                prompts of bucket 64, 128 new tokens each, with the launch
                counters zeroed before and read after (K8 must not launch:
                its routes are opt-in); AR over 32 tokens.
                With --trace, also a profiled 56-token hsd generate (device
                time by kernel, idle share), the same with FUSED_ATTN on, and
-               the host cost of one call
+               the host cost of one K4 and one K2 call
   5c. opted in hsd on the first prompt, 128 new tokens, with K8 off (phase
                5's run again), with FUSED_ATTN = "always" and with
                FLASH_DECODE = "always", in turns (off, fused, flash, flash,
@@ -444,14 +447,23 @@ def kernel_phase(draft, target, cfg_b):
         ff = torch.nn.functional.silu(gu[:, :F2 // 2]) * gu[:, F2 // 2:]
         return xp + torch.matmul(ff, w3[2])
 
-    for n in (1, 11, 7):
+    def tail(att, res, l=0):
+        return G.attn_mlp_int4(att, res, wo.qweight[l], wo.scales[l],
+                               wgu.qweight[l], wgu.scales[l],
+                               wdown.qweight[l], wdown.scales[l], ln2[l], eps)
+
+    att, res = act(32, D), act(32, D)
+    full = tail(att, res)
+    for n in (1, 7, 11):
+        if not torch.equal(tail(att[:n], res[:n]), full[:n]):
+            raise AssertionError(f"K2 rows differ between {n} and 32 rows")
+    log("kernels: K2 (the 14B tail) gives the same bits for a row at 1, 7, "
+        "11 and 32 rows")
+    for n in (1, 11, 7, 32):
         att, res = act(n, D), act(n, D)
 
         def run(l):
-            return G.attn_mlp_int4(att, res, wo.qweight[l], wo.scales[l],
-                                   wgu.qweight[l], wgu.scales[l],
-                                   wdown.qweight[l], wdown.scales[l], ln2[l],
-                                   eps)
+            return tail(att, res, l)
 
         def plain(l):
             return G.attn_mlp_int4_plain(att, res, wo.qweight[l],
@@ -594,6 +606,22 @@ def mlp_phase(target, cfg_b):
         worst = max(worst, err)
     log(f"mlp: apply_mlp routed {len(outs)} calls ({L} layers x 1 and 11 "
         f"rows) to K6, max error {worst:.3e}; launches {counts}")
+    x32 = torch.randn((32, D), generator=g, device=DEV).to(torch.bfloat16)
+
+    def k6(x):
+        return G.mlp_int4(x, wgu.qweight[0], wgu.scales[0], wdown.qweight[0],
+                          wdown.scales[0], ln[0], eps)
+    full = k6(x32)
+    for n in (1, 7, 11, 32):
+        got = full if n == 32 else k6(x32[:n])
+        if n < 32 and not torch.equal(got, full[:n]):
+            raise AssertionError(f"K6 rows differ between {n} and 32 rows")
+        want = plain(x32[:n], 0).float()
+        err = (got.float() - want).abs().max().item()
+        if not err <= TOL * want.abs().max().item():
+            raise AssertionError(f"K6 {n} rows: error {err}")
+    log("mlp: K6 within tolerance at 1, 7, 11 and 32 rows and gives the "
+        "same bits for a row at each")
     # yardstick, not one call: the MLP as two bf16 matmuls against
     # pre-dequantized weights and the SwiGLU, no norm (JSON library_ms
     # stays null for K6)
@@ -930,8 +958,7 @@ def trace_window(gen, draft, target, prompt):
     rows = device_rows(prof)
     busy = sum(r[0] for r in rows)
     ours = sum(r[0] for r in rows if any(
-        k in r[2] for k in ("gptq_matvec", "i8_kernel", "splitk_reduce",
-                            "inv_rms", "prep_kernel")))
+        k in r[2] for k in ("i8_kernel", "prep_kernel", "splitk_epilogue")))
     k8 = sum(r[0] for r in rows if "flash_" in r[2])
     out = dict(wall_ms=wall_us / 1e3, device_busy_ms=busy / 1e3,
                idle_share=1 - busy / wall_us, gptq_kernels_ms=ours / 1e3,
@@ -948,24 +975,40 @@ def trace_window(gen, draft, target, prompt):
     return out
 
 
-def host_cost(draft):
+def host_cost(draft, target):
     """Host microseconds to enqueue one K4 wrapper call at the draft step's
-    shape, and one small PyTorch op, with the device left to run behind."""
+    shape, one K2 call (the 14B tail at 11 rows) and one small PyTorch op,
+    with the device left to run behind. K2's device time exceeds its host
+    time, so it is enqueued in bursts of 20 calls from an idle queue (140
+    launches, well inside the launch queue) and the median burst counts."""
     w = draft.layers["wqkv"].layer(0)
     x = torch.randn((1, w.din), device=DEV).to(torch.bfloat16)
+    big = target.big.layers
+    tw = [big[k].layer(0) for k in ("wo", "wgu", "wdown")]
+    att = torch.randn((11, tw[0].din), device=DEV).to(torch.bfloat16)
+    res = torch.randn((11, tw[1].din), device=DEV).to(torch.bfloat16)
+    ln = torch.ones(tw[1].din, device=DEV)
     out = {}
-    for name, fn in (("k4_wrapper_us",
-                      lambda: G.int8_matmul(x, w.qweight, w.scales, w.zeros)),
-                     ("torch_add_us", lambda: torch.add(x, x))):
+    for name, fn, calls, bursts in (
+            ("k4_wrapper_us",
+             lambda: G.int8_matmul(x, w.qweight, w.scales, w.zeros), 500, 1),
+            ("k2_wrapper_us",
+             lambda: G.attn_mlp_int4(att, res, *(t for q in tw for t in (
+                 q.qweight, q.scales)), ln, 1e-6), 20, 15),
+            ("torch_add_us", lambda: torch.add(x, x), 500, 1)):
         for _ in range(20):
             fn()
+        per = []
+        for _ in range(bursts):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(calls):
+                fn()
+            per.append((time.perf_counter() - t0) / calls * 1e6)
         torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(500):
-            fn()
-        out[name] = (time.perf_counter() - t0) / 500 * 1e6
-        torch.cuda.synchronize()
+        out[name] = statistics.median(per)
     log(f"host cost per call: K4 wrapper {out['k4_wrapper_us']:.1f} us, "
+        f"K2 wrapper {out['k2_wrapper_us']:.1f} us, "
         f"torch.add {out['torch_add_us']:.1f} us")
     return out
 
@@ -1036,7 +1079,7 @@ def main_path(draft, target, cfg_s, cfg_b, trace):
         with opted_in("FUSED_ATTN"):
             trace_window(gen_for("hsd", max_new=56), draft, target,
                          prompts[1])
-        host_cost(draft)
+        host_cost(draft, target)
 
     # full-width greedy: report only the common prefix of spec and AR
     eng0 = EngineConfig(verifier=VerifierConfig(method="greedy", gamma=GAMMA),
@@ -1655,8 +1698,7 @@ def main():
         f"{torch.cuda.get_device_name(0)}")
 
     t0 = time.time()
-    _build.lib("gptq")           # builds every csrc/*.cu, one nvcc each
-    _build.lib("gptq_i8")
+    _build.lib("gptq_i8")        # builds every csrc/*.cu, one nvcc each
     _build.lib("gptq_mma")
     _build.lib("flash_decode")
     # the K8 routes are opt-in: off unless a phase below turns one on
@@ -1721,7 +1763,6 @@ def main():
     torch.cuda.empty_cache()
     eagle_greedy_v3_small()
 
-    src = "hsd_tpu_torch/csrc/gptq.cu"
     src_i8 = "hsd_tpu_torch/csrc/gptq_i8.cu"
     ecounts = serving["hsd_ref"]["launches"]
     # K6 and K8 over the opted-in runs of phases 5c-5e and 9f (K6: 0, the
@@ -1733,7 +1774,7 @@ def main():
     kernels = [
         summary_entry("K1", "target wqkv 5120x7168", 11, src_i8,
                       "hsd_tpu/ops/gptq_pallas.py:176", counts["K1"]),
-        summary_entry("K2", "target tail 5120/27648/13824", 11, src,
+        summary_entry("K2", "target tail 5120/27648/13824", 11, src_i8,
                       "hsd_tpu/ops/gptq_pallas.py:617", counts["K2"]),
         summary_entry("K3", "target lm_head 5120x151936", 11, src_i8,
                       "hsd_tpu/ops/gptq_pallas.py:117", counts["K3"]),
@@ -1741,7 +1782,7 @@ def main():
                       "hsd_tpu/ops/gptq_pallas.py:44", counts["K4"]),
         summary_entry("K5", "wqkv 4096x6144", 60, src_i8,
                       "hsd_tpu/ops/gptq_pallas.py:83", ecounts["K5"]),
-        summary_entry("K6", "target mlp 5120/27648/13824", 11, src,
+        summary_entry("K6", "target mlp 5120/27648/13824", 11, src_i8,
                       "hsd_tpu/ops/gptq_pallas.py:530", mlp_counts["K6"]),
         summary_entry("K7", "wgu 4096x28672 +norm", EAGLE_SLOTS * 60,
                       "hsd_tpu_torch/csrc/gptq_mma.cu",

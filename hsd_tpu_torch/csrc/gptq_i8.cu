@@ -1,5 +1,6 @@
-// K4 and K5 (int8), K1 and K3 (packed int4): GPTQ dequantize-and-matmul on
-// the tensor cores for Hopper (sm_90a), with f32-exact operands.
+// K4 and K5 (int8), K1 and K3 (packed int4), and the fused int4 layer tail
+// K2 and MLP K6: GPTQ dequantize-and-matmul on the tensor cores for Hopper
+// (sm_90a), with f32-exact operands.
 //
 // Hand-written counterpart of the f32-operand (mxu_bf16=False) Pallas kernels
 // in hsd_tpu/ops/gptq_pallas.py:
@@ -13,7 +14,20 @@
 //   K1  _kernel_int4_ln  packed int4: rmsnorm(x, ln) @ (nibble * scale) less
 //                        8 * scale times the normed group sums, symmetric
 //                        (:196-219)
-// (K2 and K6 stay on the f32 template of csrc/gptq.cu.)
+//   K2  _kernel_attn_mlp_int4  packed int4, the layer tail: x' = resid +
+//                        att @ deq(Wo) kept f32, [g | u] = rmsnorm(x', ln) @
+//                        deq(Wgu), out = x' + (silu(g) * u) @ deq(Wdown)
+//                        (:617-725)
+//   K6  _kernel_mlp_int4 the same MLP on x, without the residual (:530-614)
+// K2 and K6 are three (two) products of the int4 kernel below, each writing
+// f32 partials that an epilogue pass sums in split order and finishes: the
+// residual added in f32 after the whole sum (x' and the output, as JAX adds
+// `res + acc` and `xn + acc` after the dot), or the SwiGLU of the gate and
+// up columns. wgu takes K1's pre-pass on x', wdown K3's in-kernel split of
+// the f32 ff. A Hopper grid has no ordered steps to carry x' and ff from
+// phase to phase as the Pallas grid does, so they pass through one
+// workspace (about 10 MB at 32 rows of a 14B layer, within the 50 MB L2);
+// one persistent launch for the whole tail is later work.
 //
 // Arithmetic. The JAX kernels multiply f32 activations by the f32 weight
 // code * scale below 129 rows, so this kernel must not round an operand to
@@ -44,9 +58,8 @@
 // at 989 TFLOP/s, beside 0.035 ms of int8 weight bytes). The design reads
 // the weight once per call: a block owns 128 output columns for every row of
 // the call up to 128 rows (int8; above that, which only direct calls reach,
-// rows tile in such blocks), so the weight never re-streams per 16 rows as
-// the f32 template in csrc/gptq.cu does, and the products run on the tensor
-// cores instead of f32 FMAs. int4 keeps two runs of accumulators, which
+// rows tile in such blocks), so the weight never re-streams per few rows,
+// and the products run on the tensor cores instead of f32 FMAs. int4 keeps two runs of accumulators, which
 // leave too few registers for wide row tiles: its blocks own up to 32 rows,
 // two to an SM, and a column block's row blocks launch side by side, so
 // they read its weight from device memory once and share it through L2 (at
@@ -101,7 +114,7 @@
 // nothing of that depends on the row count or on the rows beside it: a row
 // gives the same bits at 1, 17, 64 and 128 rows. No floating-point atomics.
 // The norm's pre-pass sums each row's squares in a fixed order (lanes, then
-// warps), as the template in csrc/gptq.cu does.
+// warps).
 //
 // Layouts (ops/linear.py of the port): w [din, dout] int8 codes, or [din/2,
 // dout] packed int4 (uint8, split-half, nibbles stored as code + 8); scales
@@ -643,17 +656,6 @@ __global__ void __launch_bounds__(kPrep) prep_kernel(const Args a) {
   }
 }
 
-// Sum the splits' partials in split order and round to the output.
-__global__ void __launch_bounds__(256) splitk_reduce_kernel(const Args a) {
-  const long long total = (long long)a.n * a.dout;
-  for (long long i = (long long)blockIdx.x * 256 + threadIdx.x; i < total;
-       i += (long long)gridDim.x * 256) {
-    float s = a.ws[i];
-    for (int z = 1; z < a.splits; ++z) s += a.ws[z * total + i];
-    store_val(a.out, a.o_bf16, i, s);
-  }
-}
-
 template <int NT, int P, bool ZEROS, bool SPLIT, bool I4>
 int launch(dim3 grid, cudaStream_t stream, const Args& a) {
   using T = Tile<NT, P, ZEROS, SPLIT, I4>;
@@ -683,14 +685,12 @@ int launch_nt(dim3 grid, cudaStream_t stream, const Args& a) {
                           : launch<NT, 3, false, true, I4>(grid, stream, a);
 }
 
-// Checks the shape, runs the pre-pass (with ln), the kernel and (splits >
-// 1) the ordered sum of the splits. Returns 0, a CUDA error code from a
-// launch, or kErrShape.
+// Checks a product's shape and fills its arguments. Returns 0 or kErrShape.
 template <bool I4>
-int run(const void* x, int x_bf16, int n, int din, const void* w, int dout,
-        const void* scales, int s_bf16, const void* zeros, int groups, const void* ln,
-        float eps, void* out, int o_bf16, int splits, void* ws, void* planes,
-        void* stream) {
+int make_args(Args& a, const void* x, int x_bf16, int n, int din, const void* w,
+              int dout, const void* scales, int s_bf16, const void* zeros, int groups,
+              const void* ln, float eps, void* out, int o_bf16, int splits, void* ws,
+              void* planes) {
   if (n <= 0 || din <= 0 || dout <= 0 || groups <= 0 || din % groups) return kErrShape;
   const int gs = din / groups;
   // int8: groups of a multiple of 128 rows; int4: an even group count (each
@@ -708,7 +708,6 @@ int run(const void* x, int x_bf16, int n, int din, const void* w, int dout,
   const long long col_blocks = (dout + BN - 1) / BN;
   if ((I4 ? col_blocks : row_blocks) > 65535 || splits > 65535) return kErrShape;
 
-  Args a;
   a.x = x; a.x_bf16 = x_bf16; a.n = n; a.din = din;
   a.w = reinterpret_cast<const int8_t*>(w); a.dout = dout;
   a.scales = scales; a.s_bf16 = s_bf16;
@@ -719,36 +718,133 @@ int run(const void* x, int x_bf16, int n, int din, const void* w, int dout,
   a.splits = splits; a.ws = reinterpret_cast<float*>(ws);
   const uintptr_t wp = reinterpret_cast<uintptr_t>(w);
   a.wvec = (dout % 16 == 0 && wp % 16 == 0) ? 16 : (dout % 4 == 0 && wp % 4 == 0) ? 4 : 1;
+  return 0;
+}
 
-  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+// The pre-pass (with ln) and the kernel: the output, or with splits > 1
+// the f32 partials in a.ws.
+template <bool I4>
+int launch_product(const Args& a, cudaStream_t s) {
+  const int n = a.n;
   if (a.ln) {
     prep_kernel<I4><<<n, kPrep, 0, s>>>(a);
     const int err = (int)cudaGetLastError();
     if (err) return err;
   }
+  const int max_rows = I4 ? kMaxRowsI4 : kMaxRows;
+  const long long row_blocks = (n + max_rows - 1) / max_rows;
+  const long long col_blocks = (a.dout + BN - 1) / BN;
   const int nt = I4 ? (n > 16 ? 4 : n > 8 ? 2 : 1)
                     : (n > 64 ? 16 : n > 32 ? 8 : n > 16 ? 4 : n > 8 ? 2 : 1);
   const unsigned rb = (unsigned)(n > max_rows ? row_blocks : 1);
-  const dim3 grid = I4 ? dim3(rb, (unsigned)col_blocks, splits)
-                       : dim3((unsigned)col_blocks, rb, splits);
-  int err;
+  const dim3 grid = I4 ? dim3(rb, (unsigned)col_blocks, a.splits)
+                       : dim3((unsigned)col_blocks, rb, a.splits);
   switch (nt) {
-    case 1: err = launch_nt<1, I4>(grid, s, a); break;
-    case 2: err = launch_nt<2, I4>(grid, s, a); break;
-    case 4: err = launch_nt<4, I4>(grid, s, a); break;
+    case 1: return launch_nt<1, I4>(grid, s, a);
+    case 2: return launch_nt<2, I4>(grid, s, a);
+    case 4: return launch_nt<4, I4>(grid, s, a);
     default:
       if constexpr (I4) {
         return kErrShape;
       } else {
-        err = nt == 8 ? launch_nt<8, false>(grid, s, a) : launch_nt<16, false>(grid, s, a);
+        return nt == 8 ? launch_nt<8, false>(grid, s, a) : launch_nt<16, false>(grid, s, a);
       }
-      break;
   }
-  if (err || splits == 1) return err;
-  const long long total = (long long)n * dout;
-  const int blocks = (int)((total + 255) / 256 < 1024 ? (total + 255) / 256 : 1024);
-  splitk_reduce_kernel<<<blocks, 256, 0, s>>>(a);
+}
+
+int grid_stride_blocks(long long total) {
+  return (int)((total + 255) / 256 < 1024 ? (total + 255) / 256 : 1024);
+}
+
+// The pass after a product's split partials, [splits][n][dout] f32: their
+// sum in split order, then the residual (bf16 or f32, or none) added in f32
+// and the result rounded to the output, or (SWIGLU) silu(g) * u of the
+// pairs g = column j, u = column dout/2 + j. Every product with splits > 1
+// ends in it; K2 and K6's products always do (one partial when a product
+// ran unsplit into the partials buffer). Elementwise, so a row's bits do
+// not depend on the row count. Its own argument struct: the main kernel's
+// Args stays as it is.
+struct Epi {
+  const float* part;
+  long long total;       // n * dout
+  int splits;
+  int dout;
+  const void* resid;     // [n, dout], or null
+  int r_bf16;
+  void* out;             // [n, dout], or [n, dout / 2] (SWIGLU)
+  int o_bf16;
+};
+
+template <bool SWIGLU>
+__global__ void __launch_bounds__(256) splitk_epilogue_kernel(const Epi e) {
+  const long long m = SWIGLU ? e.total / 2 : e.total;
+  for (long long i = (long long)blockIdx.x * 256 + threadIdx.x; i < m;
+       i += (long long)gridDim.x * 256) {
+    if constexpr (SWIGLU) {
+      const int h = e.dout / 2;
+      const long long gi = (i / h) * e.dout + i % h;
+      float g = e.part[gi], u = e.part[gi + h];
+      for (int z = 1; z < e.splits; ++z) {
+        g += e.part[z * e.total + gi];
+        u += e.part[z * e.total + gi + h];
+      }
+      store_val(e.out, e.o_bf16, i, g * (1.f / (1.f + expf(-g))) * u);
+    } else {
+      float s = e.part[i];
+      for (int z = 1; z < e.splits; ++z) s += e.part[z * e.total + i];
+      if (e.resid) s = load_val(e.resid, e.r_bf16, i) + s;
+      store_val(e.out, e.o_bf16, i, s);
+    }
+  }
+}
+
+template <bool SWIGLU>
+int epilogue(const float* part, int splits, int n, int dout, const void* resid, int r_bf16,
+             void* out, int o_bf16, cudaStream_t s) {
+  Epi e;
+  e.part = part; e.total = (long long)n * dout; e.splits = splits; e.dout = dout;
+  e.resid = resid; e.r_bf16 = r_bf16; e.out = out; e.o_bf16 = o_bf16;
+  splitk_epilogue_kernel<SWIGLU>
+      <<<grid_stride_blocks(SWIGLU ? e.total / 2 : e.total), 256, 0, s>>>(e);
   return (int)cudaGetLastError();
+}
+
+// Checks the shape, runs the pre-pass (with ln), the kernel and (splits >
+// 1) the ordered sum of the splits. Returns 0, a CUDA error code from a
+// launch, or kErrShape.
+template <bool I4>
+int run(const void* x, int x_bf16, int n, int din, const void* w, int dout,
+        const void* scales, int s_bf16, const void* zeros, int groups, const void* ln,
+        float eps, void* out, int o_bf16, int splits, void* ws, void* planes,
+        void* stream) {
+  Args a;
+  int err = make_args<I4>(a, x, x_bf16, n, din, w, dout, scales, s_bf16, zeros, groups, ln,
+                          eps, out, o_bf16, splits, ws, planes);
+  if (err) return err;
+  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  err = launch_product<I4>(a, s);
+  if (err || splits == 1) return err;
+  return epilogue<false>(a.ws, splits, n, dout, nullptr, 0, out, o_bf16, s);
+}
+
+// The tail's workspace, in bytes, each part 256-byte aligned: x' f32 [n, d]
+// (K2 only, dh > 0), the planes bf16 [3, n, d] and group sums f32 [n, gg]
+// of wgu's pre-pass, ff f32 [n, f], and one partials buffer f32 for the
+// largest of the three products' [splits, n, dout] (the products run in
+// stream order, so each reuses it).
+long long align256(long long b) { return (b + 255) / 256 * 256; }
+
+long long tail_layout(int n, int dh, int d, int f, int dout, int gg, int so, int sg, int sd,
+                      long long off[4]) {
+  const long long nn = n;
+  off[0] = 0;
+  off[1] = dh > 0 ? align256(nn * d * 4) : 0;
+  off[2] = off[1] + align256(3 * nn * d * 2 + nn * gg * 4);
+  off[3] = off[2] + align256(nn * f * 4);
+  long long part = (long long)sg * nn * 2 * f;
+  if ((long long)sd * nn * dout > part) part = (long long)sd * nn * dout;
+  if (dh > 0 && (long long)so * nn * d > part) part = (long long)so * nn * d;
+  return off[3] + align256(part * 4);
 }
 
 }  // namespace
@@ -781,6 +877,67 @@ extern "C" int hsd_gptq_i4(const void* x, int x_bf16, int n, int din,
                            int splits, void* ws, void* planes, void* stream) {
   return run<true>(x, x_bf16, n, din, w, dout, scales, s_bf16, zeros, groups, ln, eps,
                    out, o_bf16, splits, ws, planes, stream);
+}
+
+// Bytes of hsd_gptq_tail's workspace: dh = 0 for K6 (no wo product); so,
+// sg, sd the splits of wo, wgu and wdown.
+extern "C" long long hsd_tail_workspace(int n, int dh, int d, int f, int dout, int gg,
+                                        int so, int sg, int sd) {
+  long long off[4];
+  return tail_layout(n, dh, d, f, dout, gg, so, sg, sd, off);
+}
+
+// K2 (dh > 0): out = x' + (silu(g) * u) @ deq(wdown), with x' = resid +
+// x @ deq(wo) kept f32 and [g | u] = rmsnorm(x', ln) @ deq(wgu) in f32. K6
+// (dh = 0, wo and resid null): x is the MLP's input and out = (silu(g) * u)
+// @ deq(wdown). Every weight packed int4, symmetric: wo [dh/2, d], wgu
+// [d/2, 2f], wdown [f/2, dout] (K2: dout = d), each with its scales, group
+// count and splits. Three products of the int4 kernel (wo: x's planes, or
+// f32 x split in the kernel; wgu: the pre-pass's planes of x'; wdown: f32
+// ff split in the kernel), each into the f32 partials buffer and followed
+// by its epilogue pass: x' = resid + the wo sum; ff = silu(g) * u; out =
+// x' + the wdown sum (K6: the sum), rounded once. ws: hsd_tail_workspace's
+// bytes, 16-byte aligned. Returns 0, a CUDA error code, or kErrShape.
+extern "C" int hsd_gptq_tail(const void* x, int x_bf16, const void* resid, int r_bf16,
+                             int n, int dh, int d, int f, int dout,
+                             const void* wo, const void* so, int so_bf16, int go, int splits_o,
+                             const void* wgu, const void* sg, int sg_bf16, int gg, int splits_g,
+                             const void* wd, const void* sd, int sd_bf16, int gd, int splits_d,
+                             const void* ln, float eps, void* out, int o_bf16, void* ws,
+                             long long ws_bytes, void* stream) {
+  const bool k2 = dh > 0;
+  if (k2 != (wo != nullptr) || k2 != (resid != nullptr) || !ln || n <= 0) return kErrShape;
+  if (k2 && dout != d) return kErrShape;
+  long long off[4];
+  if (!ws || reinterpret_cast<uintptr_t>(ws) % 16 ||
+      ws_bytes < tail_layout(n, dh, d, f, dout, gg, splits_o, splits_g, splits_d, off)) {
+    return kErrShape;
+  }
+  char* base = reinterpret_cast<char*>(ws);
+  float* xp = reinterpret_cast<float*>(base + off[0]);
+  void* planes = base + off[1];
+  float* ff = reinterpret_cast<float*>(base + off[2]);
+  float* part = reinterpret_cast<float*>(base + off[3]);
+  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  Args a;
+  int err;
+  if (k2) {
+    err = make_args<true>(a, x, x_bf16, n, dh, wo, d, so, so_bf16, nullptr, go, nullptr, 0.f,
+                          part, 0, splits_o, part, nullptr);
+    if (!err) err = launch_product<true>(a, s);
+    if (!err) err = epilogue<false>(part, splits_o, n, d, resid, r_bf16, xp, 0, s);
+    if (err) return err;
+  }
+  err = make_args<true>(a, k2 ? xp : x, k2 ? 0 : x_bf16, n, d, wgu, 2 * f, sg, sg_bf16,
+                        nullptr, gg, ln, eps, part, 0, splits_g, part, planes);
+  if (!err) err = launch_product<true>(a, s);
+  if (!err) err = epilogue<true>(part, splits_g, n, 2 * f, nullptr, 0, ff, 0, s);
+  if (err) return err;
+  err = make_args<true>(a, ff, 0, n, f, wd, dout, sd, sd_bf16, nullptr, gd, nullptr, 0.f,
+                        part, 0, splits_d, part, nullptr);
+  if (!err) err = launch_product<true>(a, s);
+  if (!err) err = epilogue<false>(part, splits_d, n, dout, k2 ? xp : nullptr, 0, out, o_bf16, s);
+  return err;
 }
 
 extern "C" const char* hsd_i8_error_string(int code) {

@@ -29,17 +29,16 @@ _LOCK = threading.Lock()
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 # C signatures of the exported functions, by library
 SIGNATURES = {
-    "gptq": {
-        "hsd_gptq_matvec": (_I, [_P, _I, _LL, _I, _I, _P, _I, _P, _I, _P,
-                                 _I, _P, _F, _I, _P, _I, _P, _I, _I, _P,
-                                 _P, _P]),
-        "hsd_error_string": (ctypes.c_char_p, [_I]),
-    },
     "gptq_i8": {
         "hsd_gptq_i8": (_I, [_P, _I, _I, _I, _P, _I, _P, _I, _P, _I, _P, _F,
                              _P, _I, _I, _P, _P, _P]),
         "hsd_gptq_i4": (_I, [_P, _I, _I, _I, _P, _I, _P, _I, _P, _I, _P, _F,
                              _P, _I, _I, _P, _P, _P]),
+        "hsd_tail_workspace": (_LL, [_I] * 9),
+        "hsd_gptq_tail": (_I, [_P, _I, _P, _I, _I, _I, _I, _I, _I,
+                               _P, _P, _I, _I, _I, _P, _P, _I, _I, _I,
+                               _P, _P, _I, _I, _I, _P, _F, _P, _I, _P,
+                               _LL, _P]),
         "hsd_i8_error_string": (ctypes.c_char_p, [_I]),
     },
     "gptq_mma": {

@@ -11,18 +11,15 @@ K7i4). Each has:
     reads every kernel's, `reset_launches()` zeroes them);
   * a note naming the TPU kernel it replaces and what bounds it on the card.
 
-K2 and K6 (packed int4, f32 operands, the fused layer tail and MLP)
-launch one template in `csrc/gptq.cu` (see its header for the design): a
-block owns 128 output columns for up to 16 activation rows and a share of
-the weight's rows, streams them once in 128-row tiles, dequantizes in
-registers and accumulates in f32; a second pass sums the shares in order.
 K1 and K3 (packed int4) and K4 and K5 (int8), the f32-operand products, are
 the tensor-core kernel of `csrc/gptq_i8.cu`: f32 activations split into
-three bf16 planes that sum to them exactly, so the products stay exact. K7
-(int8) and K7i4 (packed int4) are the tensor-core template of
-`csrc/gptq_mma.cu` for the bf16-operand mode at 129-1024 rows. In all
-three, nothing in an output's summation order depends on the row count, so
-a row's bits do not either.
+three bf16 planes that sum to them exactly, so the products stay exact.
+K2 and K6 (packed int4, the fused layer tail and MLP) are three and two
+products of the same kernel, each finished by an epilogue pass (the
+residual, the SwiGLU). K7 (int8) and K7i4 (packed int4) are the
+tensor-core template of `csrc/gptq_mma.cu` for the bf16-operand mode at
+129-1024 rows. In both files, nothing in an output's summation order
+depends on the row count, so a row's bits do not either.
 
 Layouts are those of `ops/linear.QuantizedLinear`: packed int4 is uint8
 [din/2, dout] split-half with nibbles stored as code+8; int8 is [din, dout];
@@ -40,7 +37,6 @@ import torch.nn.functional as F
 
 from . import _build
 
-PRO_NONE, PRO_RMS, PRO_SILU = 0, 1, 2
 # Row gate of the fused layer tail (gptq_pallas.attn_mlp_fusion_supported):
 # the tail fuses at decode and verify row counts only.
 TAIL_MAX_ROWS = 32
@@ -211,8 +207,8 @@ def _bf16(t: Optional[torch.Tensor]) -> int:
     return int(t is not None and t.dtype == torch.bfloat16)
 
 
-# The split unit and the nominal column block: csrc/gptq.cu kTile, kCols
-# (in packed rows) and csrc/gptq_i8.cu kTileRows, BN.
+# The split unit (in packed rows for int4) and the column block:
+# csrc/gptq_i8.cu kTileRows, BN.
 TILE_ROWS, BLOCK_COLS = 128, 128
 
 
@@ -230,27 +226,6 @@ def splits_for(weight_rows: int, dout: int, sms: int) -> int:
     want = min(tiles, max(1, -(-2 * sms // col_blocks)))
     per_split = -(-tiles // want)
     return -(-tiles // per_split)
-
-
-def _launch(x, ldx, n, din, qweight, scales, zeros, ln, eps, prologue,
-            resid, out):
-    dout = out.shape[-1]
-    lib = _build.lib("gptq")
-    splits = splits_for(qweight.shape[0], dout, _sm_count(x.device.index or 0))
-    ws = (torch.empty((splits, n, dout), dtype=torch.float32, device=x.device)
-          if splits > 1 else None)
-    inv = (torch.empty((n,), dtype=torch.float32, device=x.device)
-           if prologue == PRO_RMS else None)
-    err = lib.hsd_gptq_matvec(
-        _ptr(x), _bf16(x), ldx, n, din, _ptr(qweight), dout,
-        _ptr(scales), _bf16(scales), _ptr(zeros), scales.shape[0], _ptr(ln),
-        float(eps), prologue, _ptr(resid), _bf16(resid), _ptr(out), _bf16(out),
-        splits, _ptr(ws), _ptr(inv),
-        torch.cuda.current_stream(x.device).cuda_stream)
-    if err:
-        raise RuntimeError(f"GPTQ kernel (n={n}, din={din}, dout={dout}, "
-                           f"prologue={prologue}): "
-                           f"{lib.hsd_error_string(err).decode()}")
 
 
 # --------------------------------------------------------------------------
@@ -357,15 +332,74 @@ def int8_matmul(x: torch.Tensor, qweight: torch.Tensor, scales: torch.Tensor,
 
 
 # --------------------------------------------------------------------------
+# K2 and K6 — the fused layer tail and MLP, three and two products of the
+# int4 kernel in one C call (`hsd_gptq_tail`, csrc/gptq_i8.cu): wo on the
+# activations' planes (bf16: one; f32: split in the kernel), wgu on the
+# three planes and group sums of K1's pre-pass over x' (K6: over x), wdown
+# on the f32 ff split in the kernel. Each product writes f32 partials into
+# one buffer (a product that runs unsplit writes its single partial there),
+# and an epilogue pass sums them in split order and finishes: x' = resid +
+# the sum, kept f32; ff = silu(g) * u, pairing columns j and F + j; out =
+# x' + the sum (K6: the sum), rounded once. x', the planes, the group sums,
+# ff and the partials are one workspace, one allocation a call beside the
+# output; 7 launches for K2 and 5 for K6. Splits come from each weight's
+# shape (`splits_for`), so a row's bits do not depend on the row count.
+
+@functools.lru_cache(maxsize=None)
+def _tail_ws_bytes(*dims) -> int:
+    return _build.lib("gptq_i8").hsd_tail_workspace(*dims)
+
+
+def _tail(x, resid, wo, so, wgu, sg, wdown, sd, ln, eps, out_dtype):
+    """The C call behind K2 (wo, so and resid given) and K6 (None)."""
+    n, din = x.shape
+    k2 = wo is not None
+    d = wgu.shape[0] * 2
+    f = wdown.shape[0] * 2
+    dout = wdown.shape[-1]
+    if wgu.shape[-1] != 2 * f or (k2 and (wo.shape[-1] != d or dout != d)):
+        raise ValueError(f"inconsistent {'tail' if k2 else 'MLP'} shapes: "
+                         f"wo {None if wo is None else tuple(wo.shape)}, wgu "
+                         f"{tuple(wgu.shape)}, wdown {tuple(wdown.shape)}")
+    _check(x, "x", _ACT)
+    if x.data_ptr() % 16:
+        raise ValueError("x: must start 16-byte aligned")
+    if k2:
+        _check(resid, "resid", _ACT, (n, d))
+        _weight(wo, so, None, True, din, d)
+    elif din != d:
+        raise ValueError(f"x: width {din} != {d}")
+    _check(ln, "ln", (torch.float32,), (d,))
+    _weight(wgu, sg, None, True, d, 2 * f)
+    _weight(wdown, sd, None, True, f, dout)
+    dev = x.device
+    sms = _sm_count(dev.index or 0)
+    splits = [splits_for(w.shape[0], w.shape[-1], sms) if w is not None else 1
+              for w in (wo, wgu, wdown)]
+    dh = din if k2 else 0
+    ws_bytes = _tail_ws_bytes(n, dh, d, f, dout, sg.shape[0], *splits)
+    ws = torch.empty((ws_bytes,), dtype=torch.uint8, device=dev)
+    out = torch.empty((n, dout), dtype=out_dtype, device=dev)
+    lib = _build.lib("gptq_i8")
+    err = lib.hsd_gptq_tail(
+        _ptr(x), _bf16(x), _ptr(resid), _bf16(resid), n, dh, d, f, dout,
+        _ptr(wo), _ptr(so), _bf16(so), so.shape[0] if k2 else 0, splits[0],
+        _ptr(wgu), _ptr(sg), _bf16(sg), sg.shape[0], splits[1],
+        _ptr(wdown), _ptr(sd), _bf16(sd), sd.shape[0], splits[2],
+        _ptr(ln), float(eps), _ptr(out), _bf16(out), _ptr(ws), ws_bytes,
+        torch.cuda.current_stream(dev).cuda_stream)
+    if err:
+        raise RuntimeError(f"int4 {'tail' if k2 else 'MLP'} kernel (n={n}, "
+                           f"d={d}, f={f}, dout={dout}): "
+                           f"{lib.hsd_i8_error_string(err).decode()}")
+    return out
+
+
 # K2 — replaces gptq_pallas.gptq_attn_mlp_int4: _kernel_attn_mlp_int4
 # (gptq_pallas.py:617). x' = resid + att @ deq(Wo), kept f32;
 # [g|u] = rmsnorm(x', ln) @ deq(Wgu); out = x' + (silu(g) * u) @ deq(Wdown).
 # Bound: three weight streams (14B layer: 13.1 + 70.8 + 35.4 MB + scales,
-# ~123 MB, ~37 us at 3.35 TB/s). A Hopper grid has no ordered steps to carry
-# x' and gu from phase to phase as the Pallas grid does, so the tail is three
-# launches of the template with f32 intermediates in device memory (at most
-# 32 x 27648 x 4 bytes = 3.5 MB, L2-resident); one persistent kernel is
-# later work. The counter counts one call per tail.
+# ~123 MB, ~37 us at 3.35 TB/s). The counter counts one call per tail.
 
 def attn_mlp_int4(att: torch.Tensor, resid: torch.Tensor,
                   wo: torch.Tensor, so: torch.Tensor,
@@ -377,26 +411,8 @@ def attn_mlp_int4(att: torch.Tensor, resid: torch.Tensor,
     if not att.is_cuda:
         return attn_mlp_int4_plain(att, resid, wo, so, wgu, sg, wdown, sd,
                                    ln, eps)
-    n, dh = att.shape
-    d = wo.shape[-1]
-    gu_out = wgu.shape[-1]
-    f = 2 * wdown.shape[0]
-    if gu_out != 2 * f or wgu.shape[0] * 2 != d or wdown.shape[-1] != d:
-        raise ValueError(f"inconsistent tail shapes: wo {tuple(wo.shape)}, "
-                         f"wgu {tuple(wgu.shape)}, wdown {tuple(wdown.shape)}")
-    _check(att, "att", _ACT)
-    _check(resid, "resid", _ACT, (n, d))
-    _check(ln, "ln", (torch.float32,), (d,))
-    _weight(wo, so, None, True, dh, d)
-    _weight(wgu, sg, None, True, d, gu_out)
-    _weight(wdown, sd, None, True, f, d)
-    dev = att.device
-    xp = torch.empty((n, d), dtype=torch.float32, device=dev)
-    gu = torch.empty((n, gu_out), dtype=torch.float32, device=dev)
-    out = torch.empty((n, d), dtype=resid.dtype, device=dev)
-    _launch(att, dh, n, dh, wo, so, None, None, 0.0, PRO_NONE, resid, xp)
-    _launch(xp, d, n, d, wgu, sg, None, ln, eps, PRO_RMS, None, gu)
-    _launch(gu, gu_out, n, f, wdown, sd, None, None, 0.0, PRO_SILU, xp, out)
+    out = _tail(att, resid, wo, so, wgu, sg, wdown, sd, ln, eps,
+                resid.dtype)
     attn_mlp_int4.launches += 1
     return out
 
@@ -405,34 +421,18 @@ def attn_mlp_int4(att: torch.Tensor, resid: torch.Tensor,
 # K6 — replaces gptq_pallas.gptq_mlp_int4: _kernel_mlp_int4
 # (gptq_pallas.py:530). [g|u] = rmsnorm(x, ln) @ deq(Wgu), kept f32;
 # out = (silu(g) * u) @ deq(Wdown), rounded once. The SwiGLU MLP without
-# its residual: K2's last two launches of the template, the first with the
-# RMS prologue on x itself. Bound: two weight streams (14B layer: 70.8 +
-# 35.4 MB + scales, ~33 us at 3.35 TB/s). The counter counts one call per
-# MLP.
+# its residual: K2's last two products, wgu's pre-pass on x itself.
+# Bound: two weight streams (14B layer: 70.8 + 35.4 MB + scales, ~33 us at
+# 3.35 TB/s). The counter counts one call per MLP.
 
 def mlp_int4(x: torch.Tensor, wgu: torch.Tensor, sg: torch.Tensor,
              wdown: torch.Tensor, sd: torch.Tensor, ln: torch.Tensor,
              eps: float) -> torch.Tensor:
-    """The fused SwiGLU MLP; x [n, D] -> [n, D] in x.dtype. Both weights
+    """The fused SwiGLU MLP; x [n, D] -> [n, dout] in x.dtype. Both weights
     packed int4, symmetric."""
     if not x.is_cuda:
         return mlp_int4_plain(x, wgu, sg, wdown, sd, ln, eps)
-    n, d = x.shape
-    gu_out = wgu.shape[-1]
-    f = 2 * wdown.shape[0]
-    dout = wdown.shape[-1]
-    if gu_out != 2 * f or wgu.shape[0] * 2 != d:
-        raise ValueError(f"inconsistent MLP shapes: x {tuple(x.shape)}, wgu "
-                         f"{tuple(wgu.shape)}, wdown {tuple(wdown.shape)}")
-    _check(x, "x", _ACT)
-    _check(ln, "ln", (torch.float32,), (d,))
-    _weight(wgu, sg, None, True, d, gu_out)
-    _weight(wdown, sd, None, True, f, dout)
-    gu = torch.empty((n, gu_out), dtype=torch.float32, device=x.device)
-    out = torch.empty((n, dout), dtype=x.dtype, device=x.device)
-    _launch(x, d, n, d, wgu, sg, None, ln, eps, PRO_RMS, None, gu)
-    _launch(gu, gu_out, n, f, wdown, sd, None, None, 0.0, PRO_SILU, None,
-            out)
+    out = _tail(x, None, None, None, wgu, sg, wdown, sd, ln, eps, x.dtype)
     mlp_int4.launches += 1
     return out
 

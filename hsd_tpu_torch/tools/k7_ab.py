@@ -9,7 +9,12 @@ in turns, on one CUDA card:
     path's 14B-geometry shapes: the decode (1 row), the K = 1 verify (11
     rows), the prefill (63 rows) and the K = 11 verify (121 rows), and at
     the int4 EAGLE prefill's Llama-3.1-8B shapes (11 and 64 rows);
-  * K2 (the fused 14B layer tail, 11 rows), a control.
+  * K2 (the fused 14B layer tail) at 1 and 11 rows and K6 (its MLP) at 11
+    rows, and the tail's three products apart as K1 / K3 calls at 11 rows:
+    wo on bf16 x, wgu + norm and wdown on f32 x (the tail's f32 x' and ff;
+    the calls end in the plain split sum where the tail ends in its
+    epilogue pass), with the host microseconds to enqueue one K2 call
+    (bursts of 20 calls from an idle queue, the median burst).
 
     python hsd_tpu_torch/tools/k7_ab.py                  # this checkout
     python hsd_tpu_torch/tools/k7_ab.py --roots A B B A  # checkouts in turns
@@ -22,7 +27,8 @@ codes with bf16 scales, one group per 128 input rows (the draft's case with
 f32 zeros too), and the activations random bf16, all made from --seed (the
 same draws, shape by shape, in every checkout). The
 registers and spills of each checkout's kernels (`nvcc -Xptxas -v`) follow,
-and the last line is a table of each shape's medians by root. Imports torch
+then the host microseconds by root, and the last line is a table of each
+shape's medians by root. Imports torch
 only.
 """
 from __future__ import annotations
@@ -37,6 +43,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import time
 
 MMA_ROWS = 480                             # 8 slots x 60 tree nodes
 MMA_SHAPES = (("wqkv 4096x6144 +norm", 4096, 6144, True),
@@ -68,9 +75,15 @@ F32_SHAPES = (("K5", "wgu 4096x28672 +norm", 4096, 28672, 60, False),
               ("K3", "14B lm_head 5120x151936", 5120, 151936, 11, False),
               ("K3", "14B wo 5120x5120", 5120, 5120, 63, False),
               ("K3", "14B wdown 13824x5120", 13824, 5120, 63, False),
-              ("K2", "14B tail 5120/27648/13824", 5120, 27648, 11, False))
+              ("K3", "14B wo 5120x5120", 5120, 5120, 11, False),
+              ("K1", "14B wgu 5120x27648 +norm f32 x", 5120, 27648, 11,
+               False),
+              ("K3", "14B wdown 13824x5120 f32 x", 13824, 5120, 11, False),
+              ("K2", "14B tail 5120/27648/13824", 5120, 27648, 1, False),
+              ("K2", "14B tail 5120/27648/13824", 5120, 27648, 11, False),
+              ("K6", "14B mlp 5120/27648/13824", 5120, 27648, 11, False))
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3")
-KERNELS = re.compile(r"mma_kernel|i8_kernel|gptq_matvec_kernel")
+KERNELS = re.compile(r"mma_kernel|i8_kernel|matvec_kernel|epilogue_kernel")
 
 
 def ptxas_info(root: str) -> dict:
@@ -144,7 +157,7 @@ def worker(root: str, seed: int, repeats: int) -> dict:
         return torch.randn((n, din), generator=gen, device=dev).to(
             torch.bfloat16)
 
-    res = {"root": root, "ms": {}, "sha256": {}}
+    res = {"root": root, "ms": {}, "sha256": {}, "host_us": {}}
 
     def run(key, fn):
         res["sha256"][key] = digest(fn())
@@ -161,24 +174,42 @@ def worker(root: str, seed: int, repeats: int) -> dict:
         if hasattr(G, "int4_matmul_bf16"):
             run(f"K7i4 {label}", lambda: G.int4_matmul_bf16(x, w4, s, **kw))
         del w8, w4
+    def host_us(fn, calls=20, bursts=15):
+        per = []
+        for _ in range(bursts):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(calls):
+                fn()
+            per.append((time.perf_counter() - t0) / calls * 1e6)
+        torch.cuda.synchronize()
+        return statistics.median(per)
+
     for name, label, din, dout, n, zeros in F32_SHAPES:
         x = act(n, din)
+        if "f32 x" in label:
+            x = x.float()
         ln = torch.rand((din,), generator=gen, device=dev) + 0.5
-        w, s = weights(din, dout, name in ("K1", "K2", "K3"))
+        w, s = weights(din, dout, name in ("K1", "K2", "K3", "K6"))
         z = (torch.randn((din // 128, dout), generator=gen, device=dev) * 40
              if zeros else None)
-        if name == "K2":     # wo [din, din], wgu [din, dout], wdown [dout/2, din]
+        if name in ("K2", "K6"):  # wo [din, din], wgu [din, dout], wdown [dout/2, din]
             wo, so = weights(din, din, True)
             wd, sd = weights(dout // 2, din, True)
             resid = act(n, din)
-            call = lambda: G.attn_mlp_int4(x, resid, wo, so, w, s, wd, sd,
-                                           ln, 1e-5)
+            if name == "K2":
+                call = lambda: G.attn_mlp_int4(x, resid, wo, so, w, s, wd,
+                                               sd, ln, 1e-5)
+            else:
+                call = lambda: G.mlp_int4(x, w, s, wd, sd, ln, 1e-5)
         else:
             call = {"K1": lambda: G.int4_ln_matmul(x, w, s, ln, 1e-5),
                     "K3": lambda: G.int4_matmul(x, w, s),
                     "K4": lambda: G.int8_matmul(x, w, s, z),
                     "K5": lambda: G.int8_ln_matmul(x, w, s, ln, 1e-5)}[name]
         run(f"{name} {label}, {n} rows", call)
+        if name == "K2" and n == 11:
+            res["host_us"][f"K2 {label}, {n} rows"] = host_us(call)
         del w
     return res
 
@@ -213,10 +244,13 @@ def main():
     for root in dict.fromkeys(os.path.abspath(r) for r in args.roots):
         print(json.dumps({"root": root, "ptxas": ptxas_info(root)}),
               flush=True)
-    table = {}
+    table, host = {}, {}
     for r in runs:
         for key, ms in r["ms"].items():
             table.setdefault(key, {}).setdefault(r["root"], []).append(ms)
+        for key, us in r.get("host_us", {}).items():
+            host.setdefault(key, {}).setdefault(r["root"], []).append(us)
+    print(json.dumps({"host_us_by_root": host}), flush=True)
     print(json.dumps({"medians_ms_by_root": table}), flush=True)
 
 

@@ -1,6 +1,8 @@
 """The port's CUDA kernels on the card: each wrapper against its plain
 version (K1-K8, K7i4; K1, K3, K4 and K5 at every row tiling of their
-tensor-core kernel), a row's bits independent of the row count, the
+tensor-core kernel; K2 and K6, its products in one call, at 1-32 rows,
+split and unsplit, with a ragged width), a row's bits independent of the
+row count, the
 dequantize-then-dot route above 128 rows (no kernel, near the plain
 result), and greedy spec == AR through the kernels. Marked `cuda`; each test skips when no card is present
 (decided in a fixture, never at import). Run on the card with
@@ -388,6 +390,73 @@ def test_k6_matches_plain(dev, n):
     _close(got, G.mlp_int4_plain(x, wgu.qweight[1], wgu.scales[1],
                                  wd.qweight[1], wd.scales[1], ln, 1e-6),
            torch.bfloat16)
+
+
+TAIL_ROWS = [1, 2, 7, 11, 16, 17, 32]
+
+
+def _tail_case(dev, seed, d, f, dout, dtype, n=32):
+    """Weights of a tail (wo [d, d], wgu [d, 2f], wdown [f, dout]) and
+    inputs of n rows."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    ws = [_q4(g, dev, d, d), _q4(g, dev, d, 2 * f), _q4(g, dev, f, dout)]
+    x, res = (torch.randn((n, d), generator=g, device=dev).to(dtype)
+              for _ in range(2))
+    ln = torch.rand(d, generator=g, device=dev) + 0.5
+    return ws, x, res, ln
+
+
+def _tail_call(kernel, ws, x, res, ln, plain=False):
+    (wo, so), (wgu, sg), (wd, sd) = ws
+    if kernel == "K2":
+        fn = G.attn_mlp_int4_plain if plain else G.attn_mlp_int4
+        return fn(x, res, wo, so, wgu, sg, wd, sd, ln, 1e-6)
+    fn = G.mlp_int4_plain if plain else G.mlp_int4
+    return fn(x, wgu, sg, wd, sd, ln, 1e-6)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("n", TAIL_ROWS)
+@pytest.mark.parametrize("kernel", ["K2", "K6"])
+def test_tail_matches_plain(dev, kernel, n, dtype):
+    """K2 and K6 against their plain versions; every product split (wo 2,
+    wgu 2, wdown 4 on an H100); only the kernel's own counter moves."""
+    ws, x, res, ln = _tail_case(dev, 50 + n, 512, 1024, 512, dtype, n)
+    reset_launches()
+    got = _tail_call(kernel, ws, x, res, ln)
+    counts = launch_counts()
+    assert counts[kernel] == 1 and sum(counts.values()) == 1, counts
+    assert got.dtype == dtype and got.shape == (n, 512)
+    _close(got, _tail_call(kernel, ws, x, res, ln, plain=True), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("kernel", ["K2", "K6"])
+def test_tail_unsplit_and_ragged_match_plain(dev, kernel, dtype):
+    """wo and wgu with one split each (the product's single partial in the
+    workspace), and K6 with a ragged output width."""
+    sms = G._sm_count(dev.index or 0)
+    ws, x, res, ln = _tail_case(dev, 60, 256, 512, 256, dtype, 11)
+    assert [G.splits_for(w.shape[0], w.shape[1], sms)
+            for w, _ in ws[:2]] == [1, 1]
+    _close(_tail_call(kernel, ws, x, res, ln),
+           _tail_call(kernel, ws, x, res, ln, plain=True), dtype)
+    if kernel == "K6":
+        ws, x, res, ln = _tail_case(dev, 61, 512, 1024, 1000, dtype, 7)
+        got = _tail_call(kernel, ws, x, res, ln)
+        assert got.shape == (7, 1000)
+        _close(got, _tail_call(kernel, ws, x, res, ln, plain=True), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("kernel", ["K2", "K6"])
+def test_tail_row_bits_independent_of_row_count(dev, kernel, dtype):
+    for d, f in ((512, 1024), (256, 512)):
+        ws, x, res, ln = _tail_case(dev, 70 + d, d, f, d, dtype)
+        full = _tail_call(kernel, ws, x, res, ln)
+        for n in TAIL_ROWS[:-1]:
+            assert torch.equal(_tail_call(kernel, ws, x[:n], res[:n], ln),
+                               full[:n]), (d, n)
 
 
 def _attention_case(dev, dtype, T, H, Hkv, d, S, kv_len, start, bias, seed):
