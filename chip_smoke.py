@@ -70,11 +70,14 @@ Phases (any failure exits nonzero, with no result line):
                of a bf16 EAGLE-1 head (draft vocab 32000, top_k 10, depth 6,
                59 nodes; scale 6.0, lam 1.312), gptq_mxu_bf16 on
   8. eagle kernels  K5 (int8, fused RMSNorm) at 1 and 60 rows, K7 (bf16
-               tensor-core operands) at 129 and 480 rows, and K4 (symmetric
+               tensor-core operands) at 129 and 480 rows, each K7 case with
+               its TFLOP/s and its share of the bound, and K4 (symmetric
                int8) at the prefill's shapes (wo, wdown at 64 rows, the head
                at 1 row and at 64) against their plain versions, timed as in
-               phase 4; a row's bits at 1, 17 and 64 vs 128 rows (K5 wqkv,
-               K4 wdown; bf16 and f32 activations) and 129 vs 480 rows (K7)
+               phase 4; K7's pre-pass (the inverse RMS and the normed bf16
+               rows) against its plain version at 129, 480 and 1024 rows; a
+               row's bits at 1, 17 and 64 vs 128 rows (K5 wqkv, K4 wdown;
+               bf16 and f32 activations) and 129 and 480 vs 1024 rows (K7)
   9. eagle serving  one 64-token prefill with the head on the last position
                against one with every position's logits: the last row must
                agree, both timed; then EagleSlotEngine (8 slots, bucket 64, 4
@@ -252,7 +255,7 @@ def check_kernel(name, label, n, run, plain, library, n_sets, nbytes, flops):
     lib_ms = timed(library, 1) if library is not None else None
     b_ms, b_by = bound(nbytes, flops)
     row = dict(name=name, label=label, n=n, max_abs_err=err,
-               rel_err=err / scale if scale else err, ms=ms,
+               rel_err=err / scale if scale else err, ms=ms, flops=flops,
                plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
                bound_by=b_by)
     KERNEL_ROWS.append(row)
@@ -1153,8 +1156,8 @@ def eagle_kernel_phase(target, cfg):
 
     # a row's bits do not depend on how many rows share its launch: K5
     # (wqkv) and K4 (wdown) at 1, 17, 64 and 128 rows, in bf16 and in f32;
-    # K7 at 129 and 480 rows
-    x = act(rows, D)
+    # K7 at 129, 480 and 1024 rows
+    x = act(G.BF16_MAX_ROWS, D)
     w = big["wqkv"].layer(0)
     wd = big["wdown"].layer(0)
     xd = act(128, wd.din)
@@ -1170,12 +1173,38 @@ def eagle_kernel_phase(target, cfg):
                 raise AssertionError(f"K4 or K5 rows differ between {n} and "
                                      f"128 rows ({dt})")
     k7 = G.int8_matmul_bf16(x, w.qweight, w.scales, ln=ln[0], eps=eps)
-    if not torch.equal(G.int8_matmul_bf16(x[:129], w.qweight, w.scales,
-                                          ln=ln[0], eps=eps), k7[:129]):
-        raise AssertionError("K7 rows differ with the row count")
+    for n in (G.BF16_MIN_ROWS, rows):
+        if not torch.equal(G.int8_matmul_bf16(x[:n], w.qweight, w.scales,
+                                              ln=ln[0], eps=eps), k7[:n]):
+            raise AssertionError(f"K7 rows differ between {n} and "
+                                 f"{len(x)} rows")
     log("eagle kernels: K5 (wqkv) and K4 (wdown) give the same bits for a "
-        "row at 1, 17, 64 and 128 rows, in bf16 and in f32; K7 at 129 and "
-        f"{rows} rows")
+        "row at 1, 17, 64 and 128 rows, in bf16 and in f32; K7 at "
+        f"{G.BF16_MIN_ROWS}, {rows} and {len(x)} rows")
+
+    # K7's pre-pass against its plain version: the inverse RMS within
+    # 2^-21 (another summation order), the normed rows bf16((x * inv) * ln)
+    # bit for bit from the kernel's own inv and within one bf16 step of
+    # the plain rows
+    for n in (G.BF16_MIN_ROWS, rows, len(x)):
+        inv, xn = G.k7_stage(x[:n], ln[0], eps)
+        pinv, pxn = G.k7_stage_plain(x[:n], ln[0], eps)
+        torch.cuda.synchronize()
+        inv_err = ((inv - pinv).abs() / pinv).max().item()
+        exact = torch.equal(xn, ((x[:n].float() * inv[:, None]) * ln[0])
+                            .to(torch.bfloat16))
+        step = 2.0 ** (torch.floor(torch.log2(pxn.float().abs())) - 7)
+        diff = (xn.float() - pxn.float()).abs()
+        flips = int((diff > 0).sum().item())
+        if not (inv_err <= 2.0 ** -21 and exact
+                and bool((diff <= step).all())):
+            raise AssertionError(f"K7 pre-pass at {n} rows: inv rel error "
+                                 f"{inv_err}, xn exact from its inv {exact}, "
+                                 f"{flips} values off the plain version's")
+        log(f"eagle kernels: K7 pre-pass at {n} rows: inv rel error "
+            f"{inv_err:.2e} (tol {2.0 ** -21:.2e}), xn == bf16((x * inv) * "
+            f"ln) from its own inv, {flips} of {xn.numel()} values one bf16 "
+            "step from the plain version's")
 
     def case(name, label, w: QuantizedLinear, n, norm):
         quant_case(name, label, w, n, act, ln if norm else None, eps)
@@ -1191,6 +1220,11 @@ def eagle_kernel_phase(target, cfg):
     case("K7", "wo 4096x4096", big["wo"], rows, False)
     case("K7", "wdown 14336x4096", big["wdown"], rows, False)
     case("K7", "lm_head 4096x128256", target.big.lm_head, rows, False)
+    for r in KERNEL_ROWS:
+        if r["name"] == "K7":
+            log(f"K7 {r['label']:<28} n={r['n']:<3} {r['flops'] / r['ms'] / 1e9:.1f}"
+                f" TFLOP/s, {r['bound_ms'] / r['ms']:.3f} of the bound "
+                f"({r['bound_by']})")
     log("eagle kernels: K4 (symmetric int8) at the prefill's shapes")
     case("K4", "wo 4096x4096", big["wo"], EAGLE_BUCKET, False)
     case("K4", "wdown 14336x4096", big["wdown"], EAGLE_BUCKET, False)

@@ -17,7 +17,7 @@ three bf16 planes that sum to them exactly, so the products stay exact.
 K2 and K6 (packed int4, the fused layer tail and MLP) are three and two
 products of the same kernel, each finished by an epilogue pass (the
 residual, the SwiGLU). K7 (int8) and K7i4 (packed int4) are the
-tensor-core template of `csrc/gptq_mma.cu` for the bf16-operand mode at
+tensor-core kernels of `csrc/gptq_mma.cu` for the bf16-operand mode at
 129-1024 rows. In both files, nothing in an output's summation order
 depends on the row count, so a row's bits do not either.
 
@@ -70,10 +70,13 @@ def _apply_groups(codes, scales, zeros):
     return c.mul_(scales.float()[:, None, :]).reshape(din, dout)
 
 
+def _inv_rms(xf: torch.Tensor, eps: float) -> torch.Tensor:
+    return torch.rsqrt(torch.mean(xf * xf, dim=-1, keepdim=True) + eps)
+
+
 def _rms_f32(x: torch.Tensor, ln: torch.Tensor, eps: float) -> torch.Tensor:
     xf = x.float()
-    r = torch.rsqrt(torch.mean(xf * xf, dim=-1, keepdim=True) + eps)
-    return xf * r * ln.float()
+    return xf * _inv_rms(xf, eps) * ln.float()
 
 
 def _bf16_round(t: torch.Tensor) -> torch.Tensor:
@@ -153,6 +156,17 @@ def int8_ln_matmul_plain(x, qweight, scales, ln, eps, bf16_operands=False):
     f32 normed x (the norm is never rounded), rounded once."""
     return int8_matmul_plain(_rms_f32(x, ln, eps), qweight, scales,
                              bf16_operands=bf16_operands).to(x.dtype)
+
+
+def k7_stage_plain(x, ln, eps):
+    """K7's pre-pass: each row's inverse RMS inv [n] (f32) and its normed
+    activations xn = bf16((x * inv) * ln) [n, din], the bf16 operand that
+    int8_ln_matmul_plain(bf16_operands=True) rounds its f32 normed x to.
+    int8_matmul_plain(xn, bf16_operands=True) is that product, bit for
+    bit."""
+    xf = x.float()
+    inv = _inv_rms(xf, eps)
+    return inv[:, 0], (xf * inv * ln.float()).to(torch.bfloat16)
 
 
 def attn_mlp_int4_plain(att, resid, wo, so, wgu, sg, wdown, sd, ln, eps):
@@ -468,22 +482,24 @@ def int8_ln_matmul(x: torch.Tensor, qweight: torch.Tensor,
 # y = bf16(prologue(x)) @ bf16(code * scale) - sum_g xg * (zero + off) *
 # scale, f32 accumulation, one rounding: codes as stored (int8, or the
 # UNSIGNED nibble with off = 8), xg the group sums of the unrounded f32
-# (normed) x. One template in csrc/gptq_mma.cu, the weight format its
-# parameter: mma.sync m16n8k16 bf16 tiles of 128 x 128 outputs over
-# k-slices of 64 staged in shared memory; a per-row pre-pass writes the
-# inverse RMS (with ln) and xg (with a correction); at each group's first
-# k-slice the accumulators take that group's rank-1 correction, groups in
-# order. A packed k-slice reads one nibble plane: a slice never straddles
-# din/2.
+# (normed) x. Both in csrc/gptq_mma.cu on mma.sync m16n8k16 bf16 tiles of
+# 128 x 128 outputs (K7 also 256 x 128) over k-slices of 64; at each
+# group's first k-slice the accumulators take that group's rank-1
+# correction, groups in order.
+# K7 (int8): a per-row pre-pass writes the normed rows once (with ln) or the
+# group sums (with zeros); the main kernel stages the bf16 rows and the raw
+# weight bytes in a cp.async ring and converts the next slice's weight
+# while the warps run the current slice's mma, one barrier a slice.
+# K7i4 (packed int4): the first template, which norms and converts in its
+# staging and re-converts the weight in every row tile. A packed k-slice
+# reads one nibble plane: a slice never straddles din/2.
 # Bound: operations at the pool forward's 480 rows (Llama-3.1-8B wgu
 # 4096 x 28672: 113 GFLOP, ~0.11 ms at 989 TFLOP/s, against 118 MB of int8
 # or 59 MB of int4 weight, ~0.035 / 0.018 ms).
 BF16_MIN_ROWS, BF16_MAX_ROWS = 129, 1024   # the JAX gate (linear.py:270-275)
 
 
-def _mma(x, qweight, packed, scales, zeros, ln, eps):
-    n, din = x.shape
-    dout = qweight.shape[-1]
+def _check_bf16_x(x, ln, zeros, din):
     _check(x, "x", (torch.bfloat16,))
     if x.data_ptr() % 16:
         raise ValueError("x: must start 16-byte aligned")
@@ -491,22 +507,87 @@ def _mma(x, qweight, packed, scales, zeros, ln, eps):
         if zeros is not None:
             raise ValueError("the fused norm takes symmetric weights only")
         _check(ln, "ln", (torch.float32,), (din,))
-    _weight(qweight, scales, zeros, packed, din, dout)
+
+
+def k7_block_rows(n: int, dout: int, sms: int, zeros: bool = False) -> int:
+    """K7's output rows per block: 256 (16 warps, one block an SM) where
+    256-row blocks keep at least half the card's SMs busy, else 128 (8
+    warps, two blocks an SM). A 256-row block converts each weight slice
+    once for twice the rows; on narrow grids (Llama-3.1-8B wo and wdown at
+    480 rows: 64 such blocks on 132 SMs) 128-row blocks measured faster.
+    With zero points 128 (one block an SM: the correction needs the
+    registers). A function of the shape and the card only: every output's
+    sum is the same at either height."""
+    blocks = -(-n // 256) * -(-dout // BLOCK_COLS)
+    return 256 if not zeros and 2 * blocks >= sms else 128
+
+
+def _k7(x, qweight, scales, zeros, ln, eps, block_rows=None):
+    n, din = x.shape
+    dout = qweight.shape[-1]
+    _check_bf16_x(x, ln, zeros, din)
+    _weight(qweight, scales, zeros, False, din, dout)
+    dev = x.device
+    groups = scales.shape[0]
+    bm = block_rows or k7_block_rows(n, dout, _sm_count(dev.index or 0),
+                                     zeros is not None)
+    out = torch.empty((n, dout), dtype=x.dtype, device=dev)
+    xn = (torch.empty((n, din), dtype=torch.bfloat16, device=dev)
+          if ln is not None else None)
+    xg = (torch.empty((n, groups), dtype=torch.float32, device=dev)
+          if zeros is not None else None)
+    lib = _build.lib("gptq_mma")
+    err = lib.hsd_k7(
+        _ptr(x), n, din, _ptr(qweight), dout, _ptr(scales), _bf16(scales),
+        _ptr(zeros), groups, _ptr(ln), float(eps), _ptr(xn), _ptr(xg), bm,
+        _ptr(out), torch.cuda.current_stream(dev).cuda_stream)
+    if err:
+        raise RuntimeError(f"K7 (n={n}, din={din}, dout={dout}, "
+                           f"ln={ln is not None}, zeros={zeros is not None}, "
+                           f"rows a block {bm}): "
+                           f"{lib.hsd_mma_error_string(err).decode()}")
+    return out
+
+
+def k7_stage(x: torch.Tensor, ln: torch.Tensor, eps: float):
+    """K7's pre-pass alone, for its check: (inv [n], xn [n, din] bf16) as
+    k7_stage_plain gives them. The K7 wrapper runs it inside its own C
+    call; this entry is not on any path and counts no launch."""
+    if not x.is_cuda:
+        return k7_stage_plain(x, ln, eps)
+    n, din = x.shape
+    _check_bf16_x(x, ln, None, din)
+    inv = torch.empty((n,), dtype=torch.float32, device=x.device)
+    xn = torch.empty((n, din), dtype=torch.bfloat16, device=x.device)
+    lib = _build.lib("gptq_mma")
+    err = lib.hsd_k7_stage(_ptr(x), n, din, 1, _ptr(ln), float(eps),
+                           _ptr(inv), _ptr(xn), None,
+                           torch.cuda.current_stream(x.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"K7 pre-pass (n={n}, din={din}): "
+                           f"{lib.hsd_mma_error_string(err).decode()}")
+    return inv, xn
+
+
+def _mma_i4(x, qweight, scales, zeros, ln, eps):
+    n, din = x.shape
+    dout = qweight.shape[-1]
+    _check_bf16_x(x, ln, zeros, din)
+    _weight(qweight, scales, zeros, True, din, dout)
     dev = x.device
     groups = scales.shape[0]
     out = torch.empty((n, dout), dtype=x.dtype, device=dev)
     inv = (torch.empty((n,), dtype=torch.float32, device=dev)
            if ln is not None else None)
-    xg = (torch.empty((n, groups), dtype=torch.float32, device=dev)
-          if packed or zeros is not None else None)
+    xg = torch.empty((n, groups), dtype=torch.float32, device=dev)
     lib = _build.lib("gptq_mma")
     err = lib.hsd_gptq_mma(
-        _ptr(x), n, din, _ptr(qweight), int(packed), dout, _ptr(scales),
+        _ptr(x), n, din, _ptr(qweight), 1, dout, _ptr(scales),
         _bf16(scales), _ptr(zeros), groups, _ptr(ln), float(eps), _ptr(inv),
         _ptr(xg), _ptr(out), torch.cuda.current_stream(dev).cuda_stream)
     if err:
         raise RuntimeError(f"GPTQ tensor-core kernel (n={n}, din={din}, "
-                           f"dout={dout}, packed={packed}, ln={ln is not None}"
+                           f"dout={dout}, packed=True, ln={ln is not None}"
                            f", zeros={zeros is not None}): "
                            f"{lib.hsd_mma_error_string(err).decode()}")
     return out
@@ -530,7 +611,7 @@ def int8_matmul_bf16(x: torch.Tensor, qweight: torch.Tensor,
             raise ValueError("the fused norm takes symmetric weights only")
         return int8_ln_matmul_plain(x, qweight, scales, ln, eps,
                                     bf16_operands=True)
-    out = _mma(x, qweight, False, scales, zeros, ln, eps)
+    out = _k7(x, qweight, scales, zeros, ln, eps)
     int8_matmul_bf16.launches += 1
     return out
 
@@ -553,7 +634,7 @@ def int4_matmul_bf16(x: torch.Tensor, qweight: torch.Tensor,
             raise ValueError("the fused norm takes symmetric weights only")
         return int4_ln_matmul_plain(x, qweight, scales, ln, eps,
                                     bf16_operands=True)
-    out = _mma(x, qweight, True, scales, zeros, ln, eps)
+    out = _mma_i4(x, qweight, scales, zeros, ln, eps)
     int4_matmul_bf16.launches += 1
     return out
 

@@ -1,7 +1,10 @@
 """Time the port's GPTQ kernels for one or more checkouts of the repository
 in turns, on one CUDA card:
   * K7 (int8) and K7i4 (packed int4), `csrc/gptq_mma.cu`, at the
-    Llama-3.1-8B EAGLE pool forward's shapes (480 rows);
+    Llama-3.1-8B EAGLE pool forward's shapes (480 rows), and wqkv and wgu
+    with the norm at the bf16 route's fewest rows (129), wo with zero
+    points, and the host microseconds of one K7 call (wgu + norm, 480
+    rows);
   * K4 and K5 (int8, f32-exact operands) at the shapes where the int8 EAGLE
     prefill (60-64 rows), the EAGLE-3 head's beam (80 rows) and the decode
     calls (1 row) launch them;
@@ -18,6 +21,7 @@ in turns, on one CUDA card:
 
     python hsd_tpu_torch/tools/k7_ab.py                  # this checkout
     python hsd_tpu_torch/tools/k7_ab.py --roots A B B A  # checkouts in turns
+    python hsd_tpu_torch/tools/k7_ab.py --only '^K7 '    # K7's shapes only
 
 Each root runs in a process of its own (every checkout defines
 `hsd_tpu_torch`), builds its own kernels and prints one JSON line: the
@@ -27,9 +31,9 @@ codes with bf16 scales, one group per 128 input rows (the draft's case with
 f32 zeros too), and the activations random bf16, all made from --seed (the
 same draws, shape by shape, in every checkout). The
 registers and spills of each checkout's kernels (`nvcc -Xptxas -v`) follow,
-then the host microseconds by root, and the last line is a table of each
-shape's medians by root. Imports torch
-only.
+then the host microseconds by root, the K7 / K7i4 rates (TFLOP/s of 2 n din
+dout by root), and the last line is a table of each shape's medians by
+root. Imports torch only.
 """
 from __future__ import annotations
 
@@ -45,12 +49,16 @@ import sys
 import tempfile
 import time
 
-MMA_ROWS = 480                             # 8 slots x 60 tree nodes
-MMA_SHAPES = (("wqkv 4096x6144 +norm", 4096, 6144, True),
-              ("wgu 4096x28672 +norm", 4096, 28672, True),
-              ("wo 4096x4096", 4096, 4096, False),
-              ("wdown 14336x4096", 14336, 4096, False),
-              ("lm_head 4096x128256", 4096, 128256, False))
+# (label, din, dout, norm, rows): 480 = 8 slots x 60 tree nodes; 129 the
+# bf16 route's fewest rows; "zeros": an asymmetric weight (f32 zero points)
+MMA_SHAPES = (("wqkv 4096x6144 +norm", 4096, 6144, True, 480),
+              ("wgu 4096x28672 +norm", 4096, 28672, True, 480),
+              ("wo 4096x4096", 4096, 4096, False, 480),
+              ("wdown 14336x4096", 14336, 4096, False, 480),
+              ("lm_head 4096x128256", 4096, 128256, False, 480),
+              ("wqkv 4096x6144 +norm", 4096, 6144, True, 129),
+              ("wgu 4096x28672 +norm", 4096, 28672, True, 129),
+              ("wo 4096x4096 zeros", 4096, 4096, False, 480))
 # (kernel, label, din, dout, rows, zeros); K1 and K5 take the norm
 F32_SHAPES = (("K5", "wgu 4096x28672 +norm", 4096, 28672, 60, False),
               ("K5", "wqkv 4096x6144 +norm", 4096, 6144, 60, False),
@@ -83,7 +91,8 @@ F32_SHAPES = (("K5", "wgu 4096x28672 +norm", 4096, 28672, 60, False),
               ("K2", "14B tail 5120/27648/13824", 5120, 27648, 11, False),
               ("K6", "14B mlp 5120/27648/13824", 5120, 27648, 11, False))
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3")
-KERNELS = re.compile(r"mma_kernel|i8_kernel|matvec_kernel|epilogue_kernel")
+KERNELS = re.compile(r"mma_kernel|i8_kernel|matvec_kernel|epilogue_kernel"
+                     r"|prep_kernel")
 
 
 def ptxas_info(root: str) -> dict:
@@ -114,7 +123,7 @@ def ptxas_info(root: str) -> dict:
     return info
 
 
-def worker(root: str, seed: int, repeats: int) -> dict:
+def worker(root: str, seed: int, repeats: int, only: str) -> dict:
     sys.path.insert(0, root)
     import torch
     from hsd_tpu_torch.ops import gptq_cuda as G
@@ -157,23 +166,18 @@ def worker(root: str, seed: int, repeats: int) -> dict:
         return torch.randn((n, din), generator=gen, device=dev).to(
             torch.bfloat16)
 
-    res = {"root": root, "ms": {}, "sha256": {}, "host_us": {}}
+    res = {"root": root, "ms": {}, "sha256": {}, "host_us": {}, "flop": {}}
+    keep = re.compile(only)
 
-    def run(key, fn):
+    def run(key, fn, flop=None):
+        if not keep.search(key):
+            return False
         res["sha256"][key] = digest(fn())
         res["ms"][key] = timed(fn)
+        if flop:
+            res["flop"][key] = flop
+        return True
 
-    for label, din, dout, norm in MMA_SHAPES:
-        x = act(MMA_ROWS, din)
-        ln = (torch.rand((din,), generator=gen, device=dev) + 0.5) if norm else None
-        kw = {"ln": ln, "eps": 1e-5} if norm else {}
-        w8, s = weights(din, dout, False)
-        w4 = torch.empty((din // 2, dout), dtype=torch.uint8, device=dev)
-        w4.random_(0, 256, generator=gen)
-        run(f"K7 {label}", lambda: G.int8_matmul_bf16(x, w8, s, **kw))
-        if hasattr(G, "int4_matmul_bf16"):
-            run(f"K7i4 {label}", lambda: G.int4_matmul_bf16(x, w4, s, **kw))
-        del w8, w4
     def host_us(fn, calls=20, bursts=15):
         per = []
         for _ in range(bursts):
@@ -184,6 +188,25 @@ def worker(root: str, seed: int, repeats: int) -> dict:
             per.append((time.perf_counter() - t0) / calls * 1e6)
         torch.cuda.synchronize()
         return statistics.median(per)
+
+    for label, din, dout, norm, n in MMA_SHAPES:
+        x = act(n, din)
+        ln = (torch.rand((din,), generator=gen, device=dev) + 0.5) if norm else None
+        kw = {"ln": ln, "eps": 1e-5} if norm else {}
+        w8, s = weights(din, dout, False)
+        if "zeros" in label:
+            kw = {"zeros": torch.randn((din // 128, dout), generator=gen,
+                                       device=dev) * 4}
+        w4 = torch.empty((din // 2, dout), dtype=torch.uint8, device=dev)
+        w4.random_(0, 256, generator=gen)
+        flop = 2 * n * din * dout
+        k7 = lambda: G.int8_matmul_bf16(x, w8, s, **kw)
+        key = f"K7 {label}, {n} rows"
+        if run(key, k7, flop) and n == 480 and "wgu" in label:
+            res["host_us"][key] = host_us(k7)
+        run(f"K7i4 {label}, {n} rows",
+            lambda: G.int4_matmul_bf16(x, w4, s, **kw), flop)
+        del w8, w4
 
     for name, label, din, dout, n, zeros in F32_SHAPES:
         x = act(n, din)
@@ -207,8 +230,7 @@ def worker(root: str, seed: int, repeats: int) -> dict:
                     "K3": lambda: G.int4_matmul(x, w, s),
                     "K4": lambda: G.int8_matmul(x, w, s, z),
                     "K5": lambda: G.int8_ln_matmul(x, w, s, ln, 1e-5)}[name]
-        run(f"{name} {label}, {n} rows", call)
-        if name == "K2" and n == 11:
+        if run(f"{name} {label}, {n} rows", call) and name == "K2" and n == 11:
             res["host_us"][f"K2 {label}, {n} rows"] = host_us(call)
         del w
     return res
@@ -221,11 +243,13 @@ def main():
                         os.path.abspath(__file__))))])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--repeats", type=int, default=20)
+    ap.add_argument("--only", default="",
+                    help="time only the shapes whose key matches this regex")
     ap.add_argument("--worker", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.worker:
-        print(json.dumps(worker(args.worker, args.seed, args.repeats)),
-              flush=True)
+        print(json.dumps(worker(args.worker, args.seed, args.repeats,
+                                args.only)), flush=True)
         return
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -236,7 +260,8 @@ def main():
         out = subprocess.run(
             [sys.executable, os.path.abspath(__file__), "--worker",
              os.path.abspath(root), "--seed", str(args.seed), "--repeats",
-             str(args.repeats)], capture_output=True, text=True)
+             str(args.repeats), "--only", args.only], capture_output=True,
+            text=True)
         if out.returncode:
             sys.exit(f"{root}: exit {out.returncode}\n{out.stderr[-4000:]}")
         runs.append(json.loads(out.stdout.strip().splitlines()[-1]))
@@ -244,13 +269,17 @@ def main():
     for root in dict.fromkeys(os.path.abspath(r) for r in args.roots):
         print(json.dumps({"root": root, "ptxas": ptxas_info(root)}),
               flush=True)
-    table, host = {}, {}
+    table, host, rate = {}, {}, {}
     for r in runs:
         for key, ms in r["ms"].items():
             table.setdefault(key, {}).setdefault(r["root"], []).append(ms)
+            if key in r["flop"]:
+                rate.setdefault(key, {}).setdefault(r["root"], []).append(
+                    r["flop"][key] / ms / 1e9)
         for key, us in r.get("host_us", {}).items():
             host.setdefault(key, {}).setdefault(r["root"], []).append(us)
     print(json.dumps({"host_us_by_root": host}), flush=True)
+    print(json.dumps({"tflops_by_root": rate}), flush=True)
     print(json.dumps({"medians_ms_by_root": table}), flush=True)
 
 

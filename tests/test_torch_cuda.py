@@ -1,8 +1,9 @@
 """The port's CUDA kernels on the card: each wrapper against its plain
 version (K1-K8, K7i4; K1, K3, K4 and K5 at every row tiling of their
 tensor-core kernel; K2 and K6, its products in one call, at 1-32 rows,
-split and unsplit, with a ragged width), a row's bits independent of the
-row count, the
+split and unsplit, with a ragged width; K7's pre-pass, and K7 at ragged
+widths, both block heights and 1-4 k-slices a group), a row's bits
+independent of the row count, the
 dequantize-then-dot route above 128 rows (no kernel, near the plain
 result), and greedy spec == AR through the kernels. Marked `cuda`; each test skips when no card is present
 (decided in a fixture, never at import). Run on the card with
@@ -300,6 +301,84 @@ def test_k7_int8_zeros_matches_plain(dev, n):
     _close(G.int8_matmul_bf16(x, w8, s8, z8),
            G.int8_matmul_plain(x, w8, s8, z8, bf16_operands=True),
            torch.bfloat16)
+
+
+def _k7_case(g, dev, din, dout, groups, zeros, f32_scales=False):
+    w8 = torch.empty((din, dout), dtype=torch.int8, device=dev)
+    w8.random_(-128, 128, generator=g)
+    s8 = torch.rand((groups, dout), generator=g, device=dev) * 1e-2 + 1e-3
+    s8 = s8 if f32_scales else s8.to(torch.bfloat16)
+    z8 = (torch.randn((groups, dout), generator=g, device=dev) * 4
+          if zeros else None)
+    return w8, s8, z8
+
+
+@pytest.mark.parametrize("n", [129, 480, 1024])
+def test_k7_stage_matches_plain(dev, n):
+    """K7's pre-pass against k7_stage_plain: the inverse RMS within 2^-21
+    (the summation order), xn = bf16((x * inv) * ln) bit for bit from the
+    kernel's own inv, and within one bf16 step of the plain xn."""
+    g = torch.Generator(device=dev).manual_seed(11 + n)
+    x = torch.randn((n, 4096), generator=g, device=dev).to(torch.bfloat16)
+    ln = torch.rand(4096, generator=g, device=dev) + 0.5
+    inv, xn = G.k7_stage(x, ln, 1e-5)
+    pinv, pxn = G.k7_stage_plain(x, ln, 1e-5)
+    assert ((inv - pinv).abs() <= 2.0 ** -21 * pinv).all()
+    assert torch.equal(xn, ((x.float() * inv[:, None]) * ln).to(torch.bfloat16))
+    step = 2.0 ** (torch.floor(torch.log2(pxn.float().abs())) - 7)
+    assert ((xn.float() - pxn.float()).abs() <= step).all()
+
+
+@pytest.mark.parametrize("zeros", [False, True])
+@pytest.mark.parametrize("dout", [300, 1001])
+@pytest.mark.parametrize("n", [129, 480, 1024])
+def test_k7_ragged_matches_plain(dev, n, dout, zeros):
+    """K7 against its plain version at a dout that is not a multiple of 16
+    (4-byte weight copies) and one that is not a multiple of 4 (byte
+    copies), with and without zero points (f32 scales with them), and with
+    the fused norm where the weight is symmetric; one launch a call."""
+    g = torch.Generator(device=dev).manual_seed(3 * n + dout + int(zeros))
+    x = torch.randn((n, 1024), generator=g, device=dev).to(torch.bfloat16)
+    ln = torch.rand(1024, generator=g, device=dev) + 0.5
+    w8, s8, z8 = _k7_case(g, dev, 1024, dout, 8, zeros, f32_scales=zeros)
+    before = G.int8_matmul_bf16.launches
+    _close(G.int8_matmul_bf16(x, w8, s8, z8),
+           G.int8_matmul_plain(x, w8, s8, z8, bf16_operands=True),
+           torch.bfloat16)
+    calls = 1
+    if not zeros:
+        _close(G.int8_matmul_bf16(x, w8, s8, ln=ln, eps=1e-6),
+               G.int8_ln_matmul_plain(x, w8, s8, ln, 1e-6,
+                                      bf16_operands=True), torch.bfloat16)
+        calls += 1
+    assert G.int8_matmul_bf16.launches == before + calls
+
+
+@pytest.mark.parametrize("gs", [64, 128, 256])
+def test_k7_row_bits_across_rows_and_heights(dev, gs):
+    """A row's K7 bits at 129, 480 and 1024 rows, for groups of one, two
+    and four k-slices: plain, with the fused norm, and with zero points;
+    and the same with 128- and 256-row blocks (zero points: 128 only)."""
+    g = torch.Generator(device=dev).manual_seed(gs)
+    x = torch.randn((1024, 1024), generator=g, device=dev).to(torch.bfloat16)
+    ln = torch.rand(1024, generator=g, device=dev) + 0.5
+    w8, s8, z8 = _k7_case(g, dev, 1024, 896, 1024 // gs, True)
+    for kw in ({}, {"ln": ln, "eps": 1e-6}, {"zeros": z8}):
+        full = G.int8_matmul_bf16(x, w8, s8, **kw)
+        for n in (129, 480):
+            assert torch.equal(G.int8_matmul_bf16(x[:n], w8, s8, **kw),
+                               full[:n]), (n, kw.keys())
+        if "zeros" in kw:       # zero points take 128-row blocks only
+            with pytest.raises(RuntimeError, match="shape not supported"):
+                G._k7(x, w8, s8, z8, None, 0.0, block_rows=256)
+            continue
+        for n in (129, 480, 1024):
+            tall = G._k7(x[:n], w8, s8, None, kw.get("ln"), kw.get("eps", 0.0),
+                         block_rows=256)
+            assert torch.equal(G._k7(x[:n], w8, s8, None, kw.get("ln"),
+                                     kw.get("eps", 0.0), block_rows=128),
+                               tall), (n, kw.keys())
+            assert torch.equal(tall, full[:n]), (n, kw.keys())
 
 
 def test_k7i4_row_bits_independent_of_row_count(dev):
