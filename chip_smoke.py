@@ -102,10 +102,13 @@ Phases (any failure exits nonzero, with no result line):
  11. int4 eagle kernels  the int8 pair is freed; the same EAGLE pair with a
                packed-int4 trunk and head (big_bits 4) is built; K7i4 (bf16
                tensor-core operands on packed int4) at 129 and 480 rows on
-               wqkv and wgu with the norm, wo, wdown and the head, and K1/K3
-               at the prefill's 64 rows and the head at 1 row, against their
-               plain versions, timed as in phase 4; a row's bits at 129 vs
-               480 rows; an asymmetric int4 and int8 weight through the
+               wqkv and wgu with the norm, wo, wdown and the head, each with
+               its TFLOP/s and its share of the bound, and K1/K3 at the
+               prefill's 64 rows and the head at 1 row, against their plain
+               versions, timed as in phase 4; K7i4's pre-pass (the inverse
+               RMS, the normed bf16 rows and the group sums of the unrounded
+               ones) against its plain version at 129 and 480 rows; a row's
+               bits at 129 vs 480 rows; an asymmetric int4 and int8 weight through the
                bf16 route (apply_linear) vs plain; K7 (int8) launches only
                for the int8 weight, K7i4 never at 128 rows; at 129 rows
                without mxu_bf16, route A on wqkv and wgu with the norm and
@@ -1484,6 +1487,35 @@ def int4_eagle_kernel_phase(target, cfg):
     log(f"int4 eagle kernels: K7i4 gives the same bits for a row at 129 and "
         f"{rows} rows, with and without the norm")
 
+    # K7i4's pre-pass against its plain version: phase 8's checks of the
+    # inverse RMS and the normed rows, and the group sums of the unrounded
+    # normed rows, which the correction takes, within 1e-6 of their
+    # absolute sums of the same sums on the kernel's own inv (summation
+    # order) and within 1e-5 of the plain version's (its inv)
+    groups = w.scales.shape[-2]
+    for n in (G.BF16_MIN_ROWS, rows):
+        inv, xn, xg = G.k7_stage(x[:n], ln[0], eps, groups=groups)
+        pinv, pxn, pxg = G.k7_stage_plain(x[:n], ln[0], eps, groups=groups)
+        torch.cuda.synchronize()
+        inv_err = ((inv - pinv).abs() / pinv).max().item()
+        xs = (x[:n].float() * inv[:, None]) * ln[0]
+        exact = torch.equal(xn, xs.to(torch.bfloat16))
+        grouped = xs.reshape(n, groups, -1)
+        mag = grouped.abs().sum(-1)
+        own_err = ((xg - grouped.sum(-1)).abs() / mag).max().item()
+        plain_err = ((xg - pxg).abs() / mag).max().item()
+        if not (inv_err <= 2.0 ** -21 and exact and own_err <= 1e-6
+                and plain_err <= 1e-5):
+            raise AssertionError(f"K7i4 pre-pass at {n} rows: inv rel error "
+                                 f"{inv_err}, xn exact from its inv {exact}, "
+                                 f"xg rel error {own_err} (own inv), "
+                                 f"{plain_err} (plain)")
+        log(f"int4 eagle kernels: K7i4 pre-pass at {n} rows: inv rel error "
+            f"{inv_err:.2e} (tol {2.0 ** -21:.2e}), xn == bf16((x * inv) * "
+            f"ln) from its own inv, xg rel error {own_err:.2e} on its inv "
+            f"(tol 1e-6), {plain_err:.2e} against the plain version's (tol "
+            "1e-5)")
+
     def case(name, label, w: QuantizedLinear, n, norm):
         quant_case(name, label, w, n, act, ln if norm else None, eps)
 
@@ -1494,6 +1526,11 @@ def int4_eagle_kernel_phase(target, cfg):
         case("K7i4", "wo 4096x4096", big["wo"], n, False)
         case("K7i4", "wdown 14336x4096", big["wdown"], n, False)
         case("K7i4", "lm_head 4096x128256", target.big.lm_head, n, False)
+    for r in KERNEL_ROWS:
+        if r["name"] == "K7i4":
+            log(f"K7i4 {r['label']:<28} n={r['n']:<3} "
+                f"{r['flops'] / r['ms'] / 1e9:.1f} TFLOP/s, "
+                f"{r['bound_ms'] / r['ms']:.3f} of the bound ({r['bound_by']})")
     log("int4 eagle kernels: K1 and K3 at the prefill's shapes")
     case("K1", "wqkv 4096x6144 +norm", big["wqkv"], EAGLE_BUCKET, True)
     case("K1", "wgu 4096x28672 +norm", big["wgu"], EAGLE_BUCKET, True)

@@ -103,15 +103,22 @@ def _bf16_weight(codes: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
     return _bf16_round(w.reshape(din, dout))
 
 
-def _correction(xf: torch.Tensor, scales: torch.Tensor,
-                zeros: Optional[torch.Tensor], offset: float) -> torch.Tensor:
-    """sum_g xg * (zero + offset) * scale in f32, xg the group sums of the
-    UNROUNDED f32 activations (gptq_pallas.py:515-525): the uniform -8 of
-    the unsigned nibbles (offset 8) and the zero points, which the
-    bf16-operand mode subtracts after its f32 accumulation."""
+def _group_sums(xf: torch.Tensor, groups: int) -> torch.Tensor:
+    """[n, groups] sums of the f32 activations over each group's rows."""
     n, din = xf.shape
-    g = scales.shape[0]
-    xg = xf.reshape(n, g, din // g).sum(-1)
+    return xf.reshape(n, groups, din // groups).sum(-1)
+
+
+def _correction(xf: torch.Tensor, scales: torch.Tensor,
+                zeros: Optional[torch.Tensor], offset: float,
+                xg: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """sum_g xg * (zero + offset) * scale in f32, xg the group sums of the
+    UNROUNDED f32 activations (gptq_pallas.py:515-525; given, or those of
+    xf): the uniform -8 of the unsigned nibbles (offset 8) and the zero
+    points, which the bf16-operand mode subtracts after its f32
+    accumulation."""
+    if xg is None:
+        xg = _group_sums(xf, scales.shape[0])
     z = offset if zeros is None else zeros.float() + offset
     return xg @ (z * scales.float())
 
@@ -123,17 +130,20 @@ def int4_ln_matmul_plain(x, qweight, scales, ln, eps, bf16_operands=False):
                              bf16_operands=bf16_operands).to(x.dtype)
 
 
-def int4_matmul_plain(x, qweight, scales, zeros=None, bf16_operands=False):
+def int4_matmul_plain(x, qweight, scales, zeros=None, bf16_operands=False,
+                      xg=None):
     """x @ deq(W), packed int4, f32 with one rounding at the end.
     bf16_operands: the mxu_bf16 mode of _kernel_int4 (gptq_pallas.py:
     157-169) and its correction (:515-526): bf16(x) @ bf16(nibble * scale)
     with the UNSIGNED nibble, f32 accumulation, then the f32 correction
-    sum_g xg * (zero + 8) * scale on the unrounded x, rounded once."""
+    sum_g xg * (zero + 8) * scale on the unrounded x, rounded once. xg: the
+    group sums to correct with in place of x's own (K7i4's pre-pass hands
+    the main kernel those of the unrounded normed rows with xn)."""
     xf = x.float()
     if not bf16_operands:
         return (xf @ dequantize_int4(qweight, scales, zeros)).to(x.dtype)
     y = (_bf16_round(xf) @ _bf16_weight(_nibbles(qweight), scales)
-         - _correction(xf, scales, zeros, 8.0))
+         - _correction(xf, scales, zeros, 8.0, xg))
     return y.to(x.dtype)
 
 
@@ -158,15 +168,21 @@ def int8_ln_matmul_plain(x, qweight, scales, ln, eps, bf16_operands=False):
                              bf16_operands=bf16_operands).to(x.dtype)
 
 
-def k7_stage_plain(x, ln, eps):
-    """K7's pre-pass: each row's inverse RMS inv [n] (f32) and its normed
-    activations xn = bf16((x * inv) * ln) [n, din], the bf16 operand that
-    int8_ln_matmul_plain(bf16_operands=True) rounds its f32 normed x to.
-    int8_matmul_plain(xn, bf16_operands=True) is that product, bit for
-    bit."""
+def k7_stage_plain(x, ln, eps, groups=None):
+    """K7's and K7i4's pre-pass: each row's inverse RMS inv [n] (f32) and
+    its normed activations xn = bf16((x * inv) * ln) [n, din], the bf16
+    operand that the ln forms (bf16_operands=True) round their f32 normed x
+    to; with `groups`, also the group sums xg [n, groups] of the unrounded
+    normed rows, which K7i4's correction takes. int8_matmul_plain(xn,
+    bf16_operands=True) is int8_ln_matmul_plain's product, and
+    int4_matmul_plain(xn, bf16_operands=True, xg=xg) int4_ln_matmul_plain's,
+    bit for bit."""
     xf = x.float()
     inv = _inv_rms(xf, eps)
-    return inv[:, 0], (xf * inv * ln.float()).to(torch.bfloat16)
+    xs = xf * inv * ln.float()
+    if groups is None:
+        return inv[:, 0], xs.to(torch.bfloat16)
+    return inv[:, 0], xs.to(torch.bfloat16), _group_sums(xs, groups)
 
 
 def attn_mlp_int4_plain(att, resid, wo, so, wgu, sg, wdown, sd, ln, eps):
@@ -482,17 +498,17 @@ def int8_ln_matmul(x: torch.Tensor, qweight: torch.Tensor,
 # y = bf16(prologue(x)) @ bf16(code * scale) - sum_g xg * (zero + off) *
 # scale, f32 accumulation, one rounding: codes as stored (int8, or the
 # UNSIGNED nibble with off = 8), xg the group sums of the unrounded f32
-# (normed) x. Both in csrc/gptq_mma.cu on mma.sync m16n8k16 bf16 tiles of
-# 128 x 128 outputs (K7 also 256 x 128) over k-slices of 64; at each
-# group's first k-slice the accumulators take that group's rank-1
-# correction, groups in order.
-# K7 (int8): a per-row pre-pass writes the normed rows once (with ln) or the
-# group sums (with zeros); the main kernel stages the bf16 rows and the raw
-# weight bytes in a cp.async ring and converts the next slice's weight
-# while the warps run the current slice's mma, one barrier a slice.
-# K7i4 (packed int4): the first template, which norms and converts in its
-# staging and re-converts the weight in every row tile. A packed k-slice
-# reads one nibble plane: a slice never straddles din/2.
+# (normed) x. One design for both in csrc/gptq_mma.cu: a per-row pre-pass
+# writes the normed rows once (with ln) and the group sums (with a
+# correction: zero points, or any packed weight); the main kernel stages
+# the bf16 rows and the raw weight bytes in a cp.async ring and converts
+# the next slice's weight while the warps run the current slice's mma.sync
+# m16n8k16 on bf16 tiles of 128 x 128 outputs (256 x 128 without a
+# correction), one barrier a slice; at each group's first k-slice the
+# accumulators take that group's rank-1 correction, groups in order. A
+# packed k-slice reads 64 byte rows of one nibble plane: a slice never
+# straddles din/2. K7i4's block converts on four warps of its own beside
+# eight mma warps, so the two overlap in each interval.
 # Bound: operations at the pool forward's 480 rows (Llama-3.1-8B wgu
 # 4096 x 28672: 113 GFLOP, ~0.11 ms at 989 TFLOP/s, against 118 MB of int8
 # or 59 MB of int4 weight, ~0.035 / 0.018 ms).
@@ -509,88 +525,72 @@ def _check_bf16_x(x, ln, zeros, din):
         _check(ln, "ln", (torch.float32,), (din,))
 
 
-def k7_block_rows(n: int, dout: int, sms: int, zeros: bool = False) -> int:
-    """K7's output rows per block: 256 (16 warps, one block an SM) where
-    256-row blocks keep at least half the card's SMs busy, else 128 (8
-    warps, two blocks an SM). A 256-row block converts each weight slice
-    once for twice the rows; on narrow grids (Llama-3.1-8B wo and wdown at
-    480 rows: 64 such blocks on 132 SMs) 128-row blocks measured faster.
-    With zero points 128 (one block an SM: the correction needs the
-    registers). A function of the shape and the card only: every output's
-    sum is the same at either height."""
+def k7_block_rows(n: int, dout: int, sms: int, zeros: bool = False,
+                  packed: bool = False) -> int:
+    """K7's and K7i4's output rows per block. K7: 256 (16 warps, one block
+    an SM) where 256-row blocks keep at least half the card's SMs busy,
+    else 128 (8 warps, two blocks an SM). A 256-row block converts each
+    weight slice once for twice the rows; on narrow grids (Llama-3.1-8B wo
+    and wdown at 480 rows: 64 such blocks on 132 SMs) 128-row blocks
+    measured faster. With zero points, and for K7i4, 128 (one block an SM:
+    the correction needs the registers). A function of the shape and the
+    card only: every output's sum is the same at either height."""
     blocks = -(-n // 256) * -(-dout // BLOCK_COLS)
-    return 256 if not zeros and 2 * blocks >= sms else 128
+    return 256 if not (zeros or packed) and 2 * blocks >= sms else 128
 
 
 def _k7(x, qweight, scales, zeros, ln, eps, block_rows=None):
+    """The C call behind K7 (int8 codes) and K7i4 (packed nibbles)."""
     n, din = x.shape
     dout = qweight.shape[-1]
+    packed = qweight.dtype == torch.uint8
     _check_bf16_x(x, ln, zeros, din)
-    _weight(qweight, scales, zeros, False, din, dout)
+    _weight(qweight, scales, zeros, packed, din, dout)
     dev = x.device
     groups = scales.shape[0]
     bm = block_rows or k7_block_rows(n, dout, _sm_count(dev.index or 0),
-                                     zeros is not None)
+                                     zeros is not None, packed)
     out = torch.empty((n, dout), dtype=x.dtype, device=dev)
     xn = (torch.empty((n, din), dtype=torch.bfloat16, device=dev)
           if ln is not None else None)
     xg = (torch.empty((n, groups), dtype=torch.float32, device=dev)
-          if zeros is not None else None)
+          if zeros is not None or packed else None)
     lib = _build.lib("gptq_mma")
     err = lib.hsd_k7(
-        _ptr(x), n, din, _ptr(qweight), dout, _ptr(scales), _bf16(scales),
-        _ptr(zeros), groups, _ptr(ln), float(eps), _ptr(xn), _ptr(xg), bm,
-        _ptr(out), torch.cuda.current_stream(dev).cuda_stream)
+        _ptr(x), n, din, _ptr(qweight), int(packed), dout, _ptr(scales),
+        _bf16(scales), _ptr(zeros), groups, _ptr(ln), float(eps), _ptr(xn),
+        _ptr(xg), bm, _ptr(out), torch.cuda.current_stream(dev).cuda_stream)
     if err:
-        raise RuntimeError(f"K7 (n={n}, din={din}, dout={dout}, "
-                           f"ln={ln is not None}, zeros={zeros is not None}, "
-                           f"rows a block {bm}): "
+        raise RuntimeError(f"{'K7i4' if packed else 'K7'} (n={n}, din={din}, "
+                           f"dout={dout}, ln={ln is not None}, "
+                           f"zeros={zeros is not None}, rows a block {bm}): "
                            f"{lib.hsd_mma_error_string(err).decode()}")
     return out
 
 
-def k7_stage(x: torch.Tensor, ln: torch.Tensor, eps: float):
-    """K7's pre-pass alone, for its check: (inv [n], xn [n, din] bf16) as
-    k7_stage_plain gives them. The K7 wrapper runs it inside its own C
-    call; this entry is not on any path and counts no launch."""
+def k7_stage(x: torch.Tensor, ln: torch.Tensor, eps: float,
+             groups: Optional[int] = None):
+    """K7's and K7i4's pre-pass alone, for its check: (inv [n], xn [n, din]
+    bf16), and with `groups` the group sums xg [n, groups] of the unrounded
+    normed rows, as k7_stage_plain gives them. The wrappers run it inside
+    their own C call; this entry is not on any path and counts no launch."""
     if not x.is_cuda:
-        return k7_stage_plain(x, ln, eps)
+        return k7_stage_plain(x, ln, eps, groups)
     n, din = x.shape
     _check_bf16_x(x, ln, None, din)
     inv = torch.empty((n,), dtype=torch.float32, device=x.device)
     xn = torch.empty((n, din), dtype=torch.bfloat16, device=x.device)
+    xg = (torch.empty((n, groups), dtype=torch.float32, device=x.device)
+          if groups is not None else None)
     lib = _build.lib("gptq_mma")
-    err = lib.hsd_k7_stage(_ptr(x), n, din, 1, _ptr(ln), float(eps),
-                           _ptr(inv), _ptr(xn), None,
+    err = lib.hsd_k7_stage(_ptr(x), n, din, groups or 1, _ptr(ln),
+                           float(eps), _ptr(inv), _ptr(xn), _ptr(xg),
                            torch.cuda.current_stream(x.device).cuda_stream)
     if err:
-        raise RuntimeError(f"K7 pre-pass (n={n}, din={din}): "
+        raise RuntimeError(f"K7 pre-pass (n={n}, din={din}, groups="
+                           f"{groups}): "
                            f"{lib.hsd_mma_error_string(err).decode()}")
-    return inv, xn
-
-
-def _mma_i4(x, qweight, scales, zeros, ln, eps):
-    n, din = x.shape
-    dout = qweight.shape[-1]
-    _check_bf16_x(x, ln, zeros, din)
-    _weight(qweight, scales, zeros, True, din, dout)
-    dev = x.device
-    groups = scales.shape[0]
-    out = torch.empty((n, dout), dtype=x.dtype, device=dev)
-    inv = (torch.empty((n,), dtype=torch.float32, device=dev)
-           if ln is not None else None)
-    xg = torch.empty((n, groups), dtype=torch.float32, device=dev)
-    lib = _build.lib("gptq_mma")
-    err = lib.hsd_gptq_mma(
-        _ptr(x), n, din, _ptr(qweight), 1, dout, _ptr(scales),
-        _bf16(scales), _ptr(zeros), groups, _ptr(ln), float(eps), _ptr(inv),
-        _ptr(xg), _ptr(out), torch.cuda.current_stream(dev).cuda_stream)
-    if err:
-        raise RuntimeError(f"GPTQ tensor-core kernel (n={n}, din={din}, "
-                           f"dout={dout}, packed=True, ln={ln is not None}"
-                           f", zeros={zeros is not None}): "
-                           f"{lib.hsd_mma_error_string(err).decode()}")
-    return out
+    return (inv, xn) if groups is None else (inv, xn, xg)
 
 
 def int8_matmul_bf16(x: torch.Tensor, qweight: torch.Tensor,
@@ -634,7 +634,7 @@ def int4_matmul_bf16(x: torch.Tensor, qweight: torch.Tensor,
             raise ValueError("the fused norm takes symmetric weights only")
         return int4_ln_matmul_plain(x, qweight, scales, ln, eps,
                                     bf16_operands=True)
-    out = _mma_i4(x, qweight, scales, zeros, ln, eps)
+    out = _k7(x, qweight, scales, zeros, ln, eps)
     int4_matmul_bf16.launches += 1
     return out
 

@@ -6,8 +6,9 @@ optional zero points; it drops into the same `apply_linear` call sites as a
 dense tensor. A quantized matmul takes a hand-written kernel
 (`ops/gptq_cuda.py`; on a CPU tensor the kernel's plain version) where the
 JAX package takes its Pallas kernel on its device (`kernel_route`), and
-every other product of more than 128 rows the reference's XLA route,
-dequantize-then-dot in plain PyTorch (`dequant_matmul`).
+every other product the reference's XLA route in plain PyTorch
+(`xla_matmul`: grouped f32 partial sums up to 64 rows, dequantize-then-dot
+above).
 """
 from __future__ import annotations
 
@@ -207,19 +208,18 @@ def kernel_route(w: QuantizedLinear, n: int, mxu_bf16: bool) -> bool:
     """Does an n-row product with `w` take a kernel? The port's form of the
     JAX package's on-device rule (`_use_pallas`, linear.py:193-225): the
     Pallas kernel takes the shape, and the call has at most 128 rows or
-    takes the bf16 operands. apply_linear sends every other call of more
-    than 128 rows to `dequant_matmul`; one of at most 128 rows whose shape
-    the kernels do not take still reaches its kernel, which raises on the
-    card."""
+    takes the bf16 operands. apply_linear sends every other call, at any
+    row count, to `xla_matmul`, as the reference sends it to
+    `_gptq_matmul_xla`."""
     return pallas_supported(w) and (n <= KERNEL_MAX_ROWS
                                     or bf16_route(w, n, mxu_bf16))
 
 
 def dequant_matmul(x: torch.Tensor, w: QuantizedLinear) -> torch.Tensor:
     """x @ dequantize(w, x.dtype) as one torch.matmul: the JAX package's
-    route for products of more than 128 rows that its kernel does not take
+    route for products of more than 64 rows that its kernel does not take
     (the `n_rows > 64` branch of `_gptq_matmul_xla`, linear.py:124-143,
-    168-170): the weight rounds to the activation dtype, as
+    168-170; `xla_matmul` below): the weight rounds to the activation dtype, as
     bf16((code - zero) * scale) in a bf16 model, and the dot accumulates in
     f32. XLA code in the reference, so plain PyTorch here, not a kernel: no
     launch counter. cuBLAS picks its algorithm by shape, so a row's bits
@@ -229,6 +229,41 @@ def dequant_matmul(x: torch.Tensor, w: QuantizedLinear) -> torch.Tensor:
         raise RuntimeError("dequant_matmul: an f32 product needs "
                            "torch.backends.cuda.matmul.allow_tf32 = False")
     return torch.matmul(x, dequantize(w, x.dtype))
+
+
+XLA_PARTIAL_MAX_ROWS = 64  # _gptq_matmul_xla's grouped-partials regime
+
+
+def xla_matmul(x: torch.Tensor, w: QuantizedLinear) -> torch.Tensor:
+    """x[n, din] @ w as the JAX package's XLA route computes it
+    (`_gptq_matmul_xla`, linear.py:146-182), for every call that takes no
+    kernel. Above 64 rows, `dequant_matmul`. At most 64 rows, the grouped
+    partial sums: part[n, g, dout] = x_g @ codes_g with the codes (packed
+    int4 unpacked to signed codes) in the activation dtype, which is exact,
+    accumulated in f32; times the f32 scales, less xsum_g * zero * scale
+    with zero points, summed over the groups and rounded once to x's dtype.
+    XLA code in the reference, so plain PyTorch here, not a kernel: no
+    launch counter. The f32 dot needs TF32 off (checked, not set)."""
+    n = x.shape[0]
+    if n > XLA_PARTIAL_MAX_ROWS:
+        return dequant_matmul(x, w)
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise RuntimeError("xla_matmul: the f32 partial sums need "
+                           "torch.backends.cuda.matmul.allow_tf32 = False")
+    codes = unpack_int4(w.qweight) if w.packed_int4 else w.qweight
+    din, dout = codes.shape
+    g = w.scales.shape[0]
+    # x_g in x's dtype, then f32: the products of the dtype's values, summed
+    # in f32 (preferred_element_type=f32)
+    xg = x.reshape(n, g, din // g).float()
+    c = codes.to(x.dtype).float().reshape(g, din // g, dout)
+    part = torch.bmm(xg.transpose(0, 1), c).transpose(0, 1)    # [n, g, dout]
+    scales = w.scales.float()
+    part = part * scales[None]
+    if w.zeros is not None:
+        xsum = xg.sum(-1)                                      # [n, g]
+        part = part - xsum[:, :, None] * (w.zeros.float() * scales)[None]
+    return part.sum(1).to(x.dtype)
 
 
 def apply_linear(w, x: torch.Tensor, b: Optional[torch.Tensor] = None,
@@ -242,11 +277,11 @@ def apply_linear(w, x: torch.Tensor, b: Optional[torch.Tensor] = None,
     kernel's activation read and stays f32 (K1 packed int4, K5 int8);
     everywhere else it norms first and rounds to the activation dtype, as
     the JAX package does (`linear.py:277-279`).
-    Routes, as the JAX package's on its device (`kernel_route`): at most
-    128 rows, the f32-operand kernels (K1, K3, K4, K5); 129-1024 rows with
-    mxu_bf16, the bf16-operand ones (below); every other product of more
-    than 128 rows, `dequant_matmul` (the norm first, rounded, then the
-    weight dequantized to the activation dtype and one dot). No call falls
+    Routes, as the JAX package's on its device (`kernel_route`): where the
+    Pallas kernel takes the shape, at most 128 rows the f32-operand kernels
+    (K1, K3, K4, K5) and 129-1024 rows with mxu_bf16 the bf16-operand ones
+    (below); every other product, at any row count, `xla_matmul` (the norm
+    first, rounded, then the reference's XLA arithmetic). No call falls
     from a kernel to that route.
     mxu_bf16: bf16 operands with f32 accumulation (`ModelConfig.
     gptq_mxu_bf16`), taken where the JAX auto route takes them on its
@@ -272,10 +307,10 @@ def apply_linear(w, x: torch.Tensor, b: Optional[torch.Tensor] = None,
         x2 = x.reshape(-1, x.shape[-1]).contiguous()
         n = x2.shape[0]
         sym = w.zeros is None
-        if n > KERNEL_MAX_ROWS and not kernel_route(w, n, mxu_bf16):
+        if not kernel_route(w, n, mxu_bf16):
             if ln is not None:
                 x2 = rms_norm(x2, ln, eps)
-            y = dequant_matmul(x2, w)
+            y = xla_matmul(x2, w)
         elif bf16_route(w, n, mxu_bf16):
             if ln is not None and not sym:
                 x2 = rms_norm(x2, ln, eps)

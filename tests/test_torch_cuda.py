@@ -2,10 +2,12 @@
 version (K1-K8, K7i4; K1, K3, K4 and K5 at every row tiling of their
 tensor-core kernel; K2 and K6, its products in one call, at 1-32 rows,
 split and unsplit, with a ragged width; K7's pre-pass, and K7 at ragged
-widths, both block heights and 1-4 k-slices a group), a row's bits
-independent of the row count, the
-dequantize-then-dot route above 128 rows (no kernel, near the plain
-result), and greedy spec == AR through the kernels. Marked `cuda`; each test skips when no card is present
+widths, both block heights and 1-4 k-slices a group; K7i4's pre-pass
+with its group sums, and K7i4 at ragged widths and 1-4 k-slices a group),
+a row's bits independent of the row count, the
+dequantize-then-dot route above 128 rows and the XLA route on shapes no
+kernel takes (no kernel, near the plain result), and greedy spec == AR
+through the kernels. Marked `cuda`; each test skips when no card is present
 (decided in a fixture, never at import). Run on the card with
 `python -m pytest tests/test_torch_cuda.py -q -m cuda`.
 
@@ -394,6 +396,113 @@ def test_k7i4_row_bits_independent_of_row_count(dev):
                                full[:n]), kw.keys()
 
 
+def _k7i4_case(g, dev, din, dout, gs, zeros, f32_scales=False):
+    w = torch.empty((din // 2, dout), dtype=torch.uint8, device=dev)
+    w.random_(0, 256, generator=g)
+    s = torch.rand((din // gs, dout), generator=g, device=dev) * 1e-2 + 1e-3
+    s = s if f32_scales else s.to(torch.bfloat16)
+    z = (torch.randn((din // gs, dout), generator=g, device=dev) * 3
+         if zeros else None)
+    return w, s, z
+
+
+@pytest.mark.parametrize("f32_scales", [False, True])
+@pytest.mark.parametrize("zeros", [False, True])
+@pytest.mark.parametrize("dout", [300, 1001])
+def test_k7i4_ragged_matches_plain(dev, dout, zeros, f32_scales):
+    """K7i4 against its plain version at a dout that is not a multiple of
+    16 (4-byte weight copies) and one that is not a multiple of 4 (byte
+    copies), with and without zero points, with f32 and bf16 scales, and
+    with the fused norm where the weight is symmetric; 129, 480 and 1024
+    rows; one launch a call."""
+    g = torch.Generator(device=dev).manual_seed(dout + 2 * zeros + f32_scales)
+    ln = torch.rand(1024, generator=g, device=dev) + 0.5
+    w, s, z = _k7i4_case(g, dev, 1024, dout, 128, zeros, f32_scales)
+    for n in (129, 480, 1024):
+        x = torch.randn((n, 1024), generator=g, device=dev).to(torch.bfloat16)
+        before = G.int4_matmul_bf16.launches
+        _close(G.int4_matmul_bf16(x, w, s, z),
+               G.int4_matmul_plain(x, w, s, z, bf16_operands=True),
+               torch.bfloat16)
+        calls = 1
+        if not zeros:
+            _close(G.int4_matmul_bf16(x, w, s, ln=ln, eps=1e-6),
+                   G.int4_ln_matmul_plain(x, w, s, ln, 1e-6,
+                                          bf16_operands=True), torch.bfloat16)
+            calls += 1
+        assert G.int4_matmul_bf16.launches == before + calls
+
+
+@pytest.mark.parametrize("gs", [64, 128, 256])
+def test_k7i4_row_bits_across_rows(dev, gs):
+    """A row's K7i4 bits at 129, 480 and 1024 rows, for groups of one, two
+    and four k-slices: plain, with the fused norm, and with zero points;
+    a 256-row block is refused (a packed weight always has a correction)."""
+    g = torch.Generator(device=dev).manual_seed(100 + gs)
+    x = torch.randn((1024, 1024), generator=g, device=dev).to(torch.bfloat16)
+    ln = torch.rand(1024, generator=g, device=dev) + 0.5
+    w, s, z = _k7i4_case(g, dev, 1024, 896, gs, True)
+    for kw in ({}, {"ln": ln, "eps": 1e-6}, {"zeros": z}):
+        full = G.int4_matmul_bf16(x, w, s, **kw)
+        for n in (129, 480):
+            assert torch.equal(G.int4_matmul_bf16(x[:n], w, s, **kw),
+                               full[:n]), (n, kw.keys())
+    with pytest.raises(RuntimeError, match="shape not supported"):
+        G._k7(x, w, s, None, None, 0.0, block_rows=256)
+
+
+@pytest.mark.parametrize("gs", [64, 128])
+@pytest.mark.parametrize("n", [129, 480, 1024])
+def test_k7i4_stage_matches_plain(dev, n, gs):
+    """K7i4's pre-pass against k7_stage_plain: the inverse RMS within 2^-21,
+    xn = bf16((x * inv) * ln) bit for bit from the kernel's own inv, and
+    the group sums xg of the unrounded normed rows within 1e-6 of their
+    absolute sums of the same sums on that inv (summation order), and of
+    the plain version's (its inv) within 1e-5."""
+    g = torch.Generator(device=dev).manual_seed(31 + n + gs)
+    x = torch.randn((n, 4096), generator=g, device=dev).to(torch.bfloat16)
+    ln = torch.rand(4096, generator=g, device=dev) + 0.5
+    inv, xn, xg = G.k7_stage(x, ln, 1e-5, groups=4096 // gs)
+    pinv, pxn, pxg = G.k7_stage_plain(x, ln, 1e-5, groups=4096 // gs)
+    assert ((inv - pinv).abs() <= 2.0 ** -21 * pinv).all()
+    xs = (x.float() * inv[:, None]) * ln
+    assert torch.equal(xn, xs.to(torch.bfloat16))
+    grouped = xs.reshape(n, -1, gs)
+    mag = grouped.abs().sum(-1)
+    assert ((xg - grouped.sum(-1)).abs() <= 1e-6 * mag).all()
+    assert ((xg - pxg).abs() <= 1e-5 * mag).all()
+
+
+def test_xla_route_on_unsupported_shapes(dev):
+    """apply_linear at most 128 rows on shapes no kernel takes (int8 groups
+    of 64 rows, a packed weight of out width 192) takes the reference's XLA
+    route (grouped f32 partials up to 64 rows, dequantize-then-dot above):
+    no kernel launches, and the result within the tolerance of the f32
+    plain version."""
+    g = torch.Generator(device=dev).manual_seed(41)
+    w8 = torch.empty((512, 256), dtype=torch.int8, device=dev)
+    w8.random_(-127, 128, generator=g)
+    s8 = torch.rand((8, 256), generator=g, device=dev) * 1e-2 + 1e-3
+    z8 = torch.randn((8, 256), generator=g, device=dev) * 4
+    w4, s4, z4 = _k7i4_case(g, dev, 512, 192, 128, True, f32_scales=True)
+    ln = torch.rand(512, generator=g, device=dev) + 0.5
+    cases = [QuantizedLinear(w8, s8, None), QuantizedLinear(w8, s8, z8),
+             QuantizedLinear(w4, s4, None), QuantizedLinear(w4, s4, z4)]
+    for n in (1, 11, 64, 65, 128):
+        for dtype in (torch.bfloat16, torch.float32):
+            x = torch.randn((n, 512), generator=g, device=dev).to(dtype)
+            for qw in cases:
+                plain = (G.int4_matmul_plain if qw.packed_int4
+                         else G.int8_matmul_plain)
+                for norm in (None, (ln, 1e-6)):
+                    reset_launches()
+                    got = apply_linear(qw, x, norm=norm, mxu_bf16=True)
+                    assert not any(launch_counts().values()), launch_counts()
+                    xs = G._rms_f32(x, ln, 1e-6) if norm else x
+                    _close(got, plain(xs, qw.qweight, qw.scales, qw.zeros),
+                           dtype)
+
+
 def test_row_bits_independent_of_row_count(dev):
     g = torch.Generator(device=dev).manual_seed(0)
     x = torch.randn((33, 1024), generator=g, device=dev).to(torch.bfloat16)
@@ -433,6 +542,15 @@ def test_wrappers_raise_on_bad_input(dev):
         G.int4_matmul_bf16(torch.randn((129, 512), device=dev).to(
             torch.bfloat16), w, s, torch.zeros((4, 256), device=dev),
             torch.ones(512, device=dev), 1e-6)
+    xb = torch.randn((129, 384), device=dev).to(torch.bfloat16)
+    w3, s3 = _q4(torch.Generator(device=dev).manual_seed(3), dev, 384, 256)
+    with pytest.raises(RuntimeError, match="shape not supported"):
+        G.int4_matmul_bf16(xb, w3, s3)      # K7i4: an odd group count
+    with pytest.raises(ValueError):          # a weight of other rows
+        G.int4_matmul_bf16(xb, w, s)
+    with pytest.raises(ValueError, match="aligned"):
+        off = torch.randn((129 * 512 + 1,), device=dev).to(torch.bfloat16)
+        G.int4_matmul_bf16(off[1:].view(129, 512), w, s)
 
 
 def test_greedy_spec_equals_ar_through_kernels(dev):

@@ -17,9 +17,14 @@ the product on xn that the main kernel computes.
   them), and one such flip moves an output by up to ~1e-4 of sum |x * w|.
   A bf16 x is given to the JAX side as the same values in f32, so both
   outputs are f32.
+* K7i4's pre-pass (`k7_stage_plain` with `groups`) also gives the group
+  sums xg of the unrounded normed rows: xn fed to
+  `int4_matmul_plain(bf16_operands=True)` with those xg in the correction
+  gives `int4_ln_matmul_plain(bf16_operands=True)` bit for bit, and xn's
+  own (rounded) sums do not.
 * `k7_block_rows`, K7's block height: 128 or 256 rows from the shape and
   the card only (256 where that grid keeps half the SMs busy; 128 with
-  zero points), the grid covering every row.
+  zero points or a packed weight), the grid covering every row.
 """
 import jax
 import jax.numpy as jnp
@@ -72,6 +77,36 @@ def test_k7_stage_feeds_the_fused_plain_bits(n, dtype, din):
                                           eps=EPS), fused)
 
 
+@pytest.mark.parametrize("gs", [64, 128])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("n", [129, 480])
+def test_k7i4_stage_feeds_the_fused_plain_bits(n, dtype, gs):
+    din, dout = 512, 384
+    rng = np.random.default_rng(20 * n + gs)
+    w = torch.from_numpy(rng.integers(0, 256, size=(din // 2, dout))
+                         .astype(np.uint8))
+    s = torch.from_numpy((np.abs(rng.standard_normal((din // gs, dout)))
+                          * 1e-2 + 1e-3).astype(np.float32)).to(torch.bfloat16)
+    x = torch.from_numpy(rng.standard_normal((n, din)).astype(np.float32))
+    x = x.to(dtype)
+    ln = torch.from_numpy((rng.random(din) + 0.5).astype(np.float32))
+    inv, xn, xg = G.k7_stage_plain(x, ln, EPS, groups=din // gs)
+    assert torch.equal(xn, G.k7_stage_plain(x, ln, EPS)[1])
+    assert xg.shape == (n, din // gs) and xg.dtype == torch.float32
+    # the sums of the normed rows before their rounding
+    xs = (x.float() * inv[:, None]) * ln
+    assert torch.equal(xg, xs.reshape(n, din // gs, gs).sum(-1))
+    split = G.int4_matmul_plain(xn.to(dtype), w, s, bf16_operands=True,
+                                xg=xg)
+    fused = G.int4_ln_matmul_plain(x, w, s, ln, EPS, bf16_operands=True)
+    assert split.dtype == fused.dtype == dtype
+    assert torch.equal(split, fused)
+    assert torch.equal(G.int4_matmul_bf16(x, w, s, ln=ln, eps=EPS), fused)
+    # the rounded rows' own sums are another correction
+    own = G.int4_matmul_plain(xn.to(dtype), w, s, bf16_operands=True)
+    assert not torch.equal(own, fused)
+
+
 @pytest.mark.parametrize("din", [256, 512])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("n", [129, 480])
@@ -118,6 +153,7 @@ def test_k7_block_rows(dout, sms):
         assert (bm == 256) == (2 * blocks256 >= sms)
         assert -(-n // bm) * bm >= n > (-(-n // bm) - 1) * bm
         assert G.k7_block_rows(n, dout, sms, zeros=True) == 128
+        assert G.k7_block_rows(n, dout, sms, packed=True) == 128
     # Llama-3.1-8B on 132 SMs: 256-row blocks where their grid keeps half
     # the SMs busy; wo and wdown at 480 rows (64 such blocks) and wqkv at
     # 129 (48) keep 128-row blocks, two an SM
