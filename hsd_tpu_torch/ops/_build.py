@@ -49,7 +49,7 @@ SIGNATURES = {
     },
     "flash_decode": {
         "hsd_flash_decode": (_I, [_P, _LL, _P, _P, _I, _P, _P, _I, _P, _P, _P,
-                                  _I, _I, _I, _I, _I, _I, _F, _P, _P, _P, _P]),
+                                  _I, _I, _I, _I, _I, _I, _F, _P, _P, _P]),
         "hsd_flash_error_string": (ctypes.c_char_p, [_I]),
     },
 }

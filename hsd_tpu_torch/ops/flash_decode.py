@@ -125,21 +125,31 @@ def flash_core_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 # K8 — replaces flash_decode._kernel (hsd_tpu/ops/flash_decode.py:49, the
 # pallas_call at :166). Bound: the K and V bytes of the S cache slots, read
 # once (14B at S = 4192: 2 x 4192 x 8 x 128 x 2 bytes = 17.2 MB, ~5.1 us at
-# 3.35 TB/s). Batch 1 gives only Hkv = 8 kv heads, so S is split into chunks
-# fixed by S alone and the chunks are combined in order by a second kernel
-# (csrc/flash_decode.cu): a query row's bits do not depend on T or on the
-# row count, and no atomics are used.
+# 3.35 TB/s). Batch 1 gives only Hkv kv heads, so S is split into chunks
+# fixed by (S, Hkv, d) alone. bf16 K/V take one launch of the tensor-core
+# kernel (csrc/flash_decode.cu: mma.sync over a cp.async ring of K/V tiles,
+# each chunk read once per 64 query rows, the chunks of a kv head one
+# cluster that combines them in order); f32 K/V the CUDA-core pair of
+# launches. A query row's bits do not depend on T or on the row count, and
+# no atomics are used.
 
 _DTYPES = (torch.float32, torch.bfloat16)
-KEYS_PER_TILE = 32      # csrc/flash_decode.cu kKeys
-MAX_CHUNKS = 32
+KEY_TILE = 64           # csrc/flash_decode.cu kTileKeys
+MAX_CHUNKS = 16         # csrc/flash_decode.cu kMaxChunks: the largest cluster
+# Clusters of the bf16 kernel (one block an SM) that an H100 SXM holds at
+# once, by cluster size 1..16 (cudaOccupancyMaxActiveClusters)
+RESIDENT_CLUSTERS = (132, 66, 39, 30, 22, 17, 15, 15, 9, 7, 7, 7, 7, 7, 7, 7)
 
 
-def chunk_for(S: int) -> int:
-    """Keys per S chunk: a multiple of the 32-key tile giving at most
-    MAX_CHUNKS chunks. Depends on S only."""
-    per = KEYS_PER_TILE * MAX_CHUNKS
-    return KEYS_PER_TILE * -(-S // per)
+def chunk_for(S: int, Hkv: int, d: int) -> int:
+    """Keys per S chunk: a multiple of the 64-key tile, with as many chunks
+    as the largest cluster of which the card holds Hkv at once (one cluster
+    a kv head; 9 at Hkv = 8, 16 at Hkv <= 7). Both head widths d run one
+    block an SM, so they share the table. Depends on S, Hkv and d only,
+    never on T or the row count."""
+    n = max((c for c, r in enumerate(RESIDENT_CLUSTERS, 1) if r >= Hkv),
+            default=1)
+    return KEY_TILE * -(-S // (KEY_TILE * n))
 
 
 def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -166,6 +176,9 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _check(v, "v", (q.dtype,), k.shape)
     if k.data_ptr() % 16 or v.data_ptr() % 16:
         raise ValueError("k, v: must start 16-byte aligned")
+    bf16 = q.dtype == torch.bfloat16
+    if bf16 and (q.data_ptr() % 16 or q.stride(0) % 8):
+        raise ValueError("q: bf16 rows must start 16-byte aligned")
     _check(q_index, "q_index", (torch.int64,), (T,))
     start = start.reshape(-1)[:1]
     _check(start, "start", (torch.int64,))
@@ -177,22 +190,24 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         cos2, sin2 = (r.reshape(T, d) for r in rope)
         _check(cos2, "cos2", (torch.float32,))
         _check(sin2, "sin2", (torch.float32,))
+        if bf16 and (cos2.data_ptr() % 16 or sin2.data_ptr() % 16):
+            raise ValueError("cos2, sin2: must start 16-byte aligned")
     rT = (H // Hkv) * T
-    chunk = chunk_for(S)
+    chunk = chunk_for(S, Hkv, d)
     n_chunks = -(-S // chunk)
     dev = q.device
-    ws_acc = torch.empty((n_chunks, Hkv, rT, d), dtype=torch.float32,
-                         device=dev)
-    ws_ml = torch.empty((n_chunks, Hkv, rT, 2), dtype=torch.float32,
-                        device=dev)
+    # f32: one allocation for the accumulators and the (max, denominator)
+    # pairs; bf16 combines the chunks on chip
+    ws = (None if bf16 else
+          torch.empty(n_chunks * Hkv * rT * (d + 2), dtype=torch.float32,
+                      device=dev))
     out = torch.empty((T, H, d), dtype=q.dtype, device=dev)
     ptr = lambda t: None if t is None else t.data_ptr()
     lib = _build.lib("flash_decode")
     err = lib.hsd_flash_decode(
-        ptr(q), q.stride(0), ptr(k), ptr(v), int(q.dtype == torch.bfloat16),
-        ptr(q_index), ptr(start), int(kv_length), ptr(attn_bias), ptr(cos2),
-        ptr(sin2), T, H, Hkv, d, S, chunk, d ** -0.5, ptr(ws_acc), ptr(ws_ml),
-        ptr(out),
+        ptr(q), q.stride(0), ptr(k), ptr(v), int(bf16), ptr(q_index),
+        ptr(start), int(kv_length), ptr(attn_bias), ptr(cos2), ptr(sin2), T,
+        H, Hkv, d, S, chunk, d ** -0.5, ptr(ws), ptr(out),
         torch.cuda.current_stream(dev).cuda_stream)
     if err:
         raise RuntimeError(f"flash-decode kernel (T={T}, H={H}, Hkv={Hkv}, "

@@ -17,11 +17,16 @@ in turns, on one CUDA card:
     wo on bf16 x, wgu + norm and wdown on f32 x (the tail's f32 x' and ff;
     the calls end in the plain split sum where the tail ends in its
     epilogue pass), with the host microseconds to enqueue one K2 call
-    (bursts of 20 calls from an idle queue, the median burst).
+    (bursts of 20 calls from an idle queue, the median burst);
+  * K8 (flash-decode attention, `csrc/flash_decode.cu`, bf16) at every
+    shape of `chip_smoke.ATTN_SHAPES` (the 0.5B draft, the 14B verify, the
+    8B EAGLE tree and prefill, 14B long context), raw q and with the fused
+    RoPE, with the host microseconds of one call at the draft's T = 1.
 
     python hsd_tpu_torch/tools/k7_ab.py                  # this checkout
     python hsd_tpu_torch/tools/k7_ab.py --roots A B B A  # checkouts in turns
     python hsd_tpu_torch/tools/k7_ab.py --only '^K7 '    # K7's shapes only
+    python hsd_tpu_torch/tools/k7_ab.py --only '^K8'     # K8's shapes only
 
 Each root runs in a process of its own (every checkout defines
 `hsd_tpu_torch`), builds its own kernels and prints one JSON line: the
@@ -29,8 +34,10 @@ device median ms of one call per shape (cold L2, CUDA events) and a sha256
 of each output. K7i4 is timed where the checkout has it. Weights are random
 codes with bf16 scales, one group per 128 input rows (the draft's case with
 f32 zeros too), and the activations random bf16, all made from --seed (the
-same draws, shape by shape, in every checkout). The
-registers and spills of each checkout's kernels (`nvcc -Xptxas -v`) follow,
+same draws, shape by shape, in every checkout); K8's queries, cache and
+bias come from a generator of their own, seeded from --seed and the
+shape. The registers and spills of each checkout's kernels (`nvcc -Xptxas
+-v`) follow,
 then the host microseconds by root, the K7 / K7i4 rates (TFLOP/s of 2 n din
 dout by root), and the last line is a table of each shape's medians by
 root. Imports torch only.
@@ -90,17 +97,27 @@ F32_SHAPES = (("K5", "wgu 4096x28672 +norm", 4096, 28672, 60, False),
               ("K2", "14B tail 5120/27648/13824", 5120, 27648, 1, False),
               ("K2", "14B tail 5120/27648/13824", 5120, 27648, 11, False),
               ("K6", "14B mlp 5120/27648/13824", 5120, 27648, 11, False))
+# (label, H, Hkv, d, T, S, kv_length, start, bias) of K8: chip_smoke.py's
+# ATTN_SHAPES (S 204 = the speculative path's cache, 189 = one EAGLE
+# request's, long context L + 64 slots at L = 1056, 2080, 4128)
+ATTN_SHAPES = (("0.5B draft", 14, 2, 64, 1, 204, 164, 3, None),
+               ("0.5B draft", 14, 2, 64, 2, 204, 164, 3, None),
+               ("14B verify", 40, 8, 128, 11, 204, 164, 3, None),
+               ("8B EAGLE tree", 32, 8, 128, 60, 189, 100, 0, "tree"),
+               ("8B EAGLE prefill", 32, 8, 128, 64, 189, 0, 0, "zero"),
+               *(("14B long context", 40, 8, 128, T, L + 64, L, 0, None)
+                 for L in (1056, 2080, 4128) for T in (1, 11)))
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3")
 KERNELS = re.compile(r"mma_kernel|i8_kernel|matvec_kernel|epilogue_kernel"
-                     r"|prep_kernel")
+                     r"|prep_kernel|flash_\w*kernel")
 
 
 def ptxas_info(root: str) -> dict:
-    """{source: {kernel: {registers, spill_stores}}} of the checkout's GPTQ
-    sources."""
+    """{source: {kernel: {registers, spill_stores}}} of the checkout's
+    sources (GPTQ and flash-decode)."""
     info = {}
     for src in sorted(glob.glob(os.path.join(root, "hsd_tpu_torch", "csrc",
-                                             "gptq*.cu"))):
+                                             "*.cu"))):
         with tempfile.TemporaryDirectory() as d:
             out = subprocess.run(
                 ["/usr/local/cuda/bin/nvcc", *NVCC_FLAGS, "-cubin", "-Xptxas",
@@ -123,9 +140,33 @@ def ptxas_info(root: str) -> dict:
     return info
 
 
+def k8_inputs(dev, seed: int, i: int, H, Hkv, d, T, S, kv_len, start, bias):
+    """chip_smoke.attention_case's draws, from a generator of their own."""
+    import torch
+    from hsd_tpu_torch.models.transformer import rope_tables
+
+    g = torch.Generator(device=dev).manual_seed(seed * 1000 + i)
+    q = (torch.randn((T, H, d), generator=g, device=dev) * 2).to(
+        torch.bfloat16)
+    k = torch.randn((S, Hkv, d), generator=g, device=dev).to(torch.bfloat16)
+    v = torch.randn((S, Hkv, d), generator=g, device=dev).to(torch.bfloat16)
+    qi = kv_len + torch.arange(T, device=dev)
+    st = torch.tensor([start], device=dev)
+    ab = None
+    if bias == "tree":          # node i attends to its ancestor chain
+        anc = torch.rand((T, T), generator=g, device=dev) < 0.6
+        anc = torch.tril(anc) | torch.eye(T, dtype=torch.bool, device=dev)
+        ab = torch.where(anc, 0.0, -1e30)
+    elif bias == "zero":
+        ab = torch.zeros((T, T), device=dev)
+    cos2, sin2 = rope_tables((qi - start)[None], d, 1e6)
+    return q, k, v, qi, st, ab, (cos2[0, :, 0], sin2[0, :, 0])
+
+
 def worker(root: str, seed: int, repeats: int, only: str) -> dict:
     sys.path.insert(0, root)
     import torch
+    from hsd_tpu_torch.ops import flash_decode as FD
     from hsd_tpu_torch.ops import gptq_cuda as G
 
     dev = torch.device("cuda")
@@ -189,7 +230,25 @@ def worker(root: str, seed: int, repeats: int, only: str) -> dict:
         torch.cuda.synchronize()
         return statistics.median(per)
 
+    wanted = lambda keys: any(keep.search(key) for key in keys)
+    for i, (label, H, Hkv, d, T, S, kv_len, start, bias) in enumerate(
+            ATTN_SHAPES):
+        keys = [f"K8 {label} {H}/{Hkv}/{d} T={T} S={S}" + r
+                for r in ("", " +rope")]
+        if not wanted(keys):
+            continue
+        q, k, v, qi, st, ab, rope = k8_inputs(dev, seed, i, H, Hkv, d, T, S,
+                                              kv_len, start, bias)
+        for key, rp in zip(keys, (None, rope)):
+            call = (lambda rp=rp: FD.flash_decode(q, k, v, qi, st, kv_len, ab,
+                                                  rp))
+            if run(key, call) and label == "0.5B draft" and T == 1:
+                res["host_us"][key] = host_us(call)
+        del q, k, v
+
     for label, din, dout, norm, n in MMA_SHAPES:
+        if not wanted([f"K7 {label}, {n} rows", f"K7i4 {label}, {n} rows"]):
+            continue
         x = act(n, din)
         ln = (torch.rand((din,), generator=gen, device=dev) + 0.5) if norm else None
         kw = {"ln": ln, "eps": 1e-5} if norm else {}
@@ -209,6 +268,8 @@ def worker(root: str, seed: int, repeats: int, only: str) -> dict:
         del w8, w4
 
     for name, label, din, dout, n, zeros in F32_SHAPES:
+        if not wanted([f"{name} {label}, {n} rows"]):
+            continue
         x = act(n, din)
         if "f32 x" in label:
             x = x.float()

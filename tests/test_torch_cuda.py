@@ -676,7 +676,11 @@ K8_CASES = [(1, 14, 2, 64, 204, 150, 3, False),      # 0.5B draft step
             (11, 40, 8, 128, 204, 150, 0, False),    # 14B verify
             (60, 32, 8, 128, 189, 100, 0, True),     # EAGLE tree
             (2, 8, 2, 64, 1000, 998, 5, True),
-            (11, 40, 8, 128, 4192, 4100, 0, False)]  # long context
+            (11, 40, 8, 128, 4192, 4100, 0, False),  # long context
+            (64, 32, 8, 128, 189, 0, 0, True),       # EAGLE prefill: 4 row tiles
+            (128, 8, 2, 64, 300, 160, 0, False),     # the gate's largest T
+            (3, 8, 2, 128, 1000, 990, 37, False),    # ragged S, start mid-tile
+            (2, 8, 2, 64, 40, 30, 0, True)]          # one chunk: a cluster of one
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
@@ -709,10 +713,24 @@ def test_k8_row_bits_independent_of_t(dev, fused_rope):
         assert torch.equal(one, full[t:t + 1])
 
 
-def test_k8_fully_masked_row_is_zero(dev):
-    q, k, v, _, st, _, _ = _attention_case(dev, torch.float32, 2, 4, 2, 64,
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k8_fully_masked_row_is_zero(dev, dtype):
+    q, k, v, _, st, _, _ = _attention_case(dev, dtype, 2, 4, 2, 64,
                                            128, 40, 8, False, 3)
     qi = torch.tensor([40, 6], device=dev)
     out = FD.flash_decode(q, k, v, qi, st, 40)
     assert torch.equal(out[1], torch.zeros_like(out[1]))
     assert out[0].abs().max() > 0.1
+
+
+def test_k8_repeat_call_same_bits(dev):
+    """Two calls at different shapes, then the first again: the same bits
+    (nothing of a call carries over to the next)."""
+    a = _attention_case(dev, torch.bfloat16, 11, 40, 8, 128, 1200, 1100, 0,
+                        False, 21)
+    b = _attention_case(dev, torch.bfloat16, 60, 32, 8, 128, 189, 100, 0,
+                        True, 22)
+    first = FD.flash_decode(*a[:5], 1100, None, a[6])
+    FD.flash_decode(*b[:5], 100, b[5])
+    again = FD.flash_decode(*a[:5], 1100, None, a[6])
+    assert torch.equal(first, again)
