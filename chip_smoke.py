@@ -61,6 +61,15 @@ Phases (any failure exits nonzero, with no result line):
   5e. long context  ms per decode step of the 14B int4 trunk at caches of
                1056, 2080 and 4128 tokens, T = 1 and 11, by the einsum path
                and by K8 (FLASH_DECODE = "always"), in turns
+  5f. striped  make_generate with the striped multidraft layout
+               (parallel=False, K 2: R = 11 rows), gamma 10, on phase 5's
+               pair: hsd, tokenwise and hsd_ref, one 64-token prompt and 64
+               new tokens each, with the launch counters zeroed before and
+               read after (K1, K3 and K4 must launch, K8 must not); tokens
+               in range, accepts in [0, gamma]; after one striped draft
+               block on the 11-row draft cache, every mirrored row's
+               entries before its activation step bitwise row 0's; hsd_ref
+               run twice with one seed gives identical streams
   6. greedy    temperature 0 on a 2-layer float32 pair built through the same
                kernels: the speculative stream must equal the AR stream; at
                full width only the common prefix length is printed
@@ -165,7 +174,9 @@ from hsd_tpu_torch.models.choices import (build_tree_buffers,
                                           eagle_config_for_tree, mc_sim_7b_63)
 from hsd_tpu_torch.models.eagle import (EagleConfig, init_eagle_params,
                                         quantize_eagle_params)
-from hsd_tpu_torch.engine.kvcache import init_cache
+from hsd_tpu_torch.engine.kvcache import init_cache, select_draft_row
+from hsd_tpu_torch.engine.speculative import _draft_block_striped
+from hsd_tpu_torch.ops.sampling import processor
 from hsd_tpu_torch.models import transformer
 from hsd_tpu_torch.models.transformer import (fuse_params, init_params,
                                               rope_tables)
@@ -191,6 +202,7 @@ SPEC_KERNELS = ("K1", "K2", "K3", "K4")    # phase 5's path
 SPEC_S = BUCKET + MAX_NEW + GAMMA + 2
 EAGLE_S = 64 + 64 + 59 + 2                 # one EAGLE request (phase 9f)
 ENGINE_NEW, ENGINE_GAMMA = 64, 4           # phase 5d
+STRIPED_K, STRIPED_NEW = 2, 64             # phase 5f: R = 1 + 10 * (2 - 1)
 LONG_LENS, LONG_ITERS = (1056, 2080, 4128), 10
 T0 = time.time()
 
@@ -760,6 +772,92 @@ def engines_phase(draft, target, cfg_s, cfg_b):
     log(f"engines: launches {counts}")
     if counts["K8"] <= 0:
         raise AssertionError("the engines did not launch K8")
+    out["counts"] = counts
+    return out
+
+
+def striped_phase(draft, target, cfg_s, cfg_b):
+    """Phase 5f: the striped multidraft layout at full width."""
+    fwd, ops = make_coupled_target(cfg_s, cfg_b)
+    prompt = (torch.arange(BUCKET, device=DEV) % 1000) + 10
+    R = 1 + GAMMA * (STRIPED_K - 1)
+
+    def gen_for(method):
+        eng = EngineConfig(verifier=VerifierConfig(
+            method=method, gamma=GAMMA, num_drafts=STRIPED_K,
+            parallel=False), max_new_tokens=STRIPED_NEW, temperature=1.0)
+        return make_generate(cfg_s, cfg_b, eng, target_forward=fwd,
+                             target_cache_ops=ops)
+
+    def seeded(seed):
+        return torch.Generator(device=DEV).manual_seed(seed)
+
+    # one striped draft block on the R-row draft cache: a row whose
+    # activation step is j was fed row 0's tokens through draft position
+    # j - 1, so its entries up to there must be row 0's bits (K4 on R rows
+    # is row-position-free). The prefill (route A, cuBLAS, 682 rows) is
+    # made row 0's first, as the engine's row select does after a block.
+    cache = init_cache(cfg_s, R, SPEC_S, DEV)
+    _, cache = transformer.forward(cfg_s, draft, prompt[None, :-2].expand(
+        R, BUCKET - 2), cache, skip_head=True)
+    same = all(torch.equal(c[:, r], c[:, 0]) for c in (cache.k, cache.v)
+               for r in range(1, R))
+    log(f"striped draft prefill ({R} x {BUCKET - 2} rows, route A): rows "
+        f"bitwise equal: {same}")
+    cache = select_draft_row(cache, 0)
+    toks, _, cache = _draft_block_striped(
+        cfg_s, draft, cache, prompt[-2], prompt[-1], GAMMA, STRIPED_K,
+        processor(1.0), seeded(40))
+    act = [0] + [j for j in range(GAMMA) for _ in range(STRIPED_K - 1)]
+    L = BUCKET - 2
+    differ = [r for r in range(1, R) if not (
+        torch.equal(cache.k[:, r, :L + 2 + act[r]],
+                    cache.k[:, 0, :L + 2 + act[r]])
+        and torch.equal(cache.v[:, r, :L + 2 + act[r]],
+                        cache.v[:, 0, :L + 2 + act[r]])
+        and torch.equal(toks[r, :act[r]], toks[0, :act[r]]))]
+    log(f"striped draft block on {R} rows: every mirrored row's tokens and "
+        f"cache entries before its activation step are row 0's bits: "
+        f"{not differ}")
+    if differ:
+        raise AssertionError(f"striped rows {differ} differ from row 0")
+    del cache
+    torch.cuda.synchronize()
+    reset_launches()
+    out = {}
+    for i, method in enumerate(("hsd", "tokenwise", "hsd_ref")):
+        t0 = time.perf_counter()
+        res = gen_for(method)(draft, target, prompt, BUCKET, seeded(50 + i))
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        stream = res.tokens[BUCKET:res.length]
+        acc = res.accepts[:res.blocks]
+        if not (res.ncommit >= 1 and int(stream.min()) >= 0
+                and int(stream.max()) < cfg_b.vocab_size):
+            raise AssertionError(f"striped {method}: bad stream")
+        if not (int(acc.min()) >= 0 and int(acc.max()) <= GAMMA):
+            raise AssertionError(f"striped {method}: accepts {acc.tolist()}")
+        be = float((acc.float() + 1).mean())
+        out[method] = dict(be=be, tokens=res.ncommit, blocks=res.blocks,
+                           secs=secs, stream=stream.tolist())
+        log(f"striped {method} (K {STRIPED_K}, {R} rows): BE {be:.4f}, "
+            f"{res.ncommit} tokens in {res.blocks} blocks ({secs:.2f}s, "
+            f"{res.ncommit / secs:.2f} tok/s), accepted per block "
+            f"{acc.tolist()}")
+    counts = launch_counts()
+    log(f"striped: launches {counts}")
+    for k in ("K1", "K3", "K4"):
+        if counts[k] <= 0:
+            raise AssertionError(f"striped: {k} was not launched")
+    if counts["K8"]:
+        raise AssertionError("striped: K8 launched on the default path")
+    res = gen_for("hsd_ref")(draft, target, prompt, BUCKET, seeded(52))
+    again = res.tokens[BUCKET:res.length].tolist()
+    digest = hashlib.sha256(str(again).encode()).hexdigest()[:16]
+    log(f"striped hsd_ref repeat with one seed: identical streams: "
+        f"{again == out['hsd_ref']['stream']} (sha256 {digest})")
+    if again != out["hsd_ref"]["stream"]:
+        raise AssertionError("striped hsd_ref: the repeat's stream differs")
     out["counts"] = counts
     return out
 
@@ -1792,6 +1890,7 @@ def main():
     opted = opted_in_main_path(draft, target, cfg_s, cfg_b, results)
     engines = engines_phase(draft, target, cfg_s, cfg_b)
     longctx = long_context_phase(target, cfg_b)
+    striped = striped_phase(draft, target, cfg_s, cfg_b)
     greedy_small()
 
     del draft, target
@@ -1886,6 +1985,9 @@ def main():
         for m in ("hsd_ref", "hsd"))
         + f"; eagle-3 head BE {eagle3['be']:.4f} {eagle3['tok_s']:.2f} "
         "tok/s")
+    log("striped (K 2, 11 rows): " + ", ".join(
+        f"{m} BE {striped[m]['be']:.4f}" for m in ("hsd", "tokenwise",
+                                                   "hsd_ref")))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -89,9 +89,14 @@ class VerifierConfig:
     """Which acceptance rule to run and its knobs.
 
     method: 'tokenwise' | 'blockwise' | 'hsd' | 'hsd_ref' | 'greedy'.
-    num_drafts: K independent drafts (parallel multidraft). 1 = one draft.
+    num_drafts: K drafts (multidraft). 1 = one draft.
     parallel: True = K independent full drafts with prefix-match gating.
-      The striped layout (False) is not ported yet.
+      False (K > 1) = the striped tree: R = 1 + gamma * (K - 1) draft rows,
+      the primary and gamma groups of K - 1 branch rows, group j mirroring
+      the primary through position j - 1 and sampling its own token at
+      position j; round b verifies row n_matches * (K - 1) + b, gated on
+      the accepted prefix still following the primary (exact for tokenwise
+      and hsd; hsd_ref keeps the reference's ungated rows).
     """
 
     method: str = "hsd"

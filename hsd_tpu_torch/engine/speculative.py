@@ -1,10 +1,16 @@
 """Speculative decode orchestration (port of `hsd_tpu/engine/speculative.py`).
 
-Each block: draft gamma tokens for each of the K parallel draft rows, one
-target forward over [last] + draft for all rows, a verifier, commit, O(1)
-KV rollback and the multidraft row select. The block loop runs in Python
-with ONE host sync per block (the verifier's result); the draft loop and
-the layer loop never wait for the device.
+Each block: draft gamma tokens for each of the R draft rows, one target
+forward over [last] + draft for all rows, a verifier, commit, O(1) KV
+rollback and the multidraft row select. The block loop runs in Python with
+ONE host sync per block (the verifier's result); the draft loop and the
+layer loop never wait for the device.
+
+Multidraft row layouts (VerifierConfig.parallel): parallel, R = K
+independent drafts; striped, R = 1 + gamma * (K - 1) rows, the primary
+draft and then gamma groups of K - 1 branch rows, group j mirroring the
+primary through position j - 1, sampling its own token at position j and
+following its own path after (`_draft_block_striped`).
 
 Cache invariants between blocks: the target holds committed-1 positions
 (the newest token is re-fed each block); the draft holds committed-2,
@@ -13,11 +19,11 @@ computed by the draft, so the first draft step re-feeds two tokens.
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
-from ..config import EngineConfig, ModelConfig
+from ..config import EngineConfig, ModelConfig, VerifierConfig
 from ..models import transformer
 from ..ops.sampling import processor, sample
 from ..verify import verify
@@ -64,6 +70,61 @@ def _draft_block(cfg: ModelConfig, params, cache: KVCache, last2, last1,
     return torch.stack(toks, dim=1), torch.stack(qs, dim=1), cache
 
 
+def _draft_block_striped(cfg: ModelConfig, params, cache: KVCache, last2,
+                         last1, gamma: int, num_drafts: int, proc,
+                         generator: Optional[torch.Generator],
+                         noise: Optional[torch.Tensor] = None):
+    """Striped-tree drafting over R = 1 + gamma * (K - 1) cache rows: every
+    row samples at every step, and a row whose activation step (0 for the
+    primary, j for group j) is later than the step takes row 0's sample
+    instead, so its tokens and KV stay bitwise row 0's with no copy.
+
+    noise: optional Gumbel draws [gamma, R, V] (step, row), else drawn from
+    `generator`. Returns (draft_tokens [R, gamma], q [R, gamma, V], cache
+    advanced)."""
+    R = cache.batch
+    dev = last1.device
+    act = torch.cat([torch.zeros((1,), dtype=torch.int64, device=dev),
+                     torch.arange(gamma, device=dev).repeat_interleave(
+                         num_drafts - 1)])
+
+    def pick(probs, j):
+        s = sample(probs, generator, None if noise is None else noise[j])
+        return torch.where(act > j, s[0], s)
+
+    tok01 = torch.stack([last2.expand(R), last1.expand(R)], dim=1)
+    logits0, cache = transformer.forward(cfg, params, tok01, cache)
+    probs = proc(logits0[:, 1])
+    tok = pick(probs, 0)
+    toks, qs = [tok], [probs]
+    for j in range(1, gamma):
+        logits, cache = transformer.forward(cfg, params, tok[:, None], cache)
+        probs = proc(logits[:, 0])
+        tok = pick(probs, j)
+        toks.append(tok)
+        qs.append(probs)
+    return torch.stack(toks, dim=1), torch.stack(qs, dim=1), cache
+
+
+def draft_rows(cfg: ModelConfig, params, cache: KVCache, last2, last1,
+               gamma: int, num_drafts: int, striped: bool, proc,
+               generator: Optional[torch.Generator]):
+    """One block's drafts in the engine's row layout."""
+    if striped:
+        return _draft_block_striped(cfg, params, cache, last2, last1, gamma,
+                                    num_drafts, proc, generator)
+    return _draft_block(cfg, params, cache, last2, last1, gamma, proc,
+                        generator)
+
+
+def draft_layout(v: VerifierConfig) -> Tuple[bool, int]:
+    """(striped, R): the verifier's row layout and the draft (and target)
+    cache rows of one request."""
+    striped = not v.parallel and v.num_drafts > 1
+    return striped, (1 + v.gamma * (v.num_drafts - 1) if striped
+                     else v.num_drafts)
+
+
 def final_length(host, length: int, P: int, max_new: int, eos: int) -> int:
     """Clamp the committed length to the token budget (a full block can
     overshoot it), then cut after the first EOS in the generated region of
@@ -77,19 +138,20 @@ def final_length(host, length: int, P: int, max_new: int, eos: int) -> int:
 
 def _commit_block(method: str, draft_toks, q, p, tokens: torch.Tensor,
                   length: int, dcache, tcache, generator, K: int,
-                  t_rollback=rollback, t_select=select_draft_row, tel=None):
+                  t_rollback=rollback, t_select=select_draft_row, tel=None,
+                  striped: bool = False):
     """Verify one block and commit it: write the committed tokens into
     `tokens` at `length`, roll the draft cache back to committed-2 and the
     target's to committed-1, and keep the winning draft row. `tel`, a
     [3, K, gamma] view, receives the block's telemetry. The block's one
     host sync. Returns (committed tokens as a host list, dcache, tcache)."""
+    kw = dict(generator=generator, num_drafts=K, striped=striped)
     if tel is not None:
-        res, tm = verify(method, draft_toks, q, p, generator=generator,
-                         num_drafts=K, return_telemetry=True)
+        res, tm = verify(method, draft_toks, q, p, return_telemetry=True,
+                         **kw)
         tel.copy_(torch.stack(tm))
     else:
-        res = verify(method, draft_toks, q, p, generator=generator,
-                     num_drafts=K)
+        res = verify(method, draft_toks, q, p, **kw)
     info = torch.cat([res.n_matches.view(1), res.draft_index.view(1),
                       res.tokens]).tolist()
     n_commit, row = info[0] + 1, info[1]
@@ -97,7 +159,7 @@ def _commit_block(method: str, draft_toks, q, p, tokens: torch.Tensor,
     new_length = length + n_commit
     dcache = rollback(dcache, new_length - 2)
     tcache = t_rollback(tcache, new_length - 1)
-    if K > 1:
+    if draft_toks.shape[0] > 1:
         dcache = select_draft_row(dcache, row)
         tcache = t_select(tcache, row)
     return info[2:2 + n_commit], dcache, tcache
@@ -126,10 +188,8 @@ def make_generate(cfg_draft: ModelConfig, cfg_target: ModelConfig,
         select(cache, row) -> cache
     """
     v = engine.verifier
-    if not v.parallel and v.num_drafts > 1:
-        raise NotImplementedError("striped multidraft is not ported yet")
     gamma, K = v.gamma, v.num_drafts
-    R = K
+    striped, R = draft_layout(v)
     method = v.method
     temp = processor(engine.temperature, engine.top_k, engine.top_p)
     max_new = engine.max_new_tokens
@@ -176,15 +236,16 @@ def make_generate(cfg_draft: ModelConfig, cfg_target: ModelConfig,
         while (not done and length + gamma + 1 <= S
                and len(accepts) < max_blocks and length - P < max_new):
             last = tokens[length - 1]
-            draft_toks, q, dcache = _draft_block(
+            draft_toks, q, dcache = draft_rows(
                 cfg_draft, params_draft, dcache, tokens[length - 2], last,
-                gamma, temp, generator)
+                gamma, K, striped, temp, generator)
             tgt_in = torch.cat([last.expand(R, 1), draft_toks], dim=1)
             tlogits, tcache = tfwd(params_target, tgt_in, tcache)
             committed, dcache, tcache = _commit_block(
                 method, draft_toks, q, temp(tlogits), tokens, length, dcache,
                 tcache, generator, K, t_rollback, t_select,
-                tel=None if tel is None else tel[:, len(accepts)])
+                tel=None if tel is None else tel[:, len(accepts)],
+                striped=striped)
             n_match = len(committed) - 1
             host[length:length + n_match + 1] = committed
             done = eos in committed

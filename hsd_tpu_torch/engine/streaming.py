@@ -1,7 +1,8 @@
 """Streaming speculative generation (port of `hsd_tpu/engine/streaming.py`):
 the blocks of make_generate, yielded one by one as host arrays of the
 newly committed tokens, for interactive serving. With the same generator
-the stream is make_generate's token stream cut into blocks.
+the stream is make_generate's token stream cut into blocks, in either
+multidraft row layout (parallel or striped, engine/speculative.py).
 """
 from __future__ import annotations
 
@@ -14,7 +15,7 @@ from ..config import EngineConfig, ModelConfig
 from ..models import transformer
 from ..ops.sampling import processor
 from .kvcache import init_cache
-from .speculative import _commit_block, _draft_block
+from .speculative import _commit_block, draft_layout, draft_rows
 
 
 def make_stream_generate(cfg_draft: ModelConfig, cfg_target: ModelConfig,
@@ -23,9 +24,8 @@ def make_stream_generate(cfg_draft: ModelConfig, cfg_target: ModelConfig,
     a Python generator of int64 numpy arrays: each block's committed tokens,
     until EOS (included) or the token budget."""
     v = engine.verifier
-    if not v.parallel and v.num_drafts > 1:
-        raise NotImplementedError("striped multidraft is not ported yet")
     gamma, K = v.gamma, v.num_drafts
+    striped, R = draft_layout(v)
     temp = processor(engine.temperature, engine.top_k, engine.top_p)
     max_new = engine.max_new_tokens
     eos = cfg_target.eos_token_id
@@ -36,11 +36,11 @@ def make_stream_generate(cfg_draft: ModelConfig, cfg_target: ModelConfig,
         dev = prompt.device
         P = prompt.shape[0]
         S = P + max_new + gamma + 2
-        start = torch.full((K,), P - int(prompt_len), dtype=torch.int64,
+        start = torch.full((R,), P - int(prompt_len), dtype=torch.int64,
                            device=dev)
-        dcache = init_cache(cfg_draft, K, S, dev).replace(start=start.clone())
-        tcache = init_cache(cfg_target, K, S, dev).replace(start=start.clone())
-        pk = prompt[None, :].expand(K, P)
+        dcache = init_cache(cfg_draft, R, S, dev).replace(start=start.clone())
+        tcache = init_cache(cfg_target, R, S, dev).replace(start=start.clone())
+        pk = prompt[None, :].expand(R, P)
         _, dcache = transformer.forward(cfg_draft, params_d, pk[:, :-2],
                                         dcache, skip_head=True)
         _, tcache = transformer.forward(cfg_target, params_t, pk[:, :-1],
@@ -50,15 +50,15 @@ def make_stream_generate(cfg_draft: ModelConfig, cfg_target: ModelConfig,
         length, produced = P, 0
         while produced < max_new:
             last = tokens[length - 1]
-            draft_toks, q, dcache = _draft_block(
+            draft_toks, q, dcache = draft_rows(
                 cfg_draft, params_d, dcache, tokens[length - 2], last, gamma,
-                temp, generator)
-            tgt_in = torch.cat([last.expand(K, 1), draft_toks], dim=1)
+                K, striped, temp, generator)
+            tgt_in = torch.cat([last.expand(R, 1), draft_toks], dim=1)
             tlogits, tcache = transformer.forward(cfg_target, params_t,
                                                   tgt_in, tcache)
             committed, dcache, tcache = _commit_block(
                 v.method, draft_toks, q, temp(tlogits), tokens, length,
-                dcache, tcache, generator, K)
+                dcache, tcache, generator, K, striped=striped)
             length += len(committed)
             chunk = committed[:max_new - produced]
             if eos in chunk:

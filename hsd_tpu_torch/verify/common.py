@@ -66,9 +66,11 @@ def normalize(probs: torch.Tensor, fallback: torch.Tensor) -> torch.Tensor:
                        fallback)
 
 
-def prefix_matches(draft_tokens: torch.Tensor, b: int, ind: torch.Tensor,
+def prefix_matches(draft_tokens: torch.Tensor, b, ind: torch.Tensor,
                    n: torch.Tensor) -> torch.Tensor:
-    """True iff draft b's first n tokens equal draft ind's first n tokens."""
+    """True iff draft b's first n tokens equal draft ind's first n tokens.
+    b is an int (the parallel layout's round) or a 0-d tensor (the striped
+    layout's data-dependent row); either indexes on the device."""
     gamma = draft_tokens.shape[1]
     pos = torch.arange(gamma, device=draft_tokens.device)
     same = draft_tokens[b] == draft_tokens[ind]

@@ -1,10 +1,14 @@
 """Hierarchical Speculative Decoding verification — the clever (smart-capping)
-single-pass form with multidraft reseeding (port of `hsd_tpu/verify/hsd.py`,
-parallel layout). See that module for the math; prefix products live in log
-space and the divergence is the scale-free r[k] * p[k, :] - q[k, :].
+single-pass form with multidraft reseeding (port of `hsd_tpu/verify/hsd.py`).
+See that module for the math; prefix products live in log space and the
+divergence is the scale-free r[k] * p[k, :] - q[k, :]. Row layouts as in
+verify/tokenwise.py: parallel (round b examines row b) or striped (row
+n * (K - 1) + b).
 
 frontier: 'capped' (exact, the default) or 'raw' (`hsd_ref`, the committed
-reference's raw joint ratio, biased by design).
+reference's raw joint ratio, biased by design). In the striped layout the
+capped frontier gates each round's row on the accepted prefix, which makes
+it exact; 'raw' keeps the reference's ungated rows.
 
 Noise bundle: {"u": [K, gamma], "u2": [K], "gumbel": [V]} — the JAX package
 draws them at fold_in(key, 3b), fold_in(key, 3b+1) and fold_in(key, 3K+2).
@@ -39,10 +43,11 @@ def verify_hsd(draft_tokens: torch.Tensor, q: torch.Tensor, p: torch.Tensor,
                noise: Optional[dict] = None,
                generator: Optional[torch.Generator] = None,
                num_drafts: int = 0, frontier: str = "capped",
-               return_telemetry: bool = False):
-    """HSD-clever verification over K parallel drafts. With
-    return_telemetry, returns (VerifyResult, Telemetry): per round, the
-    step-back probabilities of the window's valid positions and p_i, q_i."""
+               return_telemetry: bool = False, striped: bool = False):
+    """HSD-clever verification over K drafts, in the parallel or (striped)
+    the striped row layout. With return_telemetry, returns (VerifyResult,
+    Telemetry): per round, the step-back probabilities of the window's
+    valid positions and p_i, q_i."""
     R, gamma = draft_tokens.shape
     K = num_drafts if num_drafts else R
     V = p.shape[-1]
@@ -64,8 +69,15 @@ def verify_hsd(draft_tokens: torch.Tensor, q: torch.Tensor, p: torch.Tensor,
     tel = telemetry_zeros(K, gamma, dev) if return_telemetry else None
 
     for b in range(K):
-        active = (~done) & prefix_matches(draft_tokens, b, ind, n)
-        d_row, q_all, p_all = draft_tokens[b], q[b], p[b]
+        if striped:
+            row = row_id = torch.clamp(n * (K - 1) + b, 0, R - 1)
+        else:
+            row, row_id = b, scalar(b, i64, dev)
+        if striped and frontier != "capped":
+            active = ~done
+        else:
+            active = (~done) & prefix_matches(draft_tokens, row, ind, n)
+        d_row, q_all, p_all = draft_tokens[row], q[row], p[row]
         idx, valid = window_index(n, gamma)
         x = d_row[idx]
 
@@ -126,7 +138,7 @@ def verify_hsd(draft_tokens: torch.Tensor, q: torch.Tensor, p: torch.Tensor,
         new_log_jp = log_jp_prev[stop_row]
 
         n = torch.where(active, n_new, n)
-        ind = torch.where(active, scalar(b, i64, dev), ind)
+        ind = torch.where(active, row_id, ind)
         done = torch.where(active, full, done)
         resid_row = torch.where(active, new_resid, resid_row)
         log_jq_seed = torch.where(active, new_log_jq, log_jq_seed)

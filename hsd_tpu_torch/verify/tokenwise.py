@@ -1,10 +1,17 @@
 """Tokenwise (Leviathan et al.) verification with multidraft recursive
-reject sampling (port of `hsd_tpu/verify/tokenwise.py`, parallel layout).
+reject sampling (port of `hsd_tpu/verify/tokenwise.py`).
 
 Per position j: accept x_j iff u_j <= p_j / q_j; stop at the first
-rejection; resample from norm(max(p_n - q_n, 0)). Draft b > 0 continues
-only if its first n tokens match the accepted prefix, with the previous
-residual in place of the target row at the restart position.
+rejection; resample from norm(max(p_n - q_n, 0)). Round b > 0 continues
+only if its row's first n tokens match the accepted prefix, with the
+previous residual in place of the target row at the restart position.
+
+Row layouts: parallel, K independent full drafts and round b examines row
+b; striped, R = 1 + gamma * (K - 1) rows (the primary, then gamma groups of
+K - 1 branch rows, group j mirroring the primary through position j - 1)
+and round b examines row n * (K - 1) + b. The prefix gate is what keeps
+the striped layout exact: a branch row is conditioned on the primary's
+path, so it is valid only while the accepted prefix still follows it.
 
 Noise bundle: {"u": [K, gamma] uniforms, "gumbel": [V]} — the JAX package
 draws them at fold_in(key, 2b) and fold_in(key, 2K+1).
@@ -30,10 +37,12 @@ def tokenwise_noise(K: int, gamma: int, V: int,
 def verify_tokenwise(draft_tokens: torch.Tensor, q: torch.Tensor,
                      p: torch.Tensor, noise: Optional[dict] = None,
                      generator: Optional[torch.Generator] = None,
-                     num_drafts: int = 0, return_telemetry: bool = False):
-    """Tokenwise verification over K parallel drafts. With
-    return_telemetry, returns (VerifyResult, Telemetry): per round, the
-    step-back probabilities 1 - min(p_i / q_i, 1) and p_i, q_i."""
+                     num_drafts: int = 0, return_telemetry: bool = False,
+                     striped: bool = False):
+    """Tokenwise verification over K drafts, in the parallel or (striped)
+    the striped row layout. With return_telemetry, returns (VerifyResult,
+    Telemetry): per round, the step-back probabilities 1 - min(p_i / q_i,
+    1) and p_i, q_i."""
     R, gamma = draft_tokens.shape
     K = num_drafts if num_drafts else R
     V = p.shape[-1]
@@ -51,8 +60,12 @@ def verify_tokenwise(draft_tokens: torch.Tensor, q: torch.Tensor,
     tel = telemetry_zeros(K, gamma, dev) if return_telemetry else None
 
     for b in range(K):
-        active = (~done) & prefix_matches(draft_tokens, b, ind, n)
-        d_row, q_all, p_all = draft_tokens[b], q[b], p[b]
+        if striped:
+            row = row_id = torch.clamp(n * (K - 1) + b, 0, R - 1)
+        else:
+            row, row_id = b, scalar(b, i64, dev)
+        active = (~done) & prefix_matches(draft_tokens, row, ind, n)
+        d_row, q_all, p_all = draft_tokens[row], q[row], p[row]
         idx, valid = window_index(n, gamma)
         x = d_row[idx]
         q_rows = q_all[idx]
@@ -76,7 +89,7 @@ def verify_tokenwise(draft_tokens: torch.Tensor, q: torch.Tensor,
         new_resid = torch.where(full, p_all[gamma], new_resid)
 
         n = torch.where(active, n_new, n)
-        ind = torch.where(active, scalar(b, i64, dev), ind)
+        ind = torch.where(active, row_id, ind)
         resid = torch.where(active, new_resid, resid)
         has_resid = torch.where(active, ~full, has_resid)
         done = torch.where(active, full, done)

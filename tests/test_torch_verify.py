@@ -110,7 +110,8 @@ def _jax_fns(method, K):
 
 @pytest.mark.parametrize("method,K", [
     ("hsd", 1), ("hsd", 3), ("hsd_ref", 1), ("hsd_ref", 3),
-    ("tokenwise", 1), ("tokenwise", 3), ("blockwise", 1), ("greedy", 1)])
+    ("tokenwise", 1), ("tokenwise", 3), ("blockwise", 1), ("greedy", 1),
+    ("hsd", 11), ("tokenwise", 11)])
 def test_verifier_decisions_identical(method, K):
     fn, nz = _jax_fns(method, K)
     rng = np.random.default_rng(100 + 7 * K + len(method))
