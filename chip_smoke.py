@@ -70,8 +70,37 @@ Phases (any failure exits nonzero, with no result line):
                block on the 11-row draft cache, every mirrored row's
                entries before its activation step bitwise row 0's; hsd_ref
                run twice with one seed gives identical streams
+  5g. serving  SlotEngine in the reference's serving_0p5b configuration
+               (hsd, gamma 5, K 1, temperature 1.0, 48 new tokens at most; 8
+               slots, bucket 64, 4 pool blocks between admissions, 8
+               admissions a step) on phase 5's int8 0.5B draft and the
+               pair's bf16 0.5B trunk, 16 of the reference's 32 requests
+               (cut for time), after one warm request, with the launch
+               counters zeroed before and read after (K4 must launch; K1,
+               K2, K3 and K8 must not); every request's tokens in range and
+               within its budget, its accepts within [0, gamma] a block; BE
+               and tok/s printed; the run again with the same seed gives
+               identical streams; every served request must equal
+               make_generate on its own generator in the 8-slot bf16
+               engine whose target trunk runs one slot's rows a call
+               (make_generate's row count), and two in a 1-slot engine and
+               in the 8-slot engine on the pair's f32 image (f32
+               activations, TF32 off); make_generate_batched on 4 prompts
+               must equal per-request make_generate there; in bf16 with
+               the trunk over all 8 slots' rows a call, which cuBLAS
+               rounds differently, the agreement is printed. With --trace,
+               also the run's parts
+               timed apart (pool blocks, draft and target forwards, the
+               verifier, noise, prefills) and one profiled pool block
+               (device time by kernel, idle share)
+  5h. uad      make_uad_generate on the 48-layer 14B int4 trunk with a
+               char-level toy tokenizer pair and a context-repeat drafter,
+               64 new tokens, with the launch counters zeroed before and read
+               after (K1, K2 and K3 must launch, K8 must not)
   6. greedy    temperature 0 on a 2-layer float32 pair built through the same
-               kernels: the speculative stream must equal the AR stream; at
+               kernels: the speculative stream must equal the AR stream, and
+               so must every SlotEngine request and every make_generate_
+               batched row, at K 1 and at K 2 striped, and UAD's stream; at
                full width only the common prefix length is printed
   7. eagle weights  the 14B pair is freed; the EAGLE serving pair is built on
                the card: a 32-layer Llama-3.1-8B-geometry symmetric-int8
@@ -165,6 +194,9 @@ from hsd_tpu_torch.engine import (make_autoregressive, make_generate,
 from hsd_tpu_torch.engine.eagle_engine import (autotune_total_tokens,
                                                make_eagle_generate)
 from hsd_tpu_torch.engine.eagle_server import EagleSlotEngine
+from hsd_tpu_torch.engine.server import SlotEngine
+from hsd_tpu_torch.engine.speculative import make_generate_batched
+from hsd_tpu_torch.engine.uad import UadDrafter, make_uad_generate
 from hsd_tpu_torch.eval.synthetic import (build_coupled_eagle_pair,
                                           build_coupled_pair,
                                           init_quantized_params,
@@ -175,7 +207,7 @@ from hsd_tpu_torch.models.choices import (build_tree_buffers,
 from hsd_tpu_torch.models.eagle import (EagleConfig, init_eagle_params,
                                         quantize_eagle_params)
 from hsd_tpu_torch.engine.kvcache import init_cache, select_draft_row
-from hsd_tpu_torch.engine.speculative import _draft_block_striped
+from hsd_tpu_torch.engine.speculative import draft_rows
 from hsd_tpu_torch.ops.sampling import processor
 from hsd_tpu_torch.models import transformer
 from hsd_tpu_torch.models.transformer import (fuse_params, init_params,
@@ -185,6 +217,7 @@ from hsd_tpu_torch.ops import flash_decode as FD
 from hsd_tpu_torch.ops import gptq_cuda as G
 from hsd_tpu_torch.ops.linear import (QuantizedLinear, apply_linear,
                                       apply_mlp, quantize, rms_norm)
+from hsd_tpu_torch.tools import bench_main as BM
 
 DEV = torch.device("cuda")
 HBM_BYTES_S = 3.35e12       # H100 SXM device memory rate
@@ -203,6 +236,8 @@ SPEC_S = BUCKET + MAX_NEW + GAMMA + 2
 EAGLE_S = 64 + 64 + 59 + 2                 # one EAGLE request (phase 9f)
 ENGINE_NEW, ENGINE_GAMMA = 64, 4           # phase 5d
 STRIPED_K, STRIPED_NEW = 2, 64             # phase 5f: R = 1 + 10 * (2 - 1)
+SERVING_REQS = 16                          # phase 5g: cut from the row's 32
+UAD_NEW, UAD_GAMMA = 64, 4                 # phase 5h
 LONG_LENS, LONG_ITERS = (1056, 2080, 4128), 10
 T0 = time.time()
 
@@ -805,8 +840,8 @@ def striped_phase(draft, target, cfg_s, cfg_b):
     log(f"striped draft prefill ({R} x {BUCKET - 2} rows, route A): rows "
         f"bitwise equal: {same}")
     cache = select_draft_row(cache, 0)
-    toks, _, cache = _draft_block_striped(
-        cfg_s, draft, cache, prompt[-2], prompt[-1], GAMMA, STRIPED_K,
+    toks, _, cache = draft_rows(
+        cfg_s, draft, cache, prompt[-2], prompt[-1], GAMMA, STRIPED_K, True,
         processor(1.0), seeded(40))
     act = [0] + [j for j in range(GAMMA) for _ in range(STRIPED_K - 1)]
     L = BUCKET - 2
@@ -860,6 +895,303 @@ def striped_phase(draft, target, cfg_s, cfg_b):
         raise AssertionError("striped hsd_ref: the repeat's stream differs")
     out["counts"] = counts
     return out
+
+
+def serving_engine(draft, small, cfg_s, n_slots=BM.SRV_SLOTS, seed=0,
+                   target_forward=None):
+    """bench_main's serving_0p5b engine (bench.py:141-199), warmed."""
+    eng = EngineConfig(verifier=VerifierConfig(method="hsd",
+                                               gamma=BM.SRV_GAMMA),
+                       max_new_tokens=BM.SRV_NEW, temperature=1.0)
+    se = SlotEngine(cfg_s, cfg_s, eng, n_slots=n_slots,
+                    bucket=BM.SRV_BUCKET, params_d=draft, params_t=small,
+                    seed=seed, steps_per_dispatch=BM.SRV_MACRO,
+                    admit_batch=n_slots, target_forward=target_forward,
+                    device=DEV)
+    se.submit(BM.SRV_WARM_RID, [5] * 40, max_new=BM.SRV_WARM_NEW)
+    se.run_all()
+    torch.cuda.synchronize()
+    return se, eng
+
+
+def serve(se, reqs):
+    for rid, (p, mn) in enumerate(reqs):
+        se.submit(rid, p, max_new=mn)
+    done = se.run_all()
+    torch.cuda.synchronize()
+    return {r.rid: r for r in done}
+
+
+def trunk_slot_by_slot(cfg):
+    """SlotPool's target_forward protocol with the trunk run on one slot's
+    rows a call (R = 1: make_generate's row count), on views of the
+    pool's cache rows, so the ragged append writes the pool in place. An
+    admission's prefill (lengths None) is one request's rows already."""
+    def fwd(p, t, c, lengths, skip_head=False):
+        if lengths is None:
+            return transformer.forward(cfg, p, t, c, skip_head=skip_head)
+        logits = [transformer.forward(
+            cfg, p, t[b:b + 1], c.replace(k=c.k[:, b:b + 1],
+                                          v=c.v[:, b:b + 1],
+                                          start=c.start[b:b + 1]),
+            lengths=lengths[b:b + 1], skip_head=skip_head)[0]
+            for b in range(t.shape[0])]
+        return torch.cat(logits), c.replace(length=c.length + t.shape[1])
+    return fwd
+
+
+def reference_streams(draft, small, cfg, eng, reqs, rids, seed=0):
+    """make_generate on each request's bucketed prompt and the generator
+    SlotEngine.submit gives it (seed << 32 plus its id), with the engine's
+    budget (one cache length on both sides), cut to the request's own
+    budget: {rid: tokens}."""
+    gen = make_generate(cfg, cfg, eng)
+    P, out = BM.SRV_BUCKET, {}
+    for rid in rids:
+        ids, mn = reqs[rid][0][-P:], reqs[rid][1]
+        g = torch.Generator(device=DEV).manual_seed((seed << 32) + rid)
+        res = gen(draft, small, torch.tensor([0] * (P - len(ids)) + ids,
+                                             device=DEV), len(ids), g)
+        out[rid] = res.tokens[P:res.length].tolist()[:mn]
+    return out
+
+
+def agreeing(ref, served):
+    """The ids of the served requests whose tokens equal ref's."""
+    return sorted(rid for rid, r in served.items()
+                  if r.out_tokens == ref[rid])
+
+
+def serving_phase(draft, target, cfg_s, trace=False):
+    """Phase 5g: SlotEngine in bench.py's serving configuration on phase
+    5's draft and the pair's bf16 0.5B trunk."""
+    small = target.small
+    reqs = BM.serving_requests(cfg_s.vocab_size)[:SERVING_REQS]
+    se, eng = serving_engine(draft, small, cfg_s)
+    reset_launches()
+    t0 = time.perf_counter()
+    served = serve(se, reqs)
+    secs = time.perf_counter() - t0
+    counts = launch_counts()
+    if sorted(served) != list(range(len(reqs))):
+        raise AssertionError(f"serving: served {sorted(served)}")
+    for rid, r in served.items():
+        toks = r.out_tokens
+        if not (1 <= len(toks) <= reqs[rid][1] and all(
+                0 <= t < cfg_s.vocab_size for t in toks)):
+            raise AssertionError(f"serving: request {rid}'s tokens {toks}")
+        if not (0 <= r.accepts <= BM.SRV_GAMMA * r.blocks
+                and len(toks) <= r.accepts + r.blocks):
+            raise AssertionError(f"serving: request {rid}'s accepts "
+                                 f"{r.accepts} over {r.blocks} blocks")
+    n_tok = sum(len(r.out_tokens) for r in served.values())
+    blocks = sum(r.blocks for r in served.values())
+    be = (sum(r.accepts for r in served.values()) + blocks) / blocks
+    log(f"serving ({len(reqs)} requests, {BM.SRV_SLOTS} slots): BE {be:.4f} "
+        f"over {blocks} slot-blocks, {n_tok} tokens in {secs:.2f}s = "
+        f"{n_tok / secs:.2f} tok/s; launches {counts}")
+    if counts["K4"] <= 0:
+        raise AssertionError("serving: K4 was not launched")
+    for k in ("K1", "K2", "K3", "K8"):
+        if counts[k]:
+            raise AssertionError(f"serving: {k} launched")
+    streams = {rid: r.out_tokens for rid, r in served.items()}
+    se2, _ = serving_engine(draft, small, cfg_s)
+    again = {rid: r.out_tokens for rid, r in serve(se2, reqs).items()}
+    digest = hashlib.sha256(str(sorted(streams.items())).encode()
+                            ).hexdigest()[:16]
+    log(f"serving repeat with one seed: identical streams: "
+        f"{again == streams} (sha256 {digest})")
+    if again != streams:
+        raise AssertionError("serving: the repeat's streams differ")
+    # make_generate on each request's generator. cuBLAS rounds the bf16
+    # trunk's products by row count (8 slots x 6 rows a block here, 6 in
+    # make_generate), so the tokens are asserted where the trunk sees
+    # make_generate's rows: the same 8-slot engine with its trunk run slot
+    # by slot (every other part of the pool unchanged), a 1-slot engine;
+    # and at 8 slots on the f32 image of the pair (bf16 weights, f32
+    # activations, TF32 off: roundings ~1e-7, no sampled decision near
+    # enough to flip). The default bf16 8-slot agreement is printed
+    everyone = list(range(len(reqs)))
+    ref = reference_streams(draft, small, cfg_s, eng, reqs, everyone)
+    same8 = agreeing(ref, served)
+    slotwise, _ = serving_engine(draft, small, cfg_s,
+                                 target_forward=trunk_slot_by_slot(cfg_s))
+    same_sw = agreeing(ref, serve(slotwise, reqs))
+    one, _ = serving_engine(draft, small, cfg_s, n_slots=1)
+    same1 = agreeing(ref, serve(one, reqs[:2]))
+    cfg32 = dataclasses.replace(cfg_s, dtype=torch.float32)
+    se32, eng32 = serving_engine(draft, small, cfg32)
+    same32 = agreeing(reference_streams(draft, small, cfg32, eng32, reqs,
+                                        [0, 1]), serve(se32, reqs[:2]))
+    log(f"serving vs make_generate on each request's generator: the 8-slot "
+        f"bf16 engine with its trunk run slot by slot: requests {same_sw} "
+        f"of {len(reqs)} the same; of [0, 1]: 1-slot engine {same1}, 8-slot "
+        f"engine in f32 {same32}; the default 8-slot bf16 engine (its "
+        f"trunk over 8 slots' rows a call): {same8} (not asserted)")
+    if same_sw != everyone or same1 != [0, 1] or same32 != [0, 1]:
+        raise AssertionError("serving: a served request differs from "
+                             "make_generate")
+    same_b = {}
+    for name, cfg in (("bf16", cfg_s), ("f32", cfg32)):
+        same_b[name], bsecs, btoks = batched_vs_single(draft, small, cfg,
+                                                       reqs)
+        log(f"make_generate_batched ({name}, 4 prompts, {bsecs:.2f}s, "
+            f"{btoks} tokens): rows {same_b[name]} of [0, 1, 2, 3] equal "
+            f"make_generate on their generators"
+            + (" (not asserted)" if name == "bf16" else ""))
+    if same_b["f32"] != [0, 1, 2, 3]:
+        raise AssertionError("make_generate_batched != make_generate")
+    if trace:
+        trace_serving(draft, small, cfg_s, reqs)
+    return dict(be=be, tok_s=n_tok / secs, tokens=n_tok, blocks=blocks,
+                secs=secs, counts=counts, sha=digest, same8=same8,
+                same_slotwise=same_sw, same_batched=same_b["bf16"])
+
+
+def batched_vs_single(draft, small, cfg, reqs):
+    """make_generate_batched on the first 4 requests' prompts against
+    make_generate on each one's generator: the rows that agree, the
+    batched call's seconds and tokens."""
+    eng = EngineConfig(verifier=VerifierConfig(method="hsd",
+                                               gamma=BM.SRV_GAMMA),
+                       max_new_tokens=BM.SRV_NEW, temperature=1.0)
+    P = BM.SRV_BUCKET
+    prompts = torch.stack([torch.tensor(([0] * P + reqs[i][0])[-P:],
+                                        device=DEV) for i in range(4)])
+    plens = [len(reqs[i][0]) for i in range(4)]
+    t0 = time.perf_counter()
+    bres = make_generate_batched(cfg, cfg, eng)(
+        draft, small, prompts, plens,
+        [torch.Generator(device=DEV).manual_seed(60 + i) for i in range(4)])
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    gen = make_generate(cfg, cfg, eng)
+    same = []
+    for i in range(4):
+        res = gen(draft, small, prompts[i], plens[i],
+                  torch.Generator(device=DEV).manual_seed(60 + i))
+        n = int(bres.length[i])
+        if n == res.length and torch.equal(bres.tokens[i, :n],
+                                           res.tokens[:n]):
+            same.append(i)
+    return same, secs, int(bres.ncommit.sum())
+
+
+def trace_serving(draft, small, cfg_s, reqs):
+    """Where a serving pool's time goes: the 5g run again with each part
+    timed on the host clock between synchronizes (so the parts sum past
+    the untimed run): pool blocks, their draft and target forwards, the
+    vmapped verifier, the noise draws, the admissions' prefills; then one
+    pool block of 8 live slots under the profiler (device time by kernel,
+    idle share, ops)."""
+    from torch.profiler import ProfilerActivity, profile
+    import hsd_tpu_torch.engine.speculative as SP
+    spent, calls = {}, {}
+
+    def timed_part(name, fn):
+        def run(*a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            spent[name] = spent.get(name, 0.0) + (time.perf_counter() - t0)
+            calls[name] = calls.get(name, 0) + 1
+            return out
+        return run
+
+    se, _ = serving_engine(draft, small, cfg_s)
+    pool, fwd = se.pool, SP.transformer.forward
+
+    def forward(cfg, p, t, c, **k):
+        part = ("prefill forward" if k.get("lengths") is None else
+                "target forward" if t.shape[1] == BM.SRV_GAMMA + 1
+                else "draft forward")
+        return timed_part(part, fwd)(cfg, p, t, c, **k)
+
+    for name in ("block", "prefill", "_verify", "_draft_noise",
+                 "_verify_noise"):
+        setattr(pool, name, timed_part(name.strip("_"), getattr(pool, name)))
+    SP.transformer.forward = forward
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        blocks0 = se.pool_blocks
+        serve(se, reqs)
+        wall = time.perf_counter() - t0
+    finally:
+        SP.transformer.forward = fwd
+    log(f"trace serving ({len(reqs)} requests, parts timed apart): wall "
+        f"{wall * 1e3:.1f} ms, {se.pool_blocks - blocks0} pool blocks; "
+        + "; ".join(f"{n} {spent[n] * 1e3:.1f} ms over {calls[n]} "
+                    f"({spent[n] * 1e3 / calls[n]:.2f} each)"
+                    for n in sorted(spent)))
+    se, _ = serving_engine(draft, small, cfg_s)
+    for rid, (p, mn) in enumerate(reqs[:BM.SRV_SLOTS]):
+        se.submit(rid, p, max_new=mn)
+    se._admit()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        se._pool_step()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    rows = device_rows(prof)
+    busy = sum(r[0] for r in rows)
+    log(f"trace serving (one pool block, {BM.SRV_SLOTS} live slots, under "
+        f"the profiler): wall {wall_us / 1e3:.1f} ms, device busy "
+        f"{busy / 1e3:.2f} ms, idle share {1 - busy / wall_us:.3f}, "
+        f"{sum(r[1] for r in rows)} device ops")
+    for dev_us, count, key in rows[:8]:
+        log(f"  {dev_us / 1e3:9.3f} ms  x{count:<6} {key[:90]}")
+
+
+class CharTok:
+    """The toy char-level tokenizer of tests/test_uad.py: one letter a
+    token, ids 0-25."""
+
+    def decode(self, ids):
+        return "".join(chr((int(i) % 26) + 97) for i in ids)
+
+    def encode(self, s):
+        return [ord(c) - 97 for c in s if "a" <= c <= "z"]
+
+
+def uad_drafter():
+    """tests/test_uad.py's drafter: continue the text by repeating its
+    last three letters."""
+    tok = CharTok()
+    return tok, UadDrafter(tok, tok, lambda text, n: text[-3:][:n],
+                           chars_per_token=1)
+
+
+def uad_phase(target, cfg_b):
+    """Phase 5h: UAD on the 48-layer 14B int4 trunk."""
+    tok, drafter = uad_drafter()
+    eng = EngineConfig(verifier=VerifierConfig(method="tokenwise",
+                                               gamma=UAD_GAMMA),
+                       max_new_tokens=UAD_NEW, temperature=1.0)
+    prompt = tok.encode("thecatsatonthematandthedogsatonthelog" * 2)[:BUCKET]
+    gen = make_uad_generate(cfg_b, eng, drafter, device=DEV)
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    out = gen(target.big, prompt, torch.Generator(device=DEV).manual_seed(9))
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = launch_counts()
+    log(f"uad (14B int4 trunk, gamma {UAD_GAMMA}): {len(out)} tokens in "
+        f"{secs:.2f}s = {len(out) / secs:.2f} tok/s, of them "
+        f"{sum(0 <= t < 26 for t in out)} letters; launches {counts}")
+    if not (1 <= len(out) <= UAD_NEW
+            and all(0 <= t < cfg_b.vocab_size for t in out)):
+        raise AssertionError(f"uad: bad stream {out}")
+    for k in ("K1", "K2", "K3"):
+        if counts[k] <= 0:
+            raise AssertionError(f"uad: {k} was not launched")
+    if counts["K8"]:
+        raise AssertionError("uad: K8 launched on the default path")
+    return dict(tokens=len(out), secs=secs, counts=counts)
 
 
 def long_context_phase(target, cfg_b):
@@ -1228,6 +1560,59 @@ def greedy_small():
         raise AssertionError(f"greedy spec != greedy AR:\n{a}\n{b}")
     if min(used[k] for k in SPEC_KERNELS) <= 0:
         raise AssertionError(f"greedy config missed a kernel: {used}")
+    greedy_serving_small(cfg_s, draft, target)
+
+
+def greedy_serving_small(cfg, draft, target):
+    """Phase 6's pair at temperature 0: every SlotEngine request and every
+    make_generate_batched row equals AR, at K 1 and K 2 striped; and UAD."""
+    ar = make_autoregressive(cfg, EngineConfig(max_new_tokens=24,
+                                               temperature=0.0))
+    prompts = [[(7 * i + 13 * j) % 500 + 3 for j in range(6 + 2 * i)]
+               for i in range(6)]
+    budgets = [24, 5, 17, 24, 9, 12]
+    bucket = 16
+
+    def ar_stream(ids, n):
+        padded = torch.tensor([0] * (bucket - len(ids)) + ids, device=DEV)
+        toks, length = ar(target, padded, len(ids), None)
+        return toks[bucket:length].tolist()[:n]
+
+    want = [ar_stream(p, 24) for p in prompts]
+    for K, parallel, method in ((1, True, "greedy"), (2, False, "hsd")):
+        eng = EngineConfig(verifier=VerifierConfig(
+            method=method, gamma=4, num_drafts=K, parallel=parallel),
+            max_new_tokens=24, temperature=0.0)
+        se = SlotEngine(cfg, cfg, eng, n_slots=4, bucket=bucket,
+                        params_d=draft, params_t=target,
+                        steps_per_dispatch=2, device=DEV)
+        for rid, (p, mn) in enumerate(zip(prompts, budgets)):
+            se.submit(rid, p, max_new=mn)
+        done = {r.rid: r.out_tokens for r in se.run_all()}
+        ok_srv = all(done[i] == want[i][:budgets[i]] for i in range(6))
+        P = torch.stack([torch.tensor([0] * (bucket - len(p)) + p,
+                                      device=DEV) for p in prompts[:4]])
+        bres = make_generate_batched(cfg, cfg, eng)(
+            draft, target, P, [len(p) for p in prompts[:4]], [None] * 4)
+        ok_b = all(bres.tokens[i, bucket:int(bres.length[i])].tolist()
+                   == want[i] for i in range(4))
+        log(f"greedy 2-layer f32, {method} K {K} "
+            f"{'parallel' if parallel else 'striped'}: every SlotEngine "
+            f"request == AR: {ok_srv}; every make_generate_batched row == "
+            f"AR: {ok_b}")
+        if not (ok_srv and ok_b):
+            raise AssertionError(f"greedy serving != AR ({method} K {K})")
+    # UAD at temperature 0: one letter a token, the AR stream
+    tok, drafter = uad_drafter()
+    eng = EngineConfig(verifier=VerifierConfig(method="tokenwise", gamma=4),
+                       max_new_tokens=24, temperature=0.0)
+    ids = tok.encode("abcabdabcabd")
+    out = make_uad_generate(cfg, eng, drafter, device=DEV)(target, ids, None)
+    toks, length = ar(target, torch.tensor(ids, device=DEV), len(ids), None)
+    ok = out == toks[len(ids):length].tolist()
+    log(f"greedy 2-layer f32 UAD: {len(out)} tokens, == AR: {ok}")
+    if not ok:
+        raise AssertionError("greedy UAD != AR")
 
 
 def eagle_configs():
@@ -1891,6 +2276,8 @@ def main():
     engines = engines_phase(draft, target, cfg_s, cfg_b)
     longctx = long_context_phase(target, cfg_b)
     striped = striped_phase(draft, target, cfg_s, cfg_b)
+    spec_serving = serving_phase(draft, target, cfg_s, args.trace)
+    uad = uad_phase(target, cfg_b)
     greedy_small()
 
     del draft, target
@@ -1988,6 +2375,15 @@ def main():
     log("striped (K 2, 11 rows): " + ", ".join(
         f"{m} BE {striped[m]['be']:.4f}" for m in ("hsd", "tokenwise",
                                                    "hsd_ref")))
+    log(f"slot serving (5g): BE {spec_serving['be']:.4f} "
+        f"{spec_serving['tok_s']:.2f} tok/s, launches "
+        f"{spec_serving['counts']}; uad (5h): {uad['tokens']} tokens "
+        f"{uad['tokens'] / uad['secs']:.2f} tok/s, launches {uad['counts']}")
+    # each path's own launches: phase 5 (the "launches" key), 5g and 5h
+    for k in kernels:
+        k["launches_by_phase"] = {
+            "5": counts[k["name"]], "5g": spec_serving["counts"][k["name"]],
+            "5h": uad["counts"][k["name"]]}
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

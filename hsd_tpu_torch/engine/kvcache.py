@@ -8,10 +8,14 @@
   * rollback sets `length` lower: stale slots are dead because attention
     masks by index and later appends overwrite them;
   * multidraft row-select copies one batch row over the others, in place;
-  * the slot-batched EAGLE pool keeps per-row frontiers itself (a [B]
-    device tensor): its tree forward writes at a fixed staging tail and
-    `compact_path_staged` moves each row's accepted path to its frontier,
-    in place on the stacked buffers.
+  * the slot pools keep per-row frontiers beside the cache (a [B] device
+    tensor), since their rows commit different token counts: the
+    speculative pool (`speculative.SlotPool`) appends each row at its own
+    frontier (`append_layer_stacked_ragged`), rolls back by setting the
+    frontiers (`slot_frontiers`) and keeps each slot's winning row
+    (`select_rows`); the EAGLE pool's tree forward writes at a fixed
+    staging tail and `compact_path_staged` moves each row's accepted path
+    to its frontier, in place on the stacked buffers.
 """
 from __future__ import annotations
 
@@ -60,6 +64,24 @@ def append_layer_stacked(k_all: torch.Tensor, v_all: torch.Tensor, idx: int,
     T = k_new.shape[1]
     k_all[idx, :, length:length + T] = k_new.to(k_all.dtype)
     v_all[idx, :, length:length + T] = v_new.to(v_all.dtype)
+    return k_all, v_all
+
+
+def append_layer_stacked_ragged(k_all: torch.Tensor, v_all: torch.Tensor,
+                                idx: int, lengths: torch.Tensor,
+                                k_new: torch.Tensor, v_new: torch.Tensor):
+    """Per-row append into layer `idx` of the stacked cache, in place: row b
+    writes k_new[b] / v_new[b] [T, H_kv, D] at positions [lengths[b],
+    lengths[b] + T), one indexed write per buffer. Every position must lie
+    inside the buffer: PyTorch raises on (the card faults on) an
+    out-of-range index where JAX drops the write, so the caller keeps each
+    row's frontier at most S - T."""
+    B, T = k_new.shape[:2]
+    dev = k_all.device
+    b_ids = torch.arange(B, device=dev)[:, None].expand(B, T)
+    pos = lengths[:, None] + torch.arange(T, device=dev)[None, :]
+    k_all[idx, b_ids, pos] = k_new.to(k_all.dtype)
+    v_all[idx, b_ids, pos] = v_new.to(v_all.dtype)
     return k_all, v_all
 
 
@@ -118,6 +140,52 @@ def compact_path_staged(cache: KVCache, rel_indices: torch.Tensor,
 def rollback(cache: KVCache, new_length: int) -> KVCache:
     """Speculative rollback: truncate to `new_length` valid positions. O(1)."""
     return cache.replace(length=int(new_length))
+
+
+# the committed length of an empty slot (the JAX server's, server.py:419)
+EMPTY_LENGTH = 2
+
+
+def live_length(length: torch.Tensor, live: torch.Tensor) -> torch.Tensor:
+    """[SLOTS] the committed length a pool block runs each slot at: its own
+    if it is live, else an empty slot's, so that a slot frozen at its
+    final length (up to S - 2) computes rows that nothing reads without
+    writing past the buffer (JAX drops such writes; PyTorch raises)."""
+    return torch.where(live, length, torch.full_like(length, EMPTY_LENGTH))
+
+
+def slot_frontiers(at: torch.Tensor, offset: int, rows: int) -> torch.Tensor:
+    """Per-slot rollback: the cache frontier of each of a slot's `rows` rows,
+    [SLOTS * rows], slot-major: the slot's committed length `at`
+    (`live_length`) less `offset` (the draft holds committed-2 positions,
+    the target committed-1)."""
+    return (at - offset).repeat_interleave(rows)
+
+
+def winning_rows(draft_index: torch.Tensor, rows: int) -> torch.Tensor:
+    """[SLOTS * rows] source row of every cache row once each slot s keeps
+    its winning row s * rows + draft_index[s]."""
+    base = torch.arange(draft_index.shape[0], device=draft_index.device)
+    return (base * rows + draft_index).repeat_interleave(rows)
+
+
+def put_rows(pool: KVCache, rows: slice, cache: KVCache) -> KVCache:
+    """Copy a request's cache (all its rows and positions, and its starts)
+    into rows `rows` of a pool's cache, in place: a slot's admission."""
+    pool.k[:, rows] = cache.k
+    pool.v[:, rows] = cache.v
+    pool.start[rows] = cache.start
+    return pool
+
+
+def select_rows(cache: KVCache, src: torch.Tensor) -> KVCache:
+    """Per-slot multidraft select, in place: row b takes row src[b]'s KV and
+    start (src from `winning_rows`), the slot-batched form of
+    `select_draft_row`."""
+    cache.k[:] = cache.k.index_select(1, src)
+    cache.v[:] = cache.v.index_select(1, src)
+    cache.start[:] = cache.start.index_select(0, src)
+    return cache
 
 
 def select_draft_row(cache: KVCache, row: int) -> KVCache:

@@ -10,25 +10,35 @@ Multidraft row layouts (VerifierConfig.parallel): parallel, R = K
 independent drafts; striped, R = 1 + gamma * (K - 1) rows, the primary
 draft and then gamma groups of K - 1 branch rows, group j mirroring the
 primary through position j - 1, sampling its own token at position j and
-following its own path after (`_draft_block_striped`).
+following its own path after (`draft_rows`).
 
 Cache invariants between blocks: the target holds committed-1 positions
 (the newest token is re-fed each block); the draft holds committed-2,
 because after a fully accepted block the last draft token's KV was never
 computed by the draft, so the first draft step re-feeds two tokens.
+
+Many requests at once (`SlotPool`, `make_generate_batched`, and the
+continuous-batching `server.SlotEngine`): slots decode in lockstep, each on
+R cache rows of one stacked cache at its own frontier, one block for every
+slot per step with one host sync. Each request draws its noise from its own
+generator in `make_generate`'s order, so a pooled request's stream is the
+one `make_generate` gives on that generator.
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Tuple
+from typing import Callable, List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
+from torch.func import vmap
 
 from ..config import EngineConfig, ModelConfig, VerifierConfig
 from ..models import transformer
-from ..ops.sampling import processor, sample
+from ..ops.sampling import gumbel_of, processor, sample
 from ..verify import verify
-from ..verify.dispatch import TELEMETRY_METHODS
-from .kvcache import KVCache, init_cache, rollback, select_draft_row
+from ..verify.dispatch import TELEMETRY_METHODS, verify_noise
+from .kvcache import (EMPTY_LENGTH, KVCache, init_cache, live_length,
+                      put_rows, rollback, select_draft_row, select_rows,
+                      slot_frontiers, winning_rows)
 
 
 class GenerateResult(NamedTuple):
@@ -49,72 +59,57 @@ class GenerateResult(NamedTuple):
     rounds: Optional[torch.Tensor] = None
 
 
-def _draft_block(cfg: ModelConfig, params, cache: KVCache, last2, last1,
-                 gamma: int, proc, generator: Optional[torch.Generator]):
-    """Draft gamma tokens for each of the K cache rows.
-
-    last2/last1: 0-d device tensors, the two newest committed tokens.
-    Returns (draft_tokens [K, gamma], q [K, gamma, V], cache advanced)."""
-    K = cache.batch
-    tok01 = torch.stack([last2.expand(K), last1.expand(K)], dim=1)
-    logits0, cache = transformer.forward(cfg, params, tok01, cache)
-    probs = proc(logits0[:, 1])
-    tok = sample(probs, generator)
-    toks, qs = [tok], [probs]
-    for _ in range(gamma - 1):
-        logits, cache = transformer.forward(cfg, params, tok[:, None], cache)
-        probs = proc(logits[:, 0])
-        tok = sample(probs, generator)
-        toks.append(tok)
-        qs.append(probs)
-    return torch.stack(toks, dim=1), torch.stack(qs, dim=1), cache
-
-
-def _draft_block_striped(cfg: ModelConfig, params, cache: KVCache, last2,
-                         last1, gamma: int, num_drafts: int, proc,
-                         generator: Optional[torch.Generator],
-                         noise: Optional[torch.Tensor] = None):
-    """Striped-tree drafting over R = 1 + gamma * (K - 1) cache rows: every
-    row samples at every step, and a row whose activation step (0 for the
-    primary, j for group j) is later than the step takes row 0's sample
-    instead, so its tokens and KV stay bitwise row 0's with no copy.
-
-    noise: optional Gumbel draws [gamma, R, V] (step, row), else drawn from
-    `generator`. Returns (draft_tokens [R, gamma], q [R, gamma, V], cache
-    advanced)."""
-    R = cache.batch
-    dev = last1.device
-    act = torch.cat([torch.zeros((1,), dtype=torch.int64, device=dev),
-                     torch.arange(gamma, device=dev).repeat_interleave(
-                         num_drafts - 1)])
-
-    def pick(probs, j):
-        s = sample(probs, generator, None if noise is None else noise[j])
-        return torch.where(act > j, s[0], s)
-
-    tok01 = torch.stack([last2.expand(R), last1.expand(R)], dim=1)
-    logits0, cache = transformer.forward(cfg, params, tok01, cache)
-    probs = proc(logits0[:, 1])
-    tok = pick(probs, 0)
-    toks, qs = [tok], [probs]
-    for j in range(1, gamma):
-        logits, cache = transformer.forward(cfg, params, tok[:, None], cache)
-        probs = proc(logits[:, 0])
-        tok = pick(probs, j)
-        toks.append(tok)
-        qs.append(probs)
-    return torch.stack(toks, dim=1), torch.stack(qs, dim=1), cache
+def activation_steps(gamma: int, num_drafts: int, device) -> torch.Tensor:
+    """[R] the draft step at which each striped row starts sampling its
+    own tokens: 0 for the primary, j for group j."""
+    return torch.cat([torch.zeros((1,), dtype=torch.int64, device=device),
+                      torch.arange(gamma, device=device).repeat_interleave(
+                          num_drafts - 1)])
 
 
 def draft_rows(cfg: ModelConfig, params, cache: KVCache, last2, last1,
                gamma: int, num_drafts: int, striped: bool, proc,
-               generator: Optional[torch.Generator]):
-    """One block's drafts in the engine's row layout."""
-    if striped:
-        return _draft_block_striped(cfg, params, cache, last2, last1, gamma,
-                                    num_drafts, proc, generator)
-    return _draft_block(cfg, params, cache, last2, last1, gamma, proc,
-                        generator)
+               generator: Optional[torch.Generator],
+               noise: Optional[Callable[[int], torch.Tensor]] = None,
+               lengths: Optional[torch.Tensor] = None, slots: int = 1):
+    """One block's drafts, gamma tokens for each of the cache's N rows, in
+    the engine's row layout: `slots` requests of R = N // slots rows each.
+
+    Parallel: every row samples its own draft. Striped (R = 1 + gamma *
+    (K - 1)): every row samples at every step, and a row whose activation
+    step (0 for the primary, j for group j) is later than the step takes
+    its request's row 0 sample instead, so its tokens and KV stay bitwise
+    row 0's with no copy.
+
+    last2/last1: the two newest committed tokens, 0-d (one request) or [N]
+    (one a row). noise: optional `j -> [N, V]` Gumbel draws of step j,
+    else `sample` draws from `generator`. lengths: optional [N] per-row
+    cache frontiers (the slot pool's ragged rows), else the cache's own
+    length; slots routes every product on one request's rows.
+    Returns (draft_tokens [N, gamma], q [N, gamma, V], cache advanced)."""
+    N = cache.batch
+    act = activation_steps(gamma, num_drafts, last1.device) if striped \
+        else None
+
+    def step(tokens, j, cache):
+        at = None if lengths is None else lengths + (j + 1 if j else 0)
+        logits, cache = transformer.forward(cfg, params, tokens, cache,
+                                            lengths=at, slots=slots)
+        probs = proc(logits[:, -1])
+        tok = sample(probs, generator, None if noise is None else noise(j))
+        if striped:
+            tok = tok.view(slots, -1)
+            tok = torch.where(act > j, tok[:, :1], tok).view(-1)
+        return tok, probs, cache
+
+    tok, probs, cache = step(
+        torch.stack([last2.expand(N), last1.expand(N)], dim=1), 0, cache)
+    toks, qs = [tok], [probs]
+    for j in range(1, gamma):
+        tok, probs, cache = step(tok[:, None], j, cache)
+        toks.append(tok)
+        qs.append(probs)
+    return torch.stack(toks, dim=1), torch.stack(qs, dim=1), cache
 
 
 def draft_layout(v: VerifierConfig) -> Tuple[bool, int]:
@@ -264,6 +259,251 @@ def make_generate(cfg_draft: ModelConfig, cfg_target: ModelConfig,
                               **({} if tel is None else dict(
                                   step_back_probs=tel[0], p_i=tel[1],
                                   q_i=tel[2])))
+
+    return generate
+
+
+class SlotPool:
+    """Device state of `n_slots` requests decoding in lockstep, and the
+    block that advances them all (the port of the JAX server's vmapped
+    `pool_step`, `server.py:155-222`, and of `make_generate_batched`).
+
+    Slot s owns cache rows [s * R, (s + 1) * R) of one stacked draft cache
+    and one stacked target cache (R: the verifier's row layout, as in
+    make_generate). Per slot: the committed tokens [S], the committed
+    length (the draft rows hold length - 2 positions, the target rows
+    length - 1: `kvcache.slot_frontiers`), a token budget, a live flag
+    (admitted and not done) and the accepted-token and block counters. A
+    slot that is not live computes rows that nothing reads, at an empty
+    slot's frontier, and its tokens, length and counters stay as they were.
+
+    target_forward: optional `(params, tokens [N, T], cache, lengths,
+    skip_head=False) -> (logits [N, T, V], cache)` over flattened rows, N =
+    slots x R: lengths [N] are the rows' frontiers (the ragged append), or
+    None in an admission's prefill (the fresh cache's own length, 0), where
+    skip_head=True (only the cache is needed). The default is
+    transformer.forward with `slots = N // R`, so every product routes on
+    one request's rows, as the JAX package's per-slot vmap routes them.
+    target_cache_ops: optional `(init, put, select)` for a target whose
+    state is not a single KVCache:
+        init(batch, max_len, start, device) -> cache   (make_generate's)
+        put(pool_cache, rows: slice, cache) -> pool_cache   (admission)
+        select(cache, src [N]) -> cache   (row b takes row src[b]'s state)
+    There is no rollback op: the frontiers, passed to every forward, are
+    the rollback.
+    """
+
+    def __init__(self, cfg_draft: ModelConfig, cfg_target: ModelConfig,
+                 engine: EngineConfig, n_slots: int, max_len: int, device,
+                 target_forward=None, target_cache_ops=None):
+        v = engine.verifier
+        self.cfg_d = cfg_draft
+        self.gamma, self.K, self.method = v.gamma, v.num_drafts, v.method
+        self.striped, self.R = draft_layout(v)
+        self.temp = processor(engine.temperature, engine.top_k, engine.top_p)
+        self.eos = cfg_target.eos_token_id
+        self.n_slots, self.S = n_slots, max_len
+        self.dev = torch.device(device)
+        R = self.R
+        self.tfwd = target_forward or (
+            lambda p, t, c, lengths, skip_head=False: transformer.forward(
+                cfg_target, p, t, c, lengths=lengths, skip_head=skip_head,
+                slots=t.shape[0] // R))
+        if target_cache_ops is None:
+            def t_init(batch, max_len, start, device):
+                return init_cache(cfg_target, batch, max_len,
+                                  device).replace(start=start)
+            self.t_init, self.t_put, self.t_select = (t_init, put_rows,
+                                                      select_rows)
+        else:
+            self.t_init, self.t_put, self.t_select = target_cache_ops
+        dev, i64 = self.dev, torch.int64
+
+        def full(value):
+            return torch.full((n_slots,), value, dtype=i64, device=dev)
+
+        self.tokens = torch.zeros((n_slots, max_len), dtype=i64, device=dev)
+        self.length = full(EMPTY_LENGTH)
+        self.max_new = full(engine.max_new_tokens)
+        self.live = torch.zeros((n_slots,), dtype=torch.bool, device=dev)
+        self.acc_sum = full(0)
+        self.blk_cnt = full(0)
+        N = n_slots * R
+        self.dcache = init_cache(cfg_draft, N, max_len, dev)
+        self.tcache = self.t_init(
+            N, max_len, torch.zeros((N,), dtype=i64, device=dev), dev)
+        nz = 0 if self.method != "greedy" else None
+        self._verify = vmap(self._verify_one, in_dims=(0, 0, 0, nz))
+
+    def _verify_one(self, d, q, p, noise):
+        return verify(self.method, d, q, p, noise=noise, num_drafts=self.K,
+                      striped=self.striped)
+
+    def prefill(self, s: int, params_draft, params_target,
+                prompt: torch.Tensor, prompt_len: int, max_new: int):
+        """Admit a request into slot s: prefill its R rows on their own (as
+        make_generate does, so the products see one request's rows) and
+        copy them into the slot's rows. prompt: [P] int64, left-padded."""
+        R, S, dev = self.R, self.S, self.dev
+        P = prompt.shape[0]
+        start = torch.full((R,), P - int(prompt_len), dtype=torch.int64,
+                           device=dev)
+        dc = init_cache(self.cfg_d, R, S, dev).replace(start=start.clone())
+        tc = self.t_init(R, S, start.clone(), dev)
+        pk = prompt[None, :].expand(R, P)
+        _, dc = transformer.forward(self.cfg_d, params_draft, pk[:, :-2], dc,
+                                    skip_head=True)
+        _, tc = self.tfwd(params_target, pk[:, :-1], tc, None,
+                          skip_head=True)
+        rows = slice(s * R, (s + 1) * R)
+        put_rows(self.dcache, rows, dc)
+        self.tcache = self.t_put(self.tcache, rows, tc)
+        self.tokens[s] = 0
+        self.tokens[s, :P] = prompt
+        self.length[s] = P
+        self.max_new[s] = max_new
+        self.live[s] = True
+        self.acc_sum[s] = 0
+        self.blk_cnt[s] = 0
+
+    def _draft_noise(self, live_host, generators, V: int) -> torch.Tensor:
+        """One draft step's Gumbel noise [slots * R, V]: each live slot's
+        [R, V] from its own generator, the draw `sample` makes there (the
+        uniforms, then `gumbel_of`, elementwise); noise of no generator
+        (near 0) for the other slots."""
+        u = torch.full((self.n_slots, self.R, V), 0.5, dtype=torch.float32,
+                       device=self.dev)
+        for s in range(self.n_slots):
+            if live_host[s]:
+                u[s] = torch.rand((self.R, V), generator=generators[s],
+                                  device=self.dev, dtype=torch.float32)
+        return gumbel_of(u).view(self.n_slots * self.R, V)
+
+    def _verify_noise(self, live_host, generators, V: int):
+        """Each slot's verifier noise bundle, stacked over the slots: a
+        live slot's from its generator, zeros elsewhere."""
+        if self.method == "greedy":
+            return None
+        own = [verify_noise(self.method, self.K, self.gamma, V, g, self.dev)
+               if on else None for on, g in zip(live_host, generators)]
+        ref = next(b for b in own if b is not None)
+        return {k: torch.stack([ref[k].new_zeros(ref[k].shape)
+                                if b is None else b[k] for b in own])
+                for k in ref}
+
+    def block(self, params_draft, params_target, prompt_end: int,
+              live_host: Sequence[bool],
+              generators: Sequence[Optional[torch.Generator]]):
+        """One speculative block for every slot: the draft over slots x R
+        rows at each row's frontier, ONE target forward over slots x R x
+        (gamma + 1) rows, the verifier per slot under vmap on noise drawn
+        beforehand, the commit as tensor ops (no per-slot sync), the
+        per-slot rollback and row select. live_host: the host's mirror of
+        the live flags (at least one); generators[s]: live slot s's
+        generator (None: the global one).
+        Returns (done [slots] bool, n_matches [slots]) on the device:
+        done = live and the block hit EOS or the slot's budget (the prompt
+        region ends at prompt_end); a done slot stops being live."""
+        SL, R, gamma, S = self.n_slots, self.R, self.gamma, self.S
+        dev, temp = self.dev, self.temp
+        live, length = self.live, self.length
+        at = live_length(length, live)
+        last = self.tokens.gather(1, (at - 1)[:, None])[:, 0]
+        last2 = self.tokens.gather(1, (at - 2)[:, None])[:, 0]
+        dlen = slot_frontiers(at, 2, R)
+        tlen = slot_frontiers(at, 1, R)
+
+        draft, q, dc = draft_rows(
+            self.cfg_d, params_draft, self.dcache, last2.repeat_interleave(R),
+            last.repeat_interleave(R), gamma, self.K, self.striped, temp,
+            None, noise=lambda j: self._draft_noise(
+                live_host, generators, self.cfg_d.vocab_size),
+            lengths=dlen, slots=SL)
+        V = q.shape[-1]
+        tgt_in = torch.cat([last.repeat_interleave(R)[:, None], draft], 1)
+        tlogits, tc = self.tfwd(params_target, tgt_in, self.tcache, tlen)
+        p = temp(tlogits)
+        res = self._verify(draft.view(SL, R, gamma), q.view(SL, R, gamma, V),
+                           p.view(SL, R, gamma + 1, V),
+                           self._verify_noise(live_host, generators, V))
+        n_commit = res.n_matches + 1
+        posn = torch.arange(S, device=dev)[None, :]
+        src = res.tokens.gather(
+            1, torch.clamp(posn - length[:, None], 0, gamma))
+        write = (live[:, None] & (posn >= length[:, None])
+                 & (posn < (length + n_commit)[:, None]))
+        self.tokens = torch.where(write, src, self.tokens)
+        new_length = torch.where(live, length + n_commit, length)
+        if R > 1:
+            src_rows = winning_rows(res.draft_index, R)
+            select_rows(dc, src_rows)
+            tc = self.t_select(tc, src_rows)
+        self.dcache, self.tcache = dc, tc
+        hit_eos = (write & (self.tokens == self.eos)).any(1)
+        done = live & (hit_eos | (new_length - prompt_end >= self.max_new))
+        self.length = new_length
+        self.acc_sum = self.acc_sum + torch.where(live, res.n_matches, 0)
+        self.blk_cnt = self.blk_cnt + live.long()
+        self.live = live & ~done
+        return done, res.n_matches
+
+
+def make_generate_batched(cfg_draft: ModelConfig, cfg_target: ModelConfig,
+                          engine: EngineConfig):
+    """Build `generate(params_draft, params_target, prompts [B, P],
+    prompt_lens [B], generators) -> GenerateResult` with a leading B axis
+    (the JAX package's vmap of make_generate over prompts and keys,
+    `speculative.py:289-298`). The B requests decode in lockstep on a
+    `SlotPool` of B slots (B x R flattened rows at per-row frontiers), each
+    with its own done flag, budget and EOS cut, one host sync a block; each
+    is prefilled on its own. generators: B torch.Generators (or Nones at
+    temperature 0); row b is what make_generate gives request b with
+    generator b. Result: tokens [B, S] on the device; length, blocks and
+    ncommit int64 [B], accepts and draft_lens [B, max_new] on the host."""
+    gamma = engine.verifier.gamma
+    max_new = engine.max_new_tokens
+    eos = cfg_target.eos_token_id
+
+    def generate(params_draft, params_target, prompts: torch.Tensor,
+                 prompt_lens, generators: Sequence[Optional[torch.Generator]]
+                 ) -> GenerateResult:
+        B, P = prompts.shape
+        lens = [int(n) for n in (prompt_lens.tolist() if isinstance(
+            prompt_lens, torch.Tensor) else prompt_lens)]
+        if len(lens) != B or len(generators) != B:
+            raise ValueError("one prompt length and one generator a prompt")
+        pool = SlotPool(cfg_draft, cfg_target, engine, B,
+                        P + max_new + gamma + 2, prompts.device)
+        for b in range(B):
+            pool.prefill(b, params_draft, params_target, prompts[b],
+                         lens[b], max_new)
+        live = [True] * B
+        accepts: List[List[int]] = [[] for _ in range(B)]
+        while any(live):
+            done, n = pool.block(params_draft, params_target, P, live,
+                                 generators)
+            info = torch.cat([done.long(), n]).tolist()   # the block's sync
+            for b in range(B):
+                if live[b]:
+                    accepts[b].append(info[B + b])
+                    live[b] = not info[b]
+        host = pool.tokens.tolist()
+        raw = pool.length.tolist()
+        length = [final_length(host[b], raw[b], P, max_new, eos)
+                  for b in range(B)]
+        acc = torch.full((B, max_new), -1, dtype=torch.int64)
+        dlens = torch.full((B, max_new), -1, dtype=torch.int64)
+        for b in range(B):
+            acc[b, :len(accepts[b])] = torch.tensor(accepts[b],
+                                                    dtype=torch.int64)
+            dlens[b, :len(accepts[b])] = gamma
+        i64 = torch.int64
+        return GenerateResult(
+            tokens=pool.tokens, length=torch.tensor(length, dtype=i64),
+            prompt_len=P,
+            blocks=torch.tensor([len(a) for a in accepts], dtype=i64),
+            accepts=acc, draft_lens=dlens,
+            ncommit=torch.tensor(length, dtype=i64) - P)
 
     return generate
 

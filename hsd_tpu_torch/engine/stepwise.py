@@ -27,7 +27,7 @@ from ..ops.sampling import processor, sample
 from ..verify.forward_sampling import forward_sampling_step
 from ..verify.recursive import recursive_round
 from .kvcache import init_cache, rollback
-from .speculative import (GenerateResult, _commit_block, _draft_block,
+from .speculative import (GenerateResult, _commit_block, draft_rows,
                           final_length)
 
 
@@ -35,7 +35,7 @@ def _draft_tail(cfg: ModelConfig, params, cache, last2, last1, L: int,
                 gamma: int, proc, generator: Optional[torch.Generator]):
     """Draft L tokens (1 <= L <= gamma, a host int) on a batch-1 cache that
     holds committed-2 positions, re-feeding the two newest committed tokens
-    as `_draft_block` does. Returns (tokens [gamma], q [gamma, V], cache)
+    as `draft_rows` does. Returns (tokens [gamma], q [gamma, V], cache)
     with the first L rows valid and zeros after them."""
     tok01 = torch.stack([last2, last1])[None]
     logits0, cache = transformer.forward(cfg, params, tok01, cache)
@@ -115,9 +115,9 @@ def make_stepwise_generate(cfg_draft: ModelConfig, cfg_target: ModelConfig,
                and len(accepts) < max_new and length - P < max_new):
             # outer backward block: the committed reference's verifier
             last = tokens[length - 1]
-            draft_toks, q, dcache = _draft_block(
+            draft_toks, q, dcache = draft_rows(
                 cfg_draft, params_draft, dcache, tokens[length - 2], last,
-                gamma, temp, generator)
+                gamma, 1, False, temp, generator)
             tgt_in = torch.cat([last.view(1, 1), draft_toks], dim=1)
             tlogits, tcache = transformer.forward(cfg_target, params_target,
                                                   tgt_in, tcache)
@@ -135,10 +135,10 @@ def make_stepwise_generate(cfg_draft: ModelConfig, cfg_target: ModelConfig,
             qbuf = torch.zeros((gamma, V), dtype=torch.float32, device=dev)
             pbuf = torch.zeros((gamma, V), dtype=torch.float32, device=dev)
             while not stop and commits < gamma:
-                prop, qrow, dcache = _draft_block(
+                prop, qrow, dcache = draft_rows(
                     cfg_draft, params_draft, rollback(dcache, length - 2),
-                    tokens[length - 2], tokens[length - 1], 1, temp,
-                    generator)
+                    tokens[length - 2], tokens[length - 1], 1, 1, False,
+                    temp, generator)
                 tlog, tcache = transformer.forward(
                     cfg_target, params_target, tokens[length - 1].view(1, 1),
                     rollback(tcache, length - 1))

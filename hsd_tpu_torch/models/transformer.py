@@ -27,7 +27,8 @@ import torch
 import torch.nn.functional as F
 
 from ..config import ModelConfig
-from ..engine.kvcache import KVCache, append_layer_stacked
+from ..engine.kvcache import (KVCache, append_layer_stacked,
+                              append_layer_stacked_ragged)
 from ..ops import flash_decode as FD
 from ..ops.linear import (QuantizedLinear, apply_attn_mlp, apply_linear,
                           apply_mlp, attn_mlp_fusable, rms_norm)
@@ -225,7 +226,8 @@ def forward(cfg: ModelConfig, params: ModelParams, tokens: torch.Tensor,
             positions: Optional[torch.Tensor] = None,
             feature_layers: Optional[Tuple[int, ...]] = None,
             lengths: Optional[torch.Tensor] = None,
-            staging_at: Optional[int] = None, last_only: bool = False):
+            staging_at: Optional[int] = None, last_only: bool = False,
+            slots: int = 1):
     """Run the decoder over `tokens` [B, T], appending to `cache` in place.
 
     Returns (logits [B, T, V] f32, cache with length += T). RoPE positions
@@ -237,31 +239,40 @@ def forward(cfg: ModelConfig, params: ModelParams, tokens: torch.Tensor,
     feature_layers: a tuple of layer indices; the call then also returns
     the concatenated INPUTS of those layers [B, T, len*D] as a third item,
     or for (-1,) the final pre-norm hidden state (the EAGLE-1/2 stream).
-    lengths, with staging_at and a per-row attn_bias [B, T, T]
-    (slot-batched serving): lengths [B] (a device tensor) holds the per-row
-    cache frontiers in place of `cache.length`, so row b's queries sit at
-    lengths[b] + t; the new keys go to the fixed slots [staging_at,
-    staging_at + T) of every row, one uniform write, and the caller
-    compacts the accepted ones into each row's frontier afterwards
-    (kvcache.compact_path_staged). The JAX package's unstaged ragged append
-    (lengths without staging_at) has no caller in the port and is not
-    ported.
+    lengths (slot-batched serving): [B] per-row cache frontiers (a device
+    tensor) in place of `cache.length`, so row b's queries sit at
+    lengths[b] + t. Alone, row b's T new keys are written at [lengths[b],
+    lengths[b] + T) (kvcache.append_layer_stacked_ragged; the speculative
+    slot pool) and attention is causal by each row's own frontier; the
+    caller keeps lengths[b] + T inside the cache. With staging_at and a
+    per-row attn_bias [B, T, T] (the EAGLE pool), the new keys go to the
+    fixed slots [staging_at, staging_at + T) of every row, one uniform
+    write, and the caller compacts the accepted ones into each row's
+    frontier afterwards (kvcache.compact_path_staged). The returned
+    cache's `length` is cache.length + T either way, as in JAX; the
+    caller tracks the rows.
     last_only: apply the final norm and the head to the last position only
     (logits [B, 1, V]; a prefill samples from that row alone).
     Every quantized product passes cfg.gptq_mxu_bf16, the head's included.
+    slots: the B rows are that many slots of equal rows (a pool's slots);
+    every product routes as one slot's rows would (ops.linear.route_rows),
+    as the JAX package's per-slot vmapped forward routes them.
 
     Attention routes, as the JAX package's (transformer.py:263-269,
     406-412, 483-508): with no lengths and no staging, FD.use_fused_rope_attn
     and no bias, q reaches K8 raw and is rotated inside it (k is still
-    rotated here, for the cache); else, where FD.use_flash holds, K8 takes
-    the rotated q; else the einsum path.
+    rotated here, for the cache); else, with no lengths and no staging,
+    where FD.use_flash holds, K8 takes the rotated q; else the einsum path
+    (per-row lengths always take it: K8 needs one frontier).
     """
     B, T = tokens.shape
     H, Hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim_
     dev = tokens.device
     length = cache.length
-    if (lengths is None) != (staging_at is None):
-        raise ValueError("per-row lengths and staging_at go together")
+    if staging_at is not None and lengths is None:
+        raise ValueError("staging_at needs per-row lengths")
+    if lengths is not None and staging_at is None and attn_bias is not None:
+        raise ValueError("the ragged append takes no attn_bias")
     ar = torch.arange(T, device=dev)
     if lengths is not None:
         q_index = lengths[:, None] + ar[None, :]
@@ -270,8 +281,8 @@ def forward(cfg: ModelConfig, params: ModelParams, tokens: torch.Tensor,
     if positions is None:
         positions = torch.clamp(q_index - cache.start[:, None], min=0)
     tables = rope_tables(positions, hd, cfg.rope_theta, cfg.rope_scaling)
-    unstaged = lengths is None and staging_at is None
-    fused_rope = (unstaged and attn_bias is None
+    one_frontier = lengths is None
+    fused_rope = (one_frontier and attn_bias is None
                   and FD.use_fused_rope_attn(B, T, hd, cache.max_len))
     mask = bias = None      # the einsum path's, built at its first use
 
@@ -295,7 +306,7 @@ def forward(cfg: ModelConfig, params: ModelParams, tokens: torch.Tensor,
     for l in range(n_layers):
         def lin(name, h, bias=None, norm=None):
             return apply_linear(names[name], h, bias, layer=l, norm=norm,
-                                mxu_bf16=bf16)
+                                mxu_bf16=bf16, slots=slots)
 
         if collect:
             layer_inputs.append(x)
@@ -314,14 +325,17 @@ def forward(cfg: ModelConfig, params: ModelParams, tokens: torch.Tensor,
             q = rope_apply(q, tables)
         k = rope_apply(k.reshape(B, T, Hkv, hd), tables)
         v = v.reshape(B, T, Hkv, hd)
-        append_layer_stacked(k_all, v_all, l,
-                             length if staging_at is None else staging_at,
-                             k, v)
+        if staging_at is None and lengths is not None:
+            append_layer_stacked_ragged(k_all, v_all, l, lengths, k, v)
+        else:
+            append_layer_stacked(k_all, v_all, l,
+                                 length if staging_at is None else staging_at,
+                                 k, v)
         if fused_rope:
             att = FD.flash_attention_decode(q, k_all[l], v_all[l], q_index,
                                             length, cache.start, None,
                                             rope=tables)
-        elif unstaged and FD.use_flash(q, k_all[l]):
+        elif one_frontier and FD.use_flash(q, k_all[l]):
             att = FD.flash_attention_decode(q, k_all[l], v_all[l], q_index,
                                             length, cache.start, attn_bias)
         else:
@@ -333,7 +347,8 @@ def forward(cfg: ModelConfig, params: ModelParams, tokens: torch.Tensor,
             att = attention(q, k_all[l], v_all[l], mask, bias)
         att2 = att.reshape(B, T, H * hd)
         if "wgu" in names and attn_mlp_fusable(
-                att2, names["wo"], names["wgu"], names["wdown"], layer=l):
+                att2, names["wo"], names["wgu"], names["wdown"], layer=l,
+                slots=slots):
             # packed-int4 layer tail at decode/verify rows: one K2 call
             x = apply_attn_mlp(att2, x, names["wo"], names["wgu"],
                                names["wdown"], names["ln2"][l], eps, layer=l)
@@ -341,7 +356,8 @@ def forward(cfg: ModelConfig, params: ModelParams, tokens: torch.Tensor,
         x = x + lin("wo", att2)
         if "wgu" in names:
             x = x + apply_mlp(names["wgu"], names["wdown"], x,
-                              names["ln2"][l], eps, layer=l, mxu_bf16=bf16)
+                              names["ln2"][l], eps, layer=l, mxu_bf16=bf16,
+                              slots=slots)
         else:
             h = rms_norm(x, names["ln2"][l], eps)
             ff = F.silu(lin("wgate", h)) * lin("wup", h)
@@ -364,7 +380,7 @@ def forward(cfg: ModelConfig, params: ModelParams, tokens: torch.Tensor,
             head = params.embed.t()
         else:
             head = params.lm_head
-        out = apply_linear(head, x, mxu_bf16=bf16).float()
+        out = apply_linear(head, x, mxu_bf16=bf16, slots=slots).float()
     if feature_layers is not None:
         return out, new_cache, feats
     return out, new_cache

@@ -266,9 +266,20 @@ def xla_matmul(x: torch.Tensor, w: QuantizedLinear) -> torch.Tensor:
     return part.sum(1).to(x.dtype)
 
 
+def route_rows(n: int, slots: int) -> int:
+    """The row count a route decision sees: one slot's rows. A pool's call
+    stacks `slots` slots of equal rows; the JAX package maps its per-slot
+    forward over the slots, so its gates count one slot's rows, and so do
+    the port's. The kernel then runs every row at once: a row's bits do
+    not depend on the row count."""
+    if n % slots:
+        raise ValueError(f"{n} rows do not split into {slots} slots")
+    return n // slots
+
+
 def apply_linear(w, x: torch.Tensor, b: Optional[torch.Tensor] = None,
                  layer: Optional[int] = None, norm=None,
-                 mxu_bf16: bool = False) -> torch.Tensor:
+                 mxu_bf16: bool = False, slots: int = 1) -> torch.Tensor:
     """y = x @ w (+ b) for dense tensors or QuantizedLinear weights.
 
     layer: select this layer of a LAYER-STACKED weight ([L, in, out]).
@@ -292,6 +303,8 @@ def apply_linear(w, x: torch.Tensor, b: Optional[torch.Tensor] = None,
     only (an asymmetric one norms first and rounds to the activation
     dtype). The kernels take bf16 activations only: an f32 model with the
     flag raises on the card.
+    slots: x's rows are that many slots of equal rows; the routes are
+    decided on one slot's rows (`route_rows`).
     """
     ln, eps = norm if norm is not None else (None, 0.0)
     if isinstance(w, QuantizedLinear):
@@ -305,7 +318,7 @@ def apply_linear(w, x: torch.Tensor, b: Optional[torch.Tensor] = None,
             w = w._replace(perm=None)
         lead = x.shape[:-1]
         x2 = x.reshape(-1, x.shape[-1]).contiguous()
-        n = x2.shape[0]
+        n = route_rows(x2.shape[0], slots)
         sym = w.zeros is None
         if not kernel_route(w, n, mxu_bf16):
             if ln is not None:
@@ -342,13 +355,13 @@ def apply_linear(w, x: torch.Tensor, b: Optional[torch.Tensor] = None,
 
 
 def apply_mlp(wgu, wdown, x: torch.Tensor, ln_w: torch.Tensor, eps: float,
-              layer: Optional[int] = None,
-              mxu_bf16: bool = False) -> torch.Tensor:
+              layer: Optional[int] = None, mxu_bf16: bool = False,
+              slots: int = 1) -> torch.Tensor:
     """SwiGLU MLP: (silu(g) * u) @ wdown with [g | u] = rmsnorm(x) @ wgu,
     without the residual add. Where `mlp_fusable` holds, one fused call (K6,
     `gu` and `silu(g) * u` kept in f32, as `gptq_mlp_int4`); elsewhere two
-    apply_linear calls."""
-    if mlp_fusable(x, wgu, wdown, layer):
+    apply_linear calls. slots: as apply_linear's."""
+    if mlp_fusable(x, wgu, wdown, layer, slots):
         if layer is not None:
             wgu, wdown = wgu.layer(layer), wdown.layer(layer)
         out = gptq_cuda.mlp_int4(x.reshape(-1, x.shape[-1]).contiguous(),
@@ -357,9 +370,10 @@ def apply_mlp(wgu, wdown, x: torch.Tensor, ln_w: torch.Tensor, eps: float,
         return out.reshape(*x.shape[:-1], out.shape[-1])
     f = wdown.din if isinstance(wdown, QuantizedLinear) else wdown.shape[-2]
     gu = apply_linear(wgu, x, layer=layer, norm=(ln_w, eps),
-                      mxu_bf16=mxu_bf16)
+                      mxu_bf16=mxu_bf16, slots=slots)
     ff = F.silu(gu[..., :f]) * gu[..., f:]
-    return apply_linear(wdown, ff, layer=layer, mxu_bf16=mxu_bf16)
+    return apply_linear(wdown, ff, layer=layer, mxu_bf16=mxu_bf16,
+                        slots=slots)
 
 
 # Fusion gates. The JAX package fuses the MLP (K6) and the layer tail (K2)
@@ -414,22 +428,24 @@ def _mlp_plan(wgu, wdown, npad: int):
     return bid
 
 
-def _rows(x: torch.Tensor):
-    """(rows, padded rows) of an activation, as the JAX gates count them."""
-    n = x.numel() // x.shape[-1]
+def _rows(x: torch.Tensor, slots: int = 1):
+    """(rows, padded rows) of one slot's activation, as the JAX gates count
+    them."""
+    n = route_rows(x.numel() // x.shape[-1], slots)
     return n, max(8, -(-n // 8) * 8)
 
 
 def mlp_fusable(x: torch.Tensor, wgu, wdown,
-                layer: Optional[int] = None) -> bool:
+                layer: Optional[int] = None, slots: int = 1) -> bool:
     """Can the SwiGLU MLP of `layer` (None: 2-D weights) run as the fused
     K6? The JAX route's conditions (`linear.apply_mlp`'s `stacked_ok`, then
     `mlp_fusion_supported`): both packed int4, symmetric, no perm, stacked
     alike and indexed so, at most TAIL_MAX_ROWS rows and a block plan; plus
-    the shapes the JAX gate leaves unchecked (x's width)."""
+    the shapes the JAX gate leaves unchecked (x's width). Rows are counted
+    per slot (`route_rows`)."""
     if not (_int4_sym(wgu, wdown) and _stacked_ok(layer, wgu, wdown)):
         return False
-    n, npad = _rows(x)
+    n, npad = _rows(x, slots)
     shapes_ok = (x.shape[-1] == wgu.din
                  and wgu.qweight.shape[-1] == 2 * wdown.din)
     return (shapes_ok and n <= gptq_cuda.TAIL_MAX_ROWS
@@ -437,7 +453,7 @@ def mlp_fusable(x: torch.Tensor, wgu, wdown,
 
 
 def attn_mlp_fusable(att: torch.Tensor, wo, wgu, wdown,
-                     layer: Optional[int] = None) -> bool:
+                     layer: Optional[int] = None, slots: int = 1) -> bool:
     """Can the layer tail (wo + residual + SwiGLU MLP + residual) of
     `layer` (None: 2-D weights) run as the fused K2? The JAX route's
     conditions (`linear.attn_mlp_fusable`'s `stacked_ok`, then
@@ -446,10 +462,11 @@ def attn_mlp_fusable(att: torch.Tensor, wo, wgu, wdown,
     block plan, wo's out-width equal to the MLP's in-width, even wo groups
     of a multiple of 64, at most MAX_PACKED_ROWS packed wo rows, and every
     phase's out-block under its budget; plus the shapes the JAX gate leaves
-    unchecked (wdown's out-width)."""
+    unchecked (wdown's out-width). Rows are counted per slot
+    (`route_rows`)."""
     if not (_int4_sym(wo, wgu, wdown) and _stacked_ok(layer, wo, wgu, wdown)):
         return False
-    n, npad = _rows(att)
+    n, npad = _rows(att, slots)
     Rw, D = wo.qweight.shape[-2:]
     Rg, GU = wgu.qweight.shape[-2:]
     shapes_ok = (att.shape[-1] == wo.din and wgu.din == D

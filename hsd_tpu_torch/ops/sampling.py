@@ -46,8 +46,12 @@ def processor(temperature: float, top_k: int = 0, top_p: float = 1.0):
 def gumbel(shape, generator: Optional[torch.Generator],
            device) -> torch.Tensor:
     """Standard Gumbel noise -log(-log(u)), u uniform in [tiny, 1)."""
-    u = torch.rand(shape, generator=generator, device=device,
-                   dtype=torch.float32)
+    return gumbel_of(torch.rand(shape, generator=generator, device=device,
+                                dtype=torch.float32))
+
+
+def gumbel_of(u: torch.Tensor) -> torch.Tensor:
+    """`gumbel`'s transform of drawn uniforms, elementwise."""
     u = torch.clamp(u, min=torch.finfo(torch.float32).tiny)
     return -torch.log(-torch.log(u))
 

@@ -8,6 +8,7 @@ logit_scale=S)`), gamma 10, 256 new tokens, temperature 1.0, the one
     python hsd_tpu_torch/tools/bench_main.py --scale 1.467 --rows k1,ar
     python hsd_tpu_torch/tools/bench_main.py --calibrate --rows k1
     python hsd_tpu_torch/tools/bench_main.py --scale 1.467 --rows k11
+    python hsd_tpu_torch/tools/bench_main.py --scale 1.467 --rows serving
 
 Rows (`--rows`, comma-separated):
   k1   hsd and tokenwise at K = 1;
@@ -15,7 +16,22 @@ Rows (`--rows`, comma-separated):
        prefill and a 682-row draft prefill on the dequantize route, a
        121-row verify, an 11-row draft); before them the two prefills are
        timed apart with their peak allocation;
-  ar   autoregressive sampling over 96 tokens on the coupled target.
+  ar   autoregressive sampling over 96 tokens on the coupled target;
+  serving  the reference's `serving_0p5b` row (`bench.py:141-199`, called
+       at `:583`; run last, after the 14B part is freed): the int8 0.5B
+       draft against the pair's own bf16 0.5B trunk (`target.small`), hsd,
+       gamma 5, K 1, temperature 1.0, 48 new tokens at most; `SlotEngine`
+       with 8 slots, bucket 64, 4 pool blocks between admissions, 8
+       admissions a step; 32 requests drawn with numpy's default_rng(0) as
+       bench.py draws them (32-63 prompt ids in [1, vocab - 2), a budget in
+       [12, 48]); each engine serves one warm request (8 tokens) first.
+       Continuous: all 32 submitted, then run_all; lockstep: waves of 8,
+       run_all a wave. 3 reps, each with engines built anew; reported: the
+       rep of the median ratio, every ratio, BE over the continuous run's
+       requests (mean over blocks of accepts + 1, the warm request
+       excluded), tok/s = committed tokens over the run_all wall seconds,
+       the pool blocks each schedule ran (every slot's rows a block) and
+       the launch counts of each run.
 Each speculative row makes one warm run, then 10 timed runs, one per
 seed, each from the call to `torch.cuda.synchronize()`. BE per run is
 mean(accepts + 1) over its blocks; the row's BE is the mean over runs,
@@ -50,6 +66,7 @@ import time
 from pathlib import Path
 from typing import Callable, List, Optional, Tuple
 
+import numpy as np
 import torch
 
 if __package__ in (None, ""):            # run as a script from its path
@@ -58,6 +75,7 @@ if __package__ in (None, ""):            # run as a script from its path
 from hsd_tpu_torch.config import EngineConfig, ModelConfig, VerifierConfig
 from hsd_tpu_torch.engine import make_autoregressive, make_generate
 from hsd_tpu_torch.engine.kvcache import init_cache
+from hsd_tpu_torch.engine.server import SlotEngine
 from hsd_tpu_torch.eval.synthetic import build_coupled_pair, make_coupled_target
 from hsd_tpu_torch.models import transformer
 from hsd_tpu_torch.ops import _build, launch_counts, reset_launches
@@ -74,6 +92,11 @@ WARM, RUN0 = 999, 100
 # the reference's BE +- CI95 per row (BENCH_r05.json)
 BANDS = {"hsd_k1": (7.517, 0.52), "tokenwise_k1": (6.149, 0.405),
          "hsd_k11": (7.787, 0.353), "tokenwise_k11": (6.705, 0.289)}
+# the serving row (bench.py:141-199, :583); the reference's ratio, its
+# reps and BE (BENCH_r05.json; its tok/s were a TPU's and are not shown)
+SRV_SLOTS, SRV_REQS, SRV_NEW, SRV_GAMMA, SRV_REPS = 8, 32, 48, 5, 3
+SRV_BUCKET, SRV_MACRO, SRV_WARM_NEW, SRV_WARM_RID = 64, 4, 8, 10_000
+SRV_REF = {"ratio": 1.256, "ratios": [1.245, 1.256, 1.261], "be": 4.66}
 T0 = time.time()
 
 
@@ -293,9 +316,113 @@ def measure(rows: List[str], scale: float, cfg_s: ModelConfig,
                                  launches=launch_counts())
         log(f"AR: {length - BUCKET} tokens in {secs}s = "
             f"{out['rows']['ar']['tok_s']} tok/s")
-    del draft, target
+    small = target.small
+    del target                      # the serving row needs no 14B part
+    free(device)
+    if "serving" in rows:
+        out["rows"]["serving"] = srv = serving_row(draft, small, cfg_s,
+                                                   device)
+        log(f"serving (median-ratio rep): continuous {srv['cont_tok_s']} "
+            f"tok/s, lockstep {srv['lock_tok_s']} tok/s, ratio "
+            f"{srv['ratio']}, BE {srv['be']}, ratios {srv['ratios']}; the "
+            f"reference: ratio {SRV_REF['ratio']} (reps "
+            f"{SRV_REF['ratios']}), BE {SRV_REF['be']}")
+    del draft, small
     free(device)
     return out
+
+
+def serving_requests(vocab: int, reqs: int = SRV_REQS,
+                     max_new: int = SRV_NEW) -> List[Tuple[List[int], int]]:
+    """bench.py's requests (:162-166): numpy default_rng(0); for each, a
+    prompt of integers(32, 64) ids in [1, vocab - 2), drawn after its
+    length, then a budget in [max_new // 4, max_new]."""
+    rng = np.random.default_rng(0)
+    return [(rng.integers(1, vocab - 2, (int(rng.integers(32, 64)),))
+             .tolist(), int(rng.integers(max_new // 4, max_new + 1)))
+            for _ in range(reqs)]
+
+
+def serving_row(draft, small, cfg_s: ModelConfig, device,
+                n_slots: int = SRV_SLOTS, reqs: int = SRV_REQS,
+                max_new: int = SRV_NEW, reps: int = SRV_REPS) -> dict:
+    """bench.py's `_serving_row`: continuous against lockstep serving of
+    the same requests on SlotEngine. Each request's generator is seeded by
+    its id (SlotEngine.submit), so both schedules commit the same tokens."""
+    eng_cfg = EngineConfig(
+        verifier=VerifierConfig(method="hsd", gamma=SRV_GAMMA),
+        max_new_tokens=max_new, temperature=1.0)
+    ps = serving_requests(cfg_s.vocab_size, reqs, max_new)
+
+    def build():
+        e = SlotEngine(cfg_s, cfg_s, eng_cfg, n_slots=n_slots,
+                       bucket=SRV_BUCKET, params_d=draft, params_t=small,
+                       steps_per_dispatch=SRV_MACRO, admit_batch=n_slots,
+                       device=device)
+        e.submit(SRV_WARM_RID, ps[0][0], max_new=SRV_WARM_NEW)
+        e.run_all()
+        sync(device)
+        return e
+
+    def timed(run):
+        """run(engine) on a warmed engine; the clock and the launch counters
+        cover the run only, as bench.py times it."""
+        eng = build()
+        reset_launches()
+        blocks0 = eng.pool_blocks
+        t0 = time.perf_counter()
+        done = run(eng)
+        sync(device)
+        secs = time.perf_counter() - t0
+        return done, secs, launch_counts(), eng.pool_blocks - blocks0
+
+    def continuous(eng):
+        for rid, (p, mn) in enumerate(ps):
+            eng.submit(rid, p, max_new=mn)
+        return eng.run_all()
+
+    def lockstep(eng):
+        done = []
+        for w in range(0, reqs, n_slots):
+            for rid, (p, mn) in enumerate(ps[w:w + n_slots]):
+                eng.submit(w + rid, p, max_new=mn)
+            done.extend(eng.run_all())
+        return done
+
+    def check(done):
+        if sorted(r.rid for r in done) != list(range(reqs)):
+            raise AssertionError("serving: a request was lost")
+        for r in done:
+            if not (1 <= len(r.out_tokens) <= ps[r.rid][1] and all(
+                    0 <= t < cfg_s.vocab_size for t in r.out_tokens)):
+                raise AssertionError(f"serving: request {r.rid}'s tokens")
+        return {r.rid: r.out_tokens for r in done}
+
+    rows = []
+    for i in range(reps):
+        c_done, c_secs, c_launch, c_pool = timed(continuous)
+        l_done, l_secs, l_launch, l_pool = timed(lockstep)
+        c_toks, l_toks = check(c_done), check(l_done)
+        c_n = sum(len(t) for t in c_toks.values())
+        l_n = sum(len(t) for t in l_toks.values())
+        blocks = sum(r.blocks for r in c_done)
+        be = (sum(r.accepts for r in c_done) + blocks) / blocks
+        cont, lock = c_n / c_secs, l_n / l_secs
+        row = dict(ratio=cont / lock, cont_tok_s=cont, lock_tok_s=lock, be=be,
+                   cont_tokens=c_n, lock_tokens=l_n, cont_s=c_secs,
+                   lock_s=l_secs, blocks=blocks, pool_blocks_cont=c_pool,
+                   pool_blocks_lock=l_pool, same_streams=c_toks == l_toks,
+                   launches_cont=c_launch, launches_lock=l_launch)
+        rows.append(row)
+        log(f"serving rep {i}: continuous {cont} tok/s ({c_n} tokens in "
+            f"{c_secs}s), lockstep {lock} tok/s ({l_n} in {l_secs}s), "
+            f"ratio {cont / lock}, BE {be} over {blocks} slot-blocks, pool "
+            f"blocks {c_pool} / {l_pool}, the two schedules' streams "
+            f"identical: {row['same_streams']}; "
+            f"launches continuous {c_launch}, lockstep {l_launch}")
+    med = sorted(rows, key=lambda r: r["ratio"])[len(rows) // 2]
+    return dict(med, ratios=[r["ratio"] for r in rows], reps=rows,
+                reference=SRV_REF)
 
 
 def calibrate(cfg_s, cfg_b, device, n_runs: int = PROBE_RUNS):
@@ -337,10 +464,10 @@ def main(argv=None):
     how.add_argument("--calibrate", action="store_true",
                      help="find the scale whose tokenwise BE is 5.99 first")
     ap.add_argument("--rows", default="k1,k11,ar",
-                    help="comma-separated rows: k1, k11, ar")
+                    help="comma-separated rows: k1, k11, ar, serving")
     args = ap.parse_args(argv)
     rows = [r for r in args.rows.split(",") if r]
-    bad = set(rows) - {"k1", "k11", "ar"}
+    bad = set(rows) - {"k1", "k11", "ar", "serving"}
     if bad:
         ap.error(f"unknown rows {sorted(bad)}")
     if not torch.cuda.is_available():

@@ -6,9 +6,9 @@ from typing import Optional
 
 import torch
 
-from .blockwise import verify_blockwise, verify_greedy
-from .hsd import verify_hsd
-from .tokenwise import verify_tokenwise
+from .blockwise import blockwise_noise, verify_blockwise, verify_greedy
+from .hsd import hsd_noise, verify_hsd
+from .tokenwise import tokenwise_noise, verify_tokenwise
 
 _METHODS = {
     "tokenwise": verify_tokenwise,
@@ -22,6 +22,21 @@ _METHODS = {
 TELEMETRY_METHODS = ("tokenwise", "hsd", "hsd_ref")
 # the methods with a striped row layout (the others are single-draft)
 STRIPED_METHODS = TELEMETRY_METHODS
+
+
+def verify_noise(method: str, K: int, gamma: int, V: int,
+                 generator: Optional[torch.Generator], device):
+    """The noise bundle `verify(method, ..., generator=generator)` draws,
+    drawn in the same order from the same generator (None for greedy, which
+    draws nothing), so a caller can draw it beforehand and pass it as
+    `noise` (under torch.func.vmap, say)."""
+    if method == "greedy":
+        return None
+    if method == "blockwise":
+        return blockwise_noise(gamma, V, generator, device)
+    if method == "tokenwise":
+        return tokenwise_noise(K, gamma, V, generator, device)
+    return hsd_noise(K, gamma, V, generator, device)
 
 
 def verify(method: str, draft_tokens: torch.Tensor, q: torch.Tensor,

@@ -142,3 +142,53 @@ def test_rows_end_to_end_on_cpu():
     a = B.run_row(gen, draft, target, B.FOLD["tokenwise"], 2, "cpu",
                   CFG_B.vocab_size, warm=False)
     assert a["per_run"] == rows["tokenwise_k1"]["per_run"]
+
+
+def bench_serving_requests(vocab, reqs, max_new):
+    """bench.py's draw (:162-166), written out: a prompt length in [32,
+    64), that many ids in [1, vocab - 2), then a budget in [max_new // 4,
+    max_new]."""
+    rng = np.random.default_rng(0)
+    out = []
+    for _ in range(reqs):
+        n = int(rng.integers(32, 64))
+        ids = rng.integers(1, vocab - 2, (n,)).tolist()
+        out.append((ids, int(rng.integers(max_new // 4, max_new + 1))))
+    return out
+
+
+def test_serving_requests_are_the_references():
+    got = B.serving_requests(151936)
+    assert got == bench_serving_requests(151936, 32, 48)
+    assert all(32 <= len(p) < 64 and 12 <= mn <= 48 for p, mn in got)
+    assert all(1 <= t < 151936 - 2 for p, _ in got for t in p)
+
+
+def test_serving_row_on_cpu(monkeypatch):
+    """The serving row through bench_main at a tiny size (4 slots, 8
+    requests, 12 new tokens, 2 reps) on the 2-layer pair's draft and small
+    trunk: both schedules serve every request with the same streams (one
+    generator a request id), so BE and the committed tokens repeat over
+    reps; the warm engine is outside the clock and the counters; measure's
+    `serving` row wires it after freeing the big trunk."""
+    draft, target, _ = B.build_pair(CFG_S, CFG_B, 1.5, "cpu")
+    row = B.serving_row(draft, target.small, CFG_S, "cpu", n_slots=4,
+                        reqs=8, max_new=12, reps=2)
+    assert len(row["ratios"]) == 2 and row["ratio"] in row["ratios"]
+    assert row["reference"] == {"ratio": 1.256,
+                                "ratios": [1.245, 1.256, 1.261], "be": 4.66}
+    for rep in row["reps"]:
+        assert rep["same_streams"]
+        assert rep["cont_tokens"] == rep["lock_tokens"] == row["cont_tokens"]
+        assert rep["be"] == row["be"] and 1.0 <= rep["be"] <= B.SRV_GAMMA + 1
+        assert rep["cont_tok_s"] > 0 and rep["lock_tok_s"] > 0
+        assert 0 < rep["pool_blocks_cont"] <= rep["pool_blocks_lock"]
+        assert not any(rep["launches_cont"].values())
+    calls = []
+    monkeypatch.setattr(B, "serving_row",
+                        lambda d, s, cfg, dev: calls.append(
+                            (cfg, dev)) or {"be": 2.0, "cont_tok_s": 1.0,
+                                            "lock_tok_s": 1.0, "ratio": 1.0,
+                                            "ratios": [1.0]})
+    out = B.measure(["serving"], 1.5, CFG_S, CFG_B, "cpu")
+    assert calls == [(CFG_S, "cpu")] and out["rows"]["serving"]["be"] == 2.0

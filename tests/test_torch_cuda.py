@@ -656,6 +656,21 @@ def test_tail_row_bits_independent_of_row_count(dev, kernel, dtype):
                                full[:n]), (d, n)
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("kernel", ["K2", "K6"])
+def test_tail_at_slot_pool_rows(dev, kernel, dtype):
+    """A slot pool routes on one slot's rows (ops.linear.route_rows) and
+    hands K2 / K6 every slot's rows at once: 48, 88 and 96 rows (8 slots of
+    6 and 11 rows, 3 of 32) against the plain version, each row's bits
+    those of a 32-row call."""
+    ws, x, res, ln = _tail_case(dev, 80, 512, 1024, 512, dtype, 96)
+    full = _tail_call(kernel, ws, x, res, ln)
+    _close(full, _tail_call(kernel, ws, x, res, ln, plain=True), dtype)
+    for n in (32, 48, 88):
+        assert torch.equal(_tail_call(kernel, ws, x[:n], res[:n], ln),
+                           full[:n]), n
+
+
 def _attention_case(dev, dtype, T, H, Hkv, d, S, kv_len, start, bias, seed):
     g = torch.Generator(device=dev).manual_seed(seed)
     q = (torch.randn((T, H, d), generator=g, device=dev) * 2).to(dtype)

@@ -301,15 +301,19 @@ def test_forward_hooks_parity(model):
 
 
 def test_forward_lengths_need_staging():
-    """Per-row lengths come with the staged tree block only (the unstaged
-    ragged append has no caller in the port)."""
+    """Per-row lengths with the per-row tree bias come with the staged tree
+    block only: the unstaged ragged append (the speculative slot pool's,
+    tests/test_torch_ragged.py) takes no bias; staging needs the lengths."""
     jcfg, make = MODELS["dense"]
     tcfg, tp = _tcfg(jcfg), bridge.params_from_jax(make(jcfg))
     tc = tkv.init_cache(tcfg, 2, 16, "cpu")
     toks = torch.zeros((2, 3), dtype=torch.int64)
-    with pytest.raises(ValueError, match="go together"):
+    with pytest.raises(ValueError, match="takes no attn_bias"):
         ttr.forward(tcfg, tp, toks, tc, attn_bias=torch.zeros((2, 3, 3)),
                     lengths=torch.tensor([1, 2]))
+    with pytest.raises(ValueError, match="needs per-row lengths"):
+        ttr.forward(tcfg, tp, toks, tc, attn_bias=torch.zeros((2, 3, 3)),
+                    staging_at=12)
 
 
 @pytest.mark.parametrize("model", ["dense", "int8"])

@@ -6,9 +6,10 @@ the port against the JAX package.
 * The striped verifiers' decisions identical to JAX's `verify(...,
   striped=True)` under the JAX noise, on random R-row problems whose branch
   rows mirror row 0 up to their activation step.
-* `_draft_block_striped` against JAX's on a bridged 2-layer f32 model, fed
-  JAX's per-row Gumbel draws: tokens equal, q within 1e-5, and each
-  mirrored row's cache entries bitwise row 0's up to its activation step.
+* The striped `draft_rows` against JAX's `_draft_block_striped` on a
+  bridged 2-layer f32 model, fed JAX's per-row Gumbel draws: tokens equal,
+  q within 1e-5, and each mirrored row's cache entries bitwise row 0's up
+  to its activation step.
 * make_generate and make_stream_generate with the striped layout on a tiny
   pair.
 """
@@ -29,7 +30,7 @@ from hsd_tpu.verify import dispatch as jdisp
 from hsd_tpu_torch import bridge
 from hsd_tpu_torch.config import EngineConfig, ModelConfig, VerifierConfig
 from hsd_tpu_torch.engine import make_generate, make_stream_generate
-from hsd_tpu_torch.engine.speculative import _draft_block_striped
+from hsd_tpu_torch.engine.speculative import draft_rows
 from hsd_tpu_torch.models import init_params
 from hsd_tpu_torch.ops.sampling import processor
 from hsd_tpu_torch.verify import verify as tverify
@@ -161,8 +162,8 @@ def test_draft_block_striped_matches_jax(K):
     tp = bridge.params_from_jax(jp)
     tc = bridge.cache_from_jax(jc)
     pt = torch.from_numpy(prompt).long()
-    tt, tq, tc2 = _draft_block_striped(TCFG, tp, tc, pt[-2], pt[-1], gamma,
-                                       K, processor(temp), None, noise=noise)
+    tt, tq, tc2 = draft_rows(TCFG, tp, tc, pt[-2], pt[-1], gamma, K, True,
+                             processor(temp), None, noise=lambda j: noise[j])
     np.testing.assert_array_equal(tt.numpy(), np.asarray(jt))
     np.testing.assert_allclose(tq.numpy(), np.asarray(jq), atol=1e-5,
                                rtol=0)

@@ -68,7 +68,7 @@ def draft_markov(q_table: torch.Tensor, last: torch.Tensor, gamma: int,
     """Draft rows [N, R, gamma] for N trials whose newest token is `last`
     [N]: K independent rows, or the striped tree's R = 1 + gamma * (K - 1)
     rows (a row whose activation step is later than j takes row 0's token
-    at step j, as `_draft_block_striped` does)."""
+    at step j, as `draft_rows` does)."""
     N = last.shape[0]
     R = 1 + gamma * (K - 1) if striped else K
     act = torch.cat([torch.zeros((1,), dtype=torch.int64),
