@@ -165,6 +165,42 @@ Phases (any failure exits nonzero, with no result line):
  14. greedy v3  on 2-layer float32 pairs with a packed-int4 trunk: greedy
                v3 EAGLE, static-tree EAGLE and every EagleSlotEngine v3
                request must equal AR
+ 15. mixtral   the EAGLE pairs are freed; phase 5's coupled pair with
+               Mixtral-8x7B's full geometry (32 layers, 8 experts, top-2,
+               D 4096, F 14336, vocab 32000) as the packed-int4 trunk and
+               the 0.5B draft at vocab 32000: its GiB; K3 at the expert
+               shapes (11 rows) vs plain, timed as in phase 4; hsd and
+               tokenwise (gamma 10, K 1) on phase 5's three prompts x 64
+               new tokens and AR over 32, printing BE and tok/s (no bar: lam
+               0, the BE comes from the 0.5B trunk), K1, K3, K4 launched
+               and K2, K6, K7, K7i4, K8 not (with --trace, a profiled
+               64-token hsd window); one 11-row target verify
+               launching K1 exactly 32 and K3 exactly 32 * (1 + 24) + 1 =
+               801 times, its wall ms and, under the profiler, its device ms
+               by kernel and idle share; layer 0's router logits, top-k and
+               _moe_ffn output bitwise equal at 1, 11 and 64 rows; greedy
+               spec vs AR over 64 tokens on the target alone (gamma 4; the
+               common prefix, printed)
+ 15g. greedy moe  2-layer float32 MoE targets (4 experts, top-2, D 256,
+               F 512) with packed-int4 symmetric weights, int8 asymmetric
+               experts and packed-int4 asymmetric experts with desc_act
+               perms: one target forward launches exactly K1 2 / K3 27, K4
+               24 and K3 24 respectively; greedy hsd, tokenwise and EAGLE-3
+               over each must equal AR
+ 16. loader    a 1-layer Mixtral GPTQ checkpoint at full width (auto-gptq
+               v1: int32-packed 4-bit codes and zero points, f16 scales,
+               group 128, g_idx permuted on expert 5's w2; f16 embedding and
+               lm_head; ~1.3 GB) written with this script's own safetensors
+               writer from a seeded numpy generator, with a random f16
+               EAGLE-3 head beside it; load_hf onto the card; on 64 and
+               11 rows of the normed embedding, every layer-0 expert
+               product against its plain version (dequantize, then an f32
+               matmul), each one K3 launch (zero points; the perm's
+               gather), and the MoE block against its plain version, 24 K3
+               launches; then the phase's counted run: a 64-token prefill
+               and an 11-row decode step, Eagle.from_pretrained, generate
+               32 tokens in hsd mode (tokens in range, accepts within the
+               trie's depth) and naive_generate 32; the directory deleted
 The line before the last is the kernels' JSON summary; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -174,13 +210,16 @@ import dataclasses
 import hashlib
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 if not torch.cuda.is_available():
     print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -198,7 +237,7 @@ from hsd_tpu_torch.engine.server import SlotEngine
 from hsd_tpu_torch.engine.speculative import make_generate_batched
 from hsd_tpu_torch.engine.uad import UadDrafter, make_uad_generate
 from hsd_tpu_torch.eval.synthetic import (build_coupled_eagle_pair,
-                                          build_coupled_pair,
+                                          build_coupled_pair, group_size,
                                           init_quantized_params,
                                           make_coupled_eagle_target,
                                           make_coupled_target, quantize_draft)
@@ -207,6 +246,8 @@ from hsd_tpu_torch.models.choices import (build_tree_buffers,
 from hsd_tpu_torch.models.eagle import (EagleConfig, init_eagle_params,
                                         quantize_eagle_params)
 from hsd_tpu_torch.engine.kvcache import init_cache, select_draft_row
+from hsd_tpu_torch.modeling_eagle import Eagle
+from hsd_tpu_torch.models.loader import load_hf
 from hsd_tpu_torch.engine.speculative import draft_rows
 from hsd_tpu_torch.ops.sampling import processor
 from hsd_tpu_torch.models import transformer
@@ -216,7 +257,8 @@ from hsd_tpu_torch.ops import _build, launch_counts, reset_launches
 from hsd_tpu_torch.ops import flash_decode as FD
 from hsd_tpu_torch.ops import gptq_cuda as G
 from hsd_tpu_torch.ops.linear import (QuantizedLinear, apply_linear,
-                                      apply_mlp, quantize, rms_norm)
+                                      apply_mlp, dequantize, quantize,
+                                      rms_norm)
 from hsd_tpu_torch.tools import bench_main as BM
 
 DEV = torch.device("cuda")
@@ -239,6 +281,11 @@ STRIPED_K, STRIPED_NEW = 2, 64             # phase 5f: R = 1 + 10 * (2 - 1)
 SERVING_REQS = 16                          # phase 5g: cut from the row's 32
 UAD_NEW, UAD_GAMMA = 64, 4                 # phase 5h
 LONG_LENS, LONG_ITERS = (1056, 2080, 4128), 10
+MIXTRAL_VERIFY = 11                        # phase 15: gamma + 1 rows
+MIXTRAL_NEW = 64                           # phase 15: cut from phase 5's 128
+MIXTRAL_ROWS = (1, 11, 64)                 # phase 15's row-bit check
+MIXTRAL_GREEDY_NEW, MIXTRAL_GREEDY_GAMMA = 64, 4
+LOADER_SEED, LOADER_PERM = 16, 5           # phase 16: w2 of expert 5 permuted
 T0 = time.time()
 
 
@@ -1449,12 +1496,17 @@ def host_cost(draft, target):
     return out
 
 
-def main_path(draft, target, cfg_s, cfg_b, trace):
+def main_path(draft, target, cfg_s, cfg_b, trace, launched=SPEC_KERNELS,
+              absent=("K8",), max_new=MAX_NEW):
+    """hsd and tokenwise (gamma 10, K 1) on N_PROMPTS prompts of BUCKET
+    tokens, max_new new tokens each, on the coupled pair; every kernel of
+    `launched` must launch over the two runs and none of `absent`; then AR
+    over AR_NEW tokens. Returns (results, the runs' launch counts)."""
     fwd, ops = make_coupled_target(cfg_s, cfg_b)
     prompts = [((torch.arange(BUCKET, device=DEV) + 97 * i) % 1000) + 10
                for i in range(N_PROMPTS)]
 
-    def gen_for(method, max_new=MAX_NEW, temperature=1.0):
+    def gen_for(method, max_new=max_new, temperature=1.0):
         eng = EngineConfig(verifier=VerifierConfig(method=method, gamma=GAMMA,
                                                    num_drafts=1),
                            max_new_tokens=max_new, temperature=temperature)
@@ -1491,11 +1543,12 @@ def main_path(draft, target, cfg_s, cfg_b, trace):
             f"{toks / secs:.2f} tok/s ({toks} tokens in {secs:.2f}s)")
     counts = launch_counts()
     log(f"launch counters over the hsd+tokenwise runs: {counts}")
-    for k in SPEC_KERNELS:
+    for k in launched:
         if counts[k] <= 0:
             raise AssertionError(f"kernel {k} was not launched on the main path")
-    if counts["K8"]:
-        raise AssertionError("K8 launched on the default path")
+    for k in absent:
+        if counts[k]:
+            raise AssertionError(f"{k} launched on the default path")
 
     ar = make_autoregressive(cfg_b, EngineConfig(max_new_tokens=AR_NEW),
                              model_forward=fwd, cache_init=ops[0])
@@ -1516,24 +1569,31 @@ def main_path(draft, target, cfg_s, cfg_b, trace):
             trace_window(gen_for("hsd", max_new=56), draft, target,
                          prompts[1])
         host_cost(draft, target)
+    return results, counts
 
-    # full-width greedy: report only the common prefix of spec and AR
-    eng0 = EngineConfig(verifier=VerifierConfig(method="greedy", gamma=GAMMA),
-                        max_new_tokens=32, temperature=0.0)
+
+def greedy_prefix(cfg_s, cfg_b, draft, target, prompt, new, gamma, fwd=None,
+                  ops=None):
+    """Greedy speculative decoding and greedy AR over `new` tokens at full
+    width (the target's own forward unless `fwd` / `ops` are given): the
+    length of the streams' common prefix, reported only (a bf16 einsum
+    may round by row count)."""
+    eng0 = EngineConfig(verifier=VerifierConfig(method="greedy", gamma=gamma),
+                        max_new_tokens=new, temperature=0.0)
     res = make_generate(cfg_s, cfg_b, eng0, target_forward=fwd,
-                        target_cache_ops=ops)(draft, target, prompts[0],
+                        target_cache_ops=ops)(draft, target, prompt,
                                               BUCKET, None)
     ar_toks, ar_len = make_autoregressive(
-        cfg_b, eng0, model_forward=fwd, cache_init=ops[0])(
-            target, prompts[0], BUCKET, None)
+        cfg_b, eng0, model_forward=fwd,
+        cache_init=None if ops is None else ops[0])(target, prompt, BUCKET,
+                                                    None)
     a = res.tokens[BUCKET:res.length].tolist()
     b = ar_toks[BUCKET:ar_len].tolist()
     common = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y),
                   min(len(a), len(b)))
     log(f"full-width greedy: spec and AR agree on the first {common} of "
         f"{min(len(a), len(b))} tokens")
-    results["greedy_common_prefix"] = common
-    return results, counts
+    return common
 
 
 def greedy_small():
@@ -2236,6 +2296,466 @@ def eagle_greedy_v3_small():
         raise AssertionError(f"greedy v3 missed a kernel: {used}")
 
 
+def param_bytes(obj):
+    """Device bytes of every tensor in a parameter structure."""
+    if isinstance(obj, torch.Tensor):
+        return obj.numel() * obj.element_size()
+    if isinstance(obj, dict):
+        return sum(param_bytes(v) for v in obj.values())
+    if isinstance(obj, tuple):
+        return sum(param_bytes(v) for v in obj)
+    return 0
+
+
+def moe_row_bits(cfg, lp, rows, dtype, seed):
+    """A row's router logits, top-k, weights and `_moe_ffn` output are the
+    same bits at every row count of `rows` (asserted against the largest)."""
+    g = torch.Generator(device=DEV).manual_seed(seed)
+    n_max = max(rows)
+    h = torch.randn((n_max, cfg.hidden_size), generator=g,
+                    device=DEV).to(dtype)
+    full = transformer.moe_route(cfg, lp["gate"], h)
+    out = transformer._moe_ffn(cfg, lp, h[None])[0]
+    for n in rows:
+        part = transformer.moe_route(cfg, lp["gate"], h[-n:])
+        got = transformer._moe_ffn(cfg, lp, h[None, -n:])[0]
+        same = (all(torch.equal(a, b[-n:]) for a, b in zip(part, full))
+                and torch.equal(got, out[-n:]))
+        if not same:
+            raise AssertionError(f"MoE row bits at {n} rows differ from "
+                                 f"{n_max}")
+    log(f"a row's router logits, top-k and _moe_ffn output are the same "
+        f"bits at {', '.join(map(str, rows))} rows")
+
+
+def launches_around(fn):
+    """(fn's result, the kernel launches it made)."""
+    before = launch_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {k: v - before[k] for k, v in launch_counts().items()}
+
+
+def expect_launches(label, used, want):
+    """`used` must be exactly `want` (kernel -> count), every other kernel
+    zero."""
+    bad = {k: v for k, v in used.items() if v != want.get(k, 0)}
+    log(f"{label}: launches {used}")
+    if bad:
+        raise AssertionError(f"{label}: launches {bad}, want {want}")
+
+
+def mixtral_phase(trace):
+    """Phase 15: Mixtral-8x7B at full width (32 layers, 8 experts, top-2)
+    as the packed-int4 trunk of phase 5's coupled pair; K3 at the expert
+    shapes; hsd / tokenwise / AR (with trace, a profiled hsd window); one
+    verify's launches, wall and device time; a row's MoE bits across row
+    counts; greedy spec vs AR on the target alone."""
+    cfg_s = ModelConfig.qwen2_05b(vocab_size=32000, eos_token_id=2)
+    cfg_m = ModelConfig.mixtral_8x7b()
+    t0 = time.time()
+    draft, target = build_coupled_pair(0, cfg_s, cfg_m, lam=0.0,
+                                       logit_scale=LOGIT_SCALE, device=DEV)
+    torch.cuda.synchronize()
+    big = target.big
+    out = dict(trunk_gib=param_bytes(big) / 2**30,
+               alloc_gib=torch.cuda.memory_allocated() / 2**30)
+    log(f"mixtral pair built in {time.time() - t0:.1f}s: the Mixtral-8x7B "
+        f"int4 trunk {out['trunk_gib']:.2f} GiB, {out['alloc_gib']:.2f} GiB "
+        f"allocated")
+    g = torch.Generator(device=DEV).manual_seed(151)
+    act = lambda n, d: torch.randn((n, d), generator=g, device=DEV).to(
+        torch.bfloat16)
+    for name, label in (("wgate", "mixtral expert w1 4096x14336"),
+                        ("wdown", "mixtral expert w2 14336x4096")):
+        quant_case("K3", label, big.layers[name].layer(0), MIXTRAL_VERIFY,
+                   act, None, 0.0)
+
+    out["results"], out["counts"] = main_path(
+        draft, target, cfg_s, cfg_m, False, launched=("K1", "K3", "K4"),
+        absent=("K2", "K6", "K7", "K7i4", "K8"), max_new=MIXTRAL_NEW)
+    if trace:
+        fwd, ops = make_coupled_target(cfg_s, cfg_m)
+        eng = EngineConfig(verifier=VerifierConfig(method="hsd", gamma=GAMMA),
+                           max_new_tokens=MIXTRAL_NEW)
+        out["trace"] = trace_window(
+            make_generate(cfg_s, cfg_m, eng, target_forward=fwd,
+                          target_cache_ops=ops), draft, target,
+            ((torch.arange(BUCKET, device=DEV) + 97) % 1000) + 10)
+
+    # one 11-row target verify after a 64-row prefill: its launches, its
+    # wall time, and under the profiler its device time by kernel
+    toks = ((torch.arange(BUCKET + MIXTRAL_VERIFY, device=DEV) * 7) % 1000
+            + 10)[None]
+    cache = init_cache(cfg_m, 1, 2 * BUCKET, DEV)
+    transformer.forward(cfg_m, big, toks[:, :BUCKET], cache, skip_head=True)
+    verify = lambda: transformer.forward(
+        cfg_m, big, toks[:, BUCKET:], cache.replace(length=BUCKET))[0]
+    logits, used = launches_around(verify)
+    if not (logits.shape == (1, MIXTRAL_VERIFY, cfg_m.vocab_size)
+            and bool(torch.isfinite(logits).all())):
+        raise AssertionError("mixtral verify: logits not finite")
+    L, E = cfg_m.num_layers, cfg_m.num_experts
+    expect_launches(f"one {MIXTRAL_VERIFY}-row Mixtral verify", used,
+                    {"K1": L, "K3": L * (1 + 3 * E) + 1})
+    walls = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        verify()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t1) * 1e3)
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t1 = time.perf_counter()
+        verify()
+        torch.cuda.synchronize()
+        prof_wall = (time.perf_counter() - t1) * 1e3
+    rows = device_rows(prof)
+    busy = sum(r[0] for r in rows) / 1e3
+    out["verify"] = dict(wall_ms=statistics.median(walls),
+                         wall_ms_all=walls, profiled_wall_ms=prof_wall,
+                         device_ms=busy, idle_share=1 - busy / prof_wall,
+                         device_ops=sum(r[1] for r in rows))
+    log(f"one {MIXTRAL_VERIFY}-row Mixtral verify: wall "
+        f"{out['verify']['wall_ms']:.2f} ms (median of 5: {walls}); under "
+        f"the profiler wall {prof_wall:.2f} ms, device busy {busy:.3f} ms, "
+        f"idle {out['verify']['idle_share']:.3f}, "
+        f"{out['verify']['device_ops']} device ops")
+    for dev_us, count, key in rows[:8]:
+        log(f"  {dev_us / 1e3:9.3f} ms  x{count:<6} {key[:90]}")
+
+    moe_row_bits(cfg_m, transformer.moe_params(big.layers, 0), MIXTRAL_ROWS,
+                 torch.bfloat16, seed=152)
+    prompt = ((torch.arange(BUCKET, device=DEV) + 5) % 1000) + 10
+    out["greedy_common_prefix"] = greedy_prefix(
+        cfg_s, cfg_m, draft, big, prompt, MIXTRAL_GREEDY_NEW,
+        MIXTRAL_GREEDY_GAMMA)
+    r = out["results"]
+    log(f"mixtral: hsd BE {r['hsd']['be']:.4f} {r['hsd']['tok_s']:.2f} "
+        f"tok/s, tokenwise BE {r['tokenwise']['be']:.4f} "
+        f"{r['tokenwise']['tok_s']:.2f} tok/s, AR {r['ar_tok_s']:.2f} tok/s")
+    return out
+
+
+def quantize_experts(params, bits, symmetric, perm_seed=None):
+    """The MoE expert stacks of a dense model quantized one (layer, expert)
+    matrix at a time (`quantize`); with perm_seed each matrix's rows go in
+    a random order, kept in an [L, E, in] perm (a desc_act layout)."""
+    g = (None if perm_seed is None
+         else torch.Generator(device=DEV).manual_seed(perm_seed))
+    layers = dict(params.layers)
+    for name in ("wgate", "wup", "wdown"):
+        w = layers[name]
+        L, E, din, _ = w.shape
+        qs = []
+        for l in range(L):
+            for e in range(E):
+                p = (None if g is None
+                     else torch.randperm(din, generator=g, device=DEV))
+                q = quantize(w[l, e] if p is None else w[l, e][p], bits=bits,
+                             group_size=group_size(din), symmetric=symmetric)
+                qs.append(q._replace(perm=p))
+        st = lambda f: (None if getattr(qs[0], f) is None else torch.stack(
+            [getattr(q, f) for q in qs]).reshape(
+                L, E, *getattr(qs[0], f).shape))
+        layers[name] = QuantizedLinear(*(st(f) for f in QuantizedLinear._fields))
+    return params._replace(layers=layers)
+
+
+def greedy_moe_small():
+    """Phase 15g: 2-layer float32 MoE targets (4 experts, top-2, D 256,
+    F 512, widths the kernels' gates take) with packed-int4 symmetric
+    (K1, K3), int8 asymmetric experts (K4) and packed-int4 asymmetric
+    experts with desc_act perms (K3): one target forward's launches exactly,
+    then greedy hsd, tokenwise and EAGLE-3 == AR."""
+    cfg = ModelConfig.tiny_moe(vocab_size=512, hidden_size=256,
+                               intermediate_size=512, num_heads=4,
+                               num_kv_heads=2, eos_token_id=10**9)
+    cfg_d = ModelConfig.tiny(vocab_size=512, hidden_size=256,
+                             intermediate_size=512, num_heads=4,
+                             num_kv_heads=2, dtype=torch.float32,
+                             eos_token_id=10**9)
+    draft = quantize_draft(cfg_d, fuse_params(cfg_d, init_params(
+        cfg_d, seed=5, device=DEV)), bits=8)
+    base = fuse_params(cfg, init_params(cfg, seed=7, device=DEV))
+    ecfg = EagleConfig(hidden_size=256, target_hidden_size=256, num_heads=4,
+                       num_kv_heads=2, vocab_size=512, draft_vocab_size=512,
+                       intermediate_size=512, rope_theta=cfg.rope_theta,
+                       top_k=4, depth=3, total_tokens=11,
+                       dtype=torch.float32, version=3)
+    head = init_eagle_params(ecfg, seed=9, device=DEV)
+    L, E = cfg.num_layers, cfg.num_experts
+    variants = (
+        ("int4 symmetric", init_quantized_params(cfg, seed=6, bits=4,
+                                                 device=DEV),
+         {"K1": L, "K3": L * (1 + 3 * E) + 1}),
+        ("int8 asymmetric experts", quantize_experts(base, 8, False),
+         {"K4": L * 3 * E}),
+        ("int4 asymmetric experts, desc_act perms",
+         quantize_experts(base, 4, False, perm_seed=8), {"K3": L * 3 * E}))
+    prompt = (torch.arange(16, device=DEV) % 300) + 3
+    eng = EngineConfig(max_new_tokens=32, temperature=0.0)
+    for label, target, want in variants:
+        _, used = launches_around(lambda: transformer.forward(
+            cfg, target, prompt[None, :5], init_cache(cfg, 1, 8, DEV)))
+        expect_launches(f"greedy moe ({label}), one 5-row target forward",
+                        used, want)
+        toks, length = make_autoregressive(cfg, eng)(target, prompt, 12, None)
+        ar = toks[16:length].tolist()
+        for method in ("hsd", "tokenwise"):
+            e = EngineConfig(verifier=VerifierConfig(method=method, gamma=4),
+                             max_new_tokens=32, temperature=0.0)
+            res = make_generate(cfg_d, cfg, e)(
+                draft, target, prompt, 12,
+                torch.Generator(device=DEV).manual_seed(3))
+            got = res.tokens[16:res.length].tolist()
+            log(f"greedy moe ({label}) {method}: {len(got)} tokens, == AR: "
+                f"{got == ar}")
+            if got != ar or len(got) < 32:
+                raise AssertionError(f"greedy moe {method} != AR:\n{got}\n"
+                                     f"{ar}")
+        res = make_eagle_generate(cfg, ecfg, eng, mode="greedy")(
+            target, head, prompt, 12, None)
+        got = res.tokens[16:res.length].tolist()
+        log(f"greedy moe ({label}) EAGLE-3: {len(got)} tokens in "
+            f"{res.blocks} blocks, == AR: {got == ar}")
+        if got != ar:
+            raise AssertionError(f"greedy EAGLE over MoE != AR:\n{got}\n{ar}")
+
+
+def write_safetensors(path, tensors):
+    """A .safetensors file of numpy arrays: the 8-byte little-endian header
+    length, the JSON header (padded to 8 bytes), the raw bytes."""
+    codes = {np.dtype(np.float32): "F32", np.dtype(np.float16): "F16",
+             np.dtype(np.int32): "I32", np.dtype(np.int64): "I64"}
+    header, at = {}, 0
+    for name, a in tensors.items():
+        header[name] = {"dtype": codes[a.dtype], "shape": list(a.shape),
+                        "data_offsets": [at, at + a.nbytes]}
+        at += a.nbytes
+    h = json.dumps(header).encode()
+    h += b" " * (-len(h) % 8)
+    with open(path, "wb") as f:
+        f.write(len(h).to_bytes(8, "little") + h)
+        for a in tensors.values():
+            np.ascontiguousarray(a).tofile(f)
+
+
+def gptq_layer(t, rng, name, din, dout, desc_act=False, gs=128):
+    """One auto-gptq v1 4-bit layer: int32-packed codes (eight uniform
+    nibbles a word) and zero points, f16 scales, g_idx (a permutation of
+    the groups' rows with desc_act)."""
+    groups = din // gs
+    t[name + ".qweight"] = rng.integers(0, 2**32, (din // 8, dout),
+                                        dtype=np.uint32).view(np.int32)
+    t[name + ".qzeros"] = rng.integers(0, 2**32, (groups, dout // 8),
+                                       dtype=np.uint32).view(np.int32)
+    t[name + ".scales"] = rng.uniform(2e-3, 1e-2, (groups, dout)).astype(
+        np.float16)
+    g_idx = np.arange(din) // gs
+    t[name + ".g_idx"] = (rng.permutation(g_idx) if desc_act
+                          else g_idx).astype(np.int32)
+
+
+def write_mixtral_checkpoint(path, rng, cfg):
+    """A 1-layer Mixtral GPTQ checkpoint at the config's width (auto-gptq
+    v1 layout, group 128, desc_act g_idx on expert LOADER_PERM's w2; f16
+    embedding, lm_head, norms and router)."""
+    D, Fi, V, E = (cfg.hidden_size, cfg.intermediate_size, cfg.vocab_size,
+                   cfg.num_experts)
+    H, Hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim_
+    f16 = lambda *shape, s=0.02: (rng.standard_normal(shape, np.float32)
+                                  * s).astype(np.float16)
+    t = {"model.embed_tokens.weight": f16(V, D), "lm_head.weight": f16(V, D),
+         "model.norm.weight": np.ones(D, np.float16)}
+    p = "model.layers.0."
+    t[p + "input_layernorm.weight"] = np.ones(D, np.float16)
+    t[p + "post_attention_layernorm.weight"] = np.ones(D, np.float16)
+    for nm, dout, din in (("q_proj", H * hd, D), ("k_proj", Hkv * hd, D),
+                          ("v_proj", Hkv * hd, D), ("o_proj", D, H * hd)):
+        gptq_layer(t, rng, p + "self_attn." + nm, din, dout)
+    t[p + "block_sparse_moe.gate.weight"] = f16(E, D, s=D ** -0.5)
+    for e in range(E):
+        q = p + f"block_sparse_moe.experts.{e}."
+        gptq_layer(t, rng, q + "w1", D, Fi)
+        gptq_layer(t, rng, q + "w3", D, Fi)
+        gptq_layer(t, rng, q + "w2", Fi, D, desc_act=(e == LOADER_PERM))
+    os.makedirs(path)
+    write_safetensors(os.path.join(path, "model.safetensors"), t)
+    with open(os.path.join(path, "config.json"), "w") as f:
+        json.dump(dict(model_type="mixtral", vocab_size=V, hidden_size=D,
+                       intermediate_size=Fi, num_hidden_layers=1,
+                       num_attention_heads=H, num_key_value_heads=Hkv,
+                       rope_theta=cfg.rope_theta,
+                       rms_norm_eps=cfg.rms_norm_eps,
+                       tie_word_embeddings=False, num_local_experts=E,
+                       num_experts_per_tok=cfg.num_experts_per_tok,
+                       eos_token_id=cfg.eos_token_id,
+                       quantization_config=dict(
+                           quant_method="gptq", bits=4, group_size=128,
+                           sym=False, desc_act=True)), f)
+    return sum(a.nbytes for a in t.values())
+
+
+def write_eagle3_head(path, rng, D, V, H, Hkv, Fi):
+    """A random f16 EAGLE-3 head checkpoint (midlayer.* / fc / norm /
+    lm_head) with the full draft vocabulary, and its config.json."""
+    hd = D // H
+    f16 = lambda *shape: (rng.standard_normal(shape, np.float32)
+                          * shape[-1] ** -0.5).astype(np.float16)
+    m = "midlayer."
+    t = {"fc.weight": f16(D, 3 * D),
+         m + "input_layernorm.weight": np.ones(D, np.float16),
+         m + "hidden_norm.weight": np.ones(D, np.float16),
+         m + "self_attn.q_proj.weight": f16(H * hd, 2 * D),
+         m + "self_attn.k_proj.weight": f16(Hkv * hd, 2 * D),
+         m + "self_attn.v_proj.weight": f16(Hkv * hd, 2 * D),
+         m + "self_attn.o_proj.weight": f16(D, H * hd),
+         m + "post_attention_layernorm.weight": np.ones(D, np.float16),
+         m + "mlp.gate_proj.weight": f16(Fi, D),
+         m + "mlp.up_proj.weight": f16(Fi, D),
+         m + "mlp.down_proj.weight": f16(D, Fi),
+         "norm.weight": np.ones(D, np.float16), "lm_head.weight": f16(V, D)}
+    os.makedirs(path)
+    write_safetensors(os.path.join(path, "model.safetensors"), t)
+    with open(os.path.join(path, "config.json"), "w") as f:
+        json.dump(dict(hidden_size=D, num_attention_heads=H,
+                       num_key_value_heads=Hkv, vocab_size=V,
+                       draft_vocab_size=V, intermediate_size=Fi,
+                       rope_theta=1e6, rms_norm_eps=1e-5), f)
+
+
+def loaded_moe_check(cfg, lp, x):
+    """Layer 0's MoE block of the loaded model on x [n, D]: each expert
+    product through apply_linear (exactly one K3 launch) against
+    x @ dequantize(w) in f32 on the same input, and `_moe_ffn` (exactly
+    3 * E K3 launches) against the plain block: moe_route's weights times
+    each expert's SwiGLU of f32 products with the dequantized weights,
+    rounded where `_moe_ffn` rounds (each product and silu(g) * u to the
+    activation dtype), summed over the experts in f32.
+    Returns the worst relative errors (of a product, of the block)."""
+    _, _, weights = transformer.moe_route(cfg, lp["gate"], x)
+    worst, want_y = 0.0, torch.zeros(x.shape, device=DEV)
+    for e in range(cfg.num_experts):
+        got, plain = {}, {}
+        for name in ("wgate", "wup", "wdown"):
+            w = lp[name].layer(e)
+            deq = dequantize(w, torch.float32)
+            if name == "wdown":
+                xin = F.silu(got["wgate"]) * got["wup"]
+                pin = F.silu(plain["wgate"]) * plain["wup"]
+            else:
+                xin = pin = x
+            out, used = launches_around(lambda: apply_linear(w, xin))
+            if used["K3"] != 1 or sum(used.values()) != 1:
+                raise AssertionError(f"loader: expert {e} {name} launched "
+                                     f"{used}")
+            want = xin.float() @ deq
+            err = (out.float() - want).abs().max().item()
+            scale = want.abs().max().item()
+            worst = max(worst, err / scale)
+            if not (math.isfinite(err) and err <= TOL * scale):
+                raise AssertionError(f"loader: expert {e} {name} at "
+                                     f"{x.shape[0]} rows: {err}")
+            got[name], plain[name] = out, (pin.float() @ deq).to(x.dtype)
+        want_y += weights[:, e:e + 1] * plain["wdown"].float()
+    y, used = launches_around(lambda: transformer._moe_ffn(cfg, lp, x[None]))
+    expect_launches(f"loader: layer 0's MoE block at {x.shape[0]} rows",
+                    used, {"K3": 3 * cfg.num_experts})
+    err = (y[0].float() - want_y).abs().max().item()
+    scale = want_y.abs().max().item()
+    if not (math.isfinite(err) and err <= TOL * scale):
+        raise AssertionError(f"loader: MoE block at {x.shape[0]} rows: "
+                             f"{err} > {TOL} x {scale}")
+    return worst, err / scale
+
+
+def loader_phase():
+    """Phase 16: a 1-layer Mixtral GPTQ checkpoint at full width written and
+    loaded by load_hf onto the card; layer 0's expert products and MoE block
+    against their plain versions at 64 and 11 rows of the normed embedding;
+    then the phase's own run, its counts zeroed just before: a 64-token
+    prefill and an 11-row decode step on the loaded model, and
+    Eagle.from_pretrained with an EAGLE-3 head (hsd generate and
+    naive_generate). Returns that run's launches."""
+    cfg = ModelConfig.mixtral_8x7b()
+    rng = np.random.default_rng(LOADER_SEED)
+    with tempfile.TemporaryDirectory() as tmp:
+        base, hdir = os.path.join(tmp, "base"), os.path.join(tmp, "head")
+        t0 = time.time()
+        nbytes = write_mixtral_checkpoint(base, rng, cfg)
+        write_eagle3_head(hdir, rng, cfg.hidden_size, cfg.vocab_size,
+                          cfg.num_heads, cfg.num_kv_heads,
+                          cfg.intermediate_size)
+        log(f"loader: checkpoints written in {time.time() - t0:.1f}s (base "
+            f"{nbytes / 1e9:.3f} GB)")
+        t0 = time.time()
+        cfg_l, params = load_hf(base, device=DEV)
+        torch.cuda.synchronize()
+        log(f"loader: load_hf onto the card in {time.time() - t0:.1f}s, "
+            f"{param_bytes(params) / 2**30:.2f} GiB")
+        w2 = params.layers["wdown"]
+        E, Fi, D = cfg.num_experts, cfg.intermediate_size, cfg.hidden_size
+        if not (cfg_l.num_layers == 1 and cfg_l.num_experts == E
+                and w2.qweight.shape == (1, E, Fi // 2, D)
+                and w2.zeros is not None and w2.perm is not None):
+            raise AssertionError(f"loader: unexpected layout {cfg_l} "
+                                 f"{tuple(w2.qweight.shape)}")
+        toks = ((torch.arange(BUCKET + MIXTRAL_VERIFY, device=DEV) * 11)
+                % (cfg.vocab_size - 100) + 100)[None]
+        h = rms_norm(transformer._embed(cfg_l, params.embed, toks[0]),
+                     params.layers["ln2"][0], cfg_l.rms_norm_eps)
+        lp = transformer.moe_params(params.layers, 0)
+        errs = [loaded_moe_check(cfg_l, lp, h[:BUCKET]),
+                loaded_moe_check(cfg_l, lp, h[BUCKET:])]
+        log(f"loader: every expert product of layer 0 (K3 with zero points;"
+            f" expert {LOADER_PERM}'s w2 with its perm) and the MoE block "
+            f"within tolerance at {BUCKET} and {MIXTRAL_VERIFY} rows (worst "
+            f"rel: a product {max(e[0] for e in errs):.2e}, the block "
+            f"{max(e[1] for e in errs):.2e}; tol {TOL:.2e})")
+        del h, lp, w2
+
+        reset_launches()
+        cache = init_cache(cfg_l, 1, 2 * BUCKET, DEV)
+        for part in (toks[:, :BUCKET], toks[:, BUCKET:]):
+            logits, cache = transformer.forward(cfg_l, params, part, cache)
+            if not bool(torch.isfinite(logits).all()):
+                raise AssertionError("loader: logits not finite")
+        del params, cache, logits
+        torch.cuda.empty_cache()
+        t0 = time.time()
+        eagle = Eagle.from_pretrained(base, hdir, device=DEV)
+        log(f"loader: Eagle.from_pretrained in {time.time() - t0:.1f}s")
+        prompt = (torch.arange(32) * 13 % (cfg.vocab_size - 100)
+                  + 100).tolist()
+        res = eagle.generate(prompt, max_new_tokens=32,
+                             generator=torch.Generator(device=DEV)
+                             .manual_seed(16))
+        _, length = eagle.naive_generate(prompt, max_new_tokens=32)
+        torch.cuda.synchronize()
+        used = launch_counts()
+        out = res.tokens[len(prompt):res.length]
+        acc = res.accepts[:res.blocks]
+        if not (res.ncommit >= 1 and int(out.min()) >= 0
+                and int(out.max()) < cfg.vocab_size
+                and int(acc.min()) >= 0
+                and int(acc.max()) <= eagle.ecfg.depth):
+            raise AssertionError(f"loader: Eagle.generate gave {res}")
+        if length <= len(prompt):
+            raise AssertionError("loader: naive_generate committed nothing")
+        log(f"loader: Eagle.generate (hsd) {res.ncommit} tokens in "
+            f"{res.blocks} blocks (accepts {acc.tolist()}); naive_generate "
+            f"{length - len(prompt)} tokens")
+        del eagle
+        torch.cuda.empty_cache()
+    log(f"loader: launches of the prefill, the decode step, generate and "
+        f"naive_generate {used}")
+    if used["K3"] <= 0:
+        raise AssertionError("loader: K3 never launched")
+    return used
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--trace", action="store_true",
@@ -2272,6 +2792,11 @@ def main():
     attention_phase()
     mlp_counts = mlp_phase(target, cfg_b)
     results, counts = main_path(draft, target, cfg_s, cfg_b, args.trace)
+    # full-width greedy: report only the common prefix of spec and AR
+    prompt = ((torch.arange(BUCKET, device=DEV)) % 1000) + 10
+    results["greedy_common_prefix"] = greedy_prefix(
+        cfg_s, cfg_b, draft, target, prompt, 32, GAMMA,
+        *make_coupled_target(cfg_s, cfg_b))
     opted = opted_in_main_path(draft, target, cfg_s, cfg_b, results)
     engines = engines_phase(draft, target, cfg_s, cfg_b)
     longctx = long_context_phase(target, cfg_b)
@@ -2319,6 +2844,11 @@ def main():
     del etarget
     torch.cuda.empty_cache()
     eagle_greedy_v3_small()
+
+    mixtral = mixtral_phase(args.trace)
+    torch.cuda.empty_cache()
+    greedy_moe_small()
+    loader_counts = loader_phase()
 
     src_i8 = "hsd_tpu_torch/csrc/gptq_i8.cu"
     ecounts = serving["hsd_ref"]["launches"]
@@ -2379,11 +2909,22 @@ def main():
         f"{spec_serving['tok_s']:.2f} tok/s, launches "
         f"{spec_serving['counts']}; uad (5h): {uad['tokens']} tokens "
         f"{uad['tokens'] / uad['secs']:.2f} tok/s, launches {uad['counts']}")
-    # each path's own launches: phase 5 (the "launches" key), 5g and 5h
+    mr = mixtral["results"]
+    log(f"mixtral (15): trunk {mixtral['trunk_gib']:.2f} GiB, hsd BE "
+        f"{mr['hsd']['be']:.4f} {mr['hsd']['tok_s']:.2f} tok/s, tokenwise BE "
+        f"{mr['tokenwise']['be']:.4f} {mr['tokenwise']['tok_s']:.2f} tok/s, "
+        f"AR {mr['ar_tok_s']:.2f} tok/s; an {MIXTRAL_VERIFY}-row verify "
+        f"{mixtral['verify']['wall_ms']:.2f} ms wall, "
+        f"{mixtral['verify']['device_ms']:.3f} ms device; greedy common "
+        f"prefix {mixtral['greedy_common_prefix']} of {MIXTRAL_GREEDY_NEW}")
+    # each path's own launches: phase 5 (the "launches" key), 5g, 5h, 15
+    # (the Mixtral hsd + tokenwise runs) and 16 (the loader phase)
     for k in kernels:
         k["launches_by_phase"] = {
             "5": counts[k["name"]], "5g": spec_serving["counts"][k["name"]],
-            "5h": uad["counts"][k["name"]]}
+            "5h": uad["counts"][k["name"]],
+            "15": mixtral["counts"][k["name"]],
+            "16": loader_counts[k["name"]]}
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

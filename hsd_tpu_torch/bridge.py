@@ -7,6 +7,9 @@ final_norm/lm_head` a ModelParams and `k/v/length/start` a KVCache. Arrays
 cross as numpy (`np.asarray` of a JAX array); bf16 crosses as a uint16 view,
 because `torch.from_numpy` cannot read ml_dtypes' bfloat16. Layouts are kept
 exactly: split-half nibbles, scales [groups, out], zeros or None, perm.
+MoE layers cross the same way: the f32 router `gate` [L, D, E] and the
+expert stacks, dense [L, E, in, out] or QuantizedLinear with every field
+(perm [L, E, in] included) on the [L, E] axes.
 
 The EAGLE structures (EagleParams, CoupledEagleParams, EagleKV, Trie) of
 the JAX package hold one slot; the port's carry a leading slot axis, so

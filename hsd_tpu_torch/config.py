@@ -5,9 +5,10 @@ presets, with `dtype` a `torch.dtype`. The GPTQ path knob (`gptq_path`) and
 the mesh config of the JAX package are left out: on a CUDA tensor every
 quantized matmul runs its hand-written kernel, and the port runs on one
 card. `gptq_mxu_bf16` stays, because it changes the numerics. Fields
-that nothing here reads yet (MLP bias, MoE, max positions, the engine's
-max_seq_len and seed) are left out too, so that setting one cannot quietly
-give a different model; they come with the slices that implement them.
+that nothing reads (`mlp_bias` and `max_position_embeddings`, which the
+JAX package declares and never reads either, and the engine's max_seq_len
+and seed) are left out, so that setting one cannot quietly give a
+different model.
 """
 from __future__ import annotations
 
@@ -19,8 +20,8 @@ import torch
 
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
-    """Decoder-only transformer config covering the Qwen2/2.5 and Llama
-    families (dense path)."""
+    """Decoder-only transformer config covering the Qwen2/2.5, Llama and
+    Mixtral families."""
 
     vocab_size: int = 151936
     hidden_size: int = 896
@@ -38,11 +39,18 @@ class ModelConfig:
     attention_bias: bool = True  # Qwen2 uses qkv bias; Llama does not
     dtype: torch.dtype = torch.bfloat16
     eos_token_id: int = 151645
+    # sparse mixture-of-experts (Mixtral): num_experts == 0 is a dense MLP
+    num_experts: int = 0
+    num_experts_per_tok: int = 2
     # bf16 operands with f32 accumulation in the quantized products at
     # 129-1024 rows (slot-batched serving, where they are bound by
     # operations): symmetric int8 weights there run the tensor-core kernel
     # K7. Off by default: the decode matvec keeps exact f32 operands.
     gptq_mxu_bf16: bool = False
+
+    @property
+    def is_moe(self) -> bool:
+        return self.num_experts > 0
 
     @property
     def head_dim_(self) -> int:
@@ -73,6 +81,24 @@ class ModelConfig:
                  eos_token_id=128009)
         d.update(kw)
         return ModelConfig(**d)
+
+    @staticmethod
+    def mixtral_8x7b(**kw) -> "ModelConfig":
+        """Mixtral-8x7B geometry: 8 experts, top-2."""
+        d = dict(vocab_size=32000, hidden_size=4096, intermediate_size=14336,
+                 num_layers=32, num_heads=32, num_kv_heads=8,
+                 rope_theta=1e6, rms_norm_eps=1e-5,
+                 tie_word_embeddings=False, attention_bias=False,
+                 eos_token_id=2, num_experts=8, num_experts_per_tok=2)
+        d.update(kw)
+        return ModelConfig(**d)
+
+    @staticmethod
+    def tiny_moe(vocab_size: int = 256, **kw) -> "ModelConfig":
+        """Tiny float32 Mixtral-style config for tests."""
+        d = dict(num_experts=4, num_experts_per_tok=2, attention_bias=False)
+        d.update(kw)
+        return ModelConfig.tiny(vocab_size=vocab_size, **d)
 
     @staticmethod
     def tiny(vocab_size: int = 256, **kw) -> "ModelConfig":

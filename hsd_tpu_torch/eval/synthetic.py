@@ -87,23 +87,25 @@ def group_size(din: int) -> int:
     return 128 if din % 128 == 0 else din
 
 
-def _random_q(gen, dev, din: int, dout: int, layers: int, bits: int):
-    """Random symmetric quantized weight stack [layers, ...]: codes uniform
-    over the full int4 (packed) or [-127, 127] int8 range, bf16 scales
-    |N(0,1)| * 1e-2 + 1e-3, one group per 128 input rows. Codes are drawn in
-    place, one layer at a time, so no wider intermediate is ever held."""
+def _random_q(gen, dev, din: int, dout: int, layers, bits: int):
+    """Random symmetric quantized weight stack [*layers, ...] (layers: L, or
+    (L, E) for an expert stack): codes uniform over the full int4 (packed)
+    or [-127, 127] int8 range, bf16 scales |N(0,1)| * 1e-2 + 1e-3, one
+    group per 128 input rows. Codes are drawn in place, one [din, dout]
+    matrix at a time, so no wider intermediate is ever held."""
+    lead = (layers,) if isinstance(layers, int) else tuple(layers)
     if bits == 4:
-        qweight = torch.empty((layers, din // 2, dout), dtype=torch.uint8,
+        qweight = torch.empty((*lead, din // 2, dout), dtype=torch.uint8,
                               device=dev)
-        for layer in qweight:
-            layer.random_(0, 256, generator=gen)   # two uniform nibbles
+        for mat in qweight.view(-1, din // 2, dout):
+            mat.random_(0, 256, generator=gen)     # two uniform nibbles
     else:
-        qweight = torch.empty((layers, din, dout), dtype=torch.int8,
+        qweight = torch.empty((*lead, din, dout), dtype=torch.int8,
                               device=dev)
-        for layer in qweight:
-            layer.random_(-127, 128, generator=gen)
+        for mat in qweight.view(-1, din, dout):
+            mat.random_(-127, 128, generator=gen)
     g = din // group_size(din)
-    scales = (torch.randn((layers, g, dout), generator=gen, device=dev).abs()
+    scales = (torch.randn((*lead, g, dout), generator=gen, device=dev).abs()
               * 1e-2 + 1e-3).to(torch.bfloat16)
     return QuantizedLinear(qweight=qweight, scales=scales, zeros=None)
 
@@ -112,7 +114,11 @@ def init_quantized_params(cfg: ModelConfig, seed: int = 0, bits: int = 4,
                           device=None) -> ModelParams:
     """Random big-geometry model with quantized weights, built directly in the
     fused layout (wqkv / wgu) with an int8 embedding and an untied
-    quantized head."""
+    quantized head. With cfg.is_moe the MLP is a random f32 router `gate`
+    [L, D, E] (N(0, 1/D): unit-scale logits on a normed input) and unfused
+    expert stacks wgate / wup [L, E, D, F], wdown [L, E, F, D], drawn one
+    (layer, expert) matrix at a time. The JAX package's counterpart has
+    no MoE branch: this is random-weight scaffolding for the card."""
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
     D, Fi, L = cfg.hidden_size, cfg.intermediate_size, cfg.num_layers
@@ -122,9 +128,18 @@ def init_quantized_params(cfg: ModelConfig, seed: int = 0, bits: int = 4,
         ln2=torch.ones((L, D), device=dev),
         wqkv=_random_q(gen, dev, D, (H + 2 * Hkv) * hd, L, bits),
         wo=_random_q(gen, dev, H * hd, D, L, bits),
-        wgu=_random_q(gen, dev, D, 2 * Fi, L, bits),
-        wdown=_random_q(gen, dev, Fi, D, L, bits),
     )
+    if cfg.is_moe:
+        E = cfg.num_experts
+        layers.update(
+            gate=torch.randn((L, D, E), generator=gen, device=dev)
+            * D ** -0.5,
+            wgate=_random_q(gen, dev, D, Fi, (L, E), bits),
+            wup=_random_q(gen, dev, D, Fi, (L, E), bits),
+            wdown=_random_q(gen, dev, Fi, D, (L, E), bits))
+    else:
+        layers.update(wgu=_random_q(gen, dev, D, 2 * Fi, L, bits),
+                      wdown=_random_q(gen, dev, Fi, D, L, bits))
     if cfg.attention_bias:
         layers["bqkv"] = torch.zeros((L, (H + 2 * Hkv) * hd), dtype=cfg.dtype,
                                      device=dev)

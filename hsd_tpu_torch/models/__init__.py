@@ -1,4 +1,5 @@
-"""Model stack: the unified Qwen2/Llama decoder and the EAGLE draft head."""
+"""Model stack: the unified Qwen2/Llama/Mixtral decoder, the EAGLE draft
+head and the HF checkpoint loader (`loader`)."""
 from . import eagle, transformer
 from .transformer import ModelParams, forward, init_params
 

@@ -1,4 +1,4 @@
-"""Unified Qwen2/Llama decoder in PyTorch, dense path (port of
+"""Unified Qwen2/Llama/Mixtral decoder in PyTorch (port of
 `hsd_tpu/models/transformer.py`).
 
 Parameters are a plain `ModelParams` with every decoder layer STACKED on a
@@ -16,7 +16,11 @@ flash-decode kernel (K8, ops/flash_decode.py) are kept: FLASH_DECODE=
 "always" sends single-row attention there, FUSED_ATTN="always" single-row
 decode steps with the RoPE of q inside the kernel.
 
-MoE and tensor/ring parallelism come with later slices.
+The Mixtral family's sparse-MoE block (`_moe_ffn`) runs every expert on
+every token, as the JAX package does, with the router's top-k weights
+(exact zeros elsewhere) mixing them; `forward(hidden_in=...)` with
+skip_head is the pipeline stage's hook. Tensor, pipeline and ring
+parallelism come with a later slice.
 """
 from __future__ import annotations
 
@@ -87,10 +91,18 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> ModelParams:
         wk=dense((L, D, Hkv * hd)),
         wv=dense((L, D, Hkv * hd)),
         wo=dense((L, H * hd, D)),
-        wgate=dense((L, D, Fi)),
-        wup=dense((L, D, Fi)),
-        wdown=dense((L, Fi, D)),
     )
+    if cfg.is_moe:
+        # router [L, D, E] in f32 and per-expert SwiGLU stacks [L, E, ...]
+        E = cfg.num_experts
+        layers.update(
+            gate=dense((L, D, E)).float(),
+            wgate=dense((L, E, D, Fi), scale=D ** -0.5),
+            wup=dense((L, E, D, Fi), scale=D ** -0.5),
+            wdown=dense((L, E, Fi, D), scale=Fi ** -0.5))
+    else:
+        layers.update(wgate=dense((L, D, Fi)), wup=dense((L, D, Fi)),
+                      wdown=dense((L, Fi, D)))
     if cfg.attention_bias:
         layers.update(
             bq=torch.zeros((L, H * hd), dtype=cfg.dtype, device=dev),
@@ -106,7 +118,8 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> ModelParams:
 
 def fuse_params(cfg: ModelConfig, params: ModelParams) -> ModelParams:
     """Fuse q|k|v and gate|up into single matmuls (out-features
-    concatenated), for dense and QuantizedLinear weights alike."""
+    concatenated), for dense and QuantizedLinear weights alike. MoE expert
+    stacks stay unfused (one product per expert)."""
     L = dict(params.layers)
 
     def cat(ws):
@@ -127,8 +140,83 @@ def fuse_params(cfg: ModelConfig, params: ModelParams) -> ModelParams:
     L["wqkv"] = cat([L.pop("wq"), L.pop("wk"), L.pop("wv")])
     if "bq" in L:
         L["bqkv"] = torch.cat([L.pop("bq"), L.pop("bk"), L.pop("bv")], dim=-1)
-    L["wgu"] = cat([L.pop("wgate"), L.pop("wup")])
+    if "gate" not in L:
+        L["wgu"] = cat([L.pop("wgate"), L.pop("wup")])
     return params._replace(layers=L)
+
+
+def ordered_sum(t: torch.Tensor, dim: int) -> torch.Tensor:
+    """Sum over `dim` in one fixed order, a pairwise tree of elementwise
+    adds (a zero pads an odd length, which adds exactly), so an entry's
+    bits do not depend on the other dims' sizes. A reduction kernel picks
+    its split by shape, and a GEMM its algorithm, so a router logit from
+    either could move in its last bit with the row count, and a top-k
+    decision with it."""
+    t = t.movedim(dim, 0)
+    while t.shape[0] > 1:
+        if t.shape[0] % 2:
+            t = torch.cat([t, torch.zeros_like(t[:1])])
+        h = t.shape[0] // 2
+        t = t[:h] + t[h:]
+    return t[0]
+
+
+def moe_route(cfg: ModelConfig, gate: torch.Tensor, x: torch.Tensor):
+    """The router of the JAX package's `_moe_ffn` (transformer.py:172-179),
+    in f32: softmax(x @ gate) over the E experts, top-k, renormalized over
+    the k chosen. x: [N, D]; gate: [D, E]. Returns (logits [N, E], top_i
+    [N, k], weights [N, E]: the renormalized top-k weights, zero for the
+    experts not chosen). Every sum runs in `ordered_sum`'s order, so a
+    row's results do not depend on the row count."""
+    logits = ordered_sum(x.float()[:, :, None] * gate.float()[None], 1)
+    e = torch.exp(logits - torch.amax(logits, -1, keepdim=True))
+    probs = e / ordered_sum(e, 1)[:, None]
+    top_w, top_i = torch.topk(probs, cfg.num_experts_per_tok, dim=-1)
+    top_w = top_w / ordered_sum(top_w, 1)[:, None]
+    weights = torch.zeros_like(probs).scatter_(1, top_i, top_w)
+    return logits, top_i, weights
+
+
+def moe_params(layers: Dict[str, Any], l: int) -> Dict[str, Any]:
+    """Layer l's router and expert stacks, as `_moe_ffn` takes them
+    (views)."""
+    lp = {"gate": layers["gate"][l]}
+    for name in ("wgate", "wup", "wdown"):
+        w = layers[name]
+        lp[name] = w.layer(l) if isinstance(w, QuantizedLinear) else w[l]
+    return lp
+
+
+def _expert(w, e: int):
+    return w.layer(e) if isinstance(w, QuantizedLinear) else w[e]
+
+
+def _moe_ffn(cfg: ModelConfig, lp: Dict[str, Any], h: torch.Tensor,
+             slots: int = 1) -> torch.Tensor:
+    """Sparse-MoE SwiGLU block (Mixtral family), the JAX package's
+    `_moe_ffn` (transformer.py:150-198) without its expert-parallel branch.
+    h: [B, T, D] -> [B, T, D]. lp: one layer's `gate` [D, E] and expert
+    stacks `wgate` / `wup` [E, D, F], `wdown` [E, F, D] (dense, or
+    QuantizedLinear with the [E] axis leading).
+
+    Every expert runs on every token, as in JAX: 3 * E apply_linear calls,
+    each on one expert's weight as a view, so each product routes on its
+    own rows (`slots`: as forward's) and reaches the kernels; silu(g) * u
+    and each expert's output in the activation dtype. The router is
+    `moe_route`; the mix is f32, summed over the experts in expert order,
+    rounded once to h's dtype."""
+    B, T, D = h.shape
+    x = h.reshape(B * T, D)
+    _, _, weights = moe_route(cfg, lp["gate"], x)
+    y = None
+    for e in range(cfg.num_experts):
+        g = apply_linear(_expert(lp["wgate"], e), x, slots=slots)
+        u = apply_linear(_expert(lp["wup"], e), x, slots=slots)
+        out = apply_linear(_expert(lp["wdown"], e), F.silu(g) * u,
+                           slots=slots)
+        term = weights[:, e:e + 1] * out.float()
+        y = term if y is None else y + term
+    return y.reshape(B, T, D).to(h.dtype)
 
 
 def rope_tables(positions: torch.Tensor, d: int, theta: float, scaling=None):
@@ -227,7 +315,7 @@ def forward(cfg: ModelConfig, params: ModelParams, tokens: torch.Tensor,
             feature_layers: Optional[Tuple[int, ...]] = None,
             lengths: Optional[torch.Tensor] = None,
             staging_at: Optional[int] = None, last_only: bool = False,
-            slots: int = 1):
+            slots: int = 1, hidden_in: Optional[torch.Tensor] = None):
     """Run the decoder over `tokens` [B, T], appending to `cache` in place.
 
     Returns (logits [B, T, V] f32, cache with length += T). RoPE positions
@@ -257,6 +345,10 @@ def forward(cfg: ModelConfig, params: ModelParams, tokens: torch.Tensor,
     slots: the B rows are that many slots of equal rows (a pool's slots);
     every product routes as one slot's rows would (ops.linear.route_rows),
     as the JAX package's per-slot vmapped forward routes them.
+    hidden_in: [B, T, D], the hidden stream to enter the first layer with
+    in place of the embedding of `tokens`, which then give only the shapes
+    (a pipeline stage's hook; with skip_head it leaves with the raw
+    pre-norm hidden state for the next stage).
 
     Attention routes, as the JAX package's (transformer.py:263-269,
     406-412, 483-508): with no lengths and no staging, FD.use_fused_rope_attn
@@ -286,7 +378,8 @@ def forward(cfg: ModelConfig, params: ModelParams, tokens: torch.Tensor,
                   and FD.use_fused_rope_attn(B, T, hd, cache.max_len))
     mask = bias = None      # the einsum path's, built at its first use
 
-    x = _embed(cfg, params.embed, tokens)
+    x = (hidden_in.to(cfg.dtype) if hidden_in is not None
+         else _embed(cfg, params.embed, tokens))
     names = params.layers
     first = next(iter(names.values()))
     n_layers = (first.qweight if isinstance(first, QuantizedLinear)
@@ -354,7 +447,10 @@ def forward(cfg: ModelConfig, params: ModelParams, tokens: torch.Tensor,
                                names["wdown"], names["ln2"][l], eps, layer=l)
             continue
         x = x + lin("wo", att2)
-        if "wgu" in names:
+        if "gate" in names:
+            x = x + _moe_ffn(cfg, moe_params(names, l),
+                             rms_norm(x, names["ln2"][l], eps), slots=slots)
+        elif "wgu" in names:
             x = x + apply_mlp(names["wgu"], names["wdown"], x,
                               names["ln2"][l], eps, layer=l, mxu_bf16=bf16,
                               slots=slots)

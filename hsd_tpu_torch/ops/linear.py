@@ -32,7 +32,9 @@ class QuantizedLinear(NamedTuple):
     zeros:   [groups, out] float zero points (asymmetric) or None
     perm:    [in] input permutation (desc_act checkpoints) or None;
              apply_linear gathers x[..., perm] before the matmul.
-    A layer-stacked weight carries a leading [L] axis on every field.
+    A layer-stacked weight carries a leading [L] axis on every field, an
+    MoE expert stack [L, E]; perm carries them too, or is one [in] shared
+    by every layer.
     """
 
     qweight: torch.Tensor
@@ -50,12 +52,16 @@ class QuantizedLinear(NamedTuple):
         return 2 * n if self.packed_int4 else n
 
     def layer(self, idx: int) -> "QuantizedLinear":
-        """Layer `idx` of a stacked weight (views, no copy)."""
+        """Entry `idx` of the leading axis of a stacked weight (views, no
+        copy): a layer of [L, ...], or an expert of [E, ...], so expert e
+        of layer l of an [L, E, ...] stack is `w.layer(l).layer(e)`. perm
+        is sliced where it carries qweight's leading axes."""
+        stacked_perm = (self.perm is not None
+                        and self.perm.dim() == self.qweight.dim() - 1)
         return QuantizedLinear(
             qweight=self.qweight[idx], scales=self.scales[idx],
             zeros=None if self.zeros is None else self.zeros[idx],
-            perm=(self.perm[idx] if self.perm is not None
-                  and self.perm.dim() == 2 else self.perm))
+            perm=self.perm[idx] if stacked_perm else self.perm)
 
 
 def pack_int4(codes: torch.Tensor) -> torch.Tensor:
@@ -283,6 +289,10 @@ def apply_linear(w, x: torch.Tensor, b: Optional[torch.Tensor] = None,
     """y = x @ w (+ b) for dense tensors or QuantizedLinear weights.
 
     layer: select this layer of a LAYER-STACKED weight ([L, in, out]).
+    A quantized weight must then be one [in, out] matrix: an expert of an
+    MoE stack is selected by the caller (`QuantizedLinear.layer`), so each
+    expert's product routes on its own rows, as the JAX package's vmap
+    over the experts routes them.
     norm: optional (norm_weight [in], eps): y = rmsnorm(x) @ w. On a
     kernel route with a SYMMETRIC weight the norm is fused into the
     kernel's activation read and stays f32 (K1 packed int4, K5 int8);
@@ -310,6 +320,9 @@ def apply_linear(w, x: torch.Tensor, b: Optional[torch.Tensor] = None,
     if isinstance(w, QuantizedLinear):
         if layer is not None and w.qweight.dim() == 3:
             w = w.layer(layer)
+        if w.qweight.dim() != 2:
+            raise ValueError(f"apply_linear takes one [in, out] weight, got "
+                             f"qweight {tuple(w.qweight.shape)}")
         if w.perm is not None:
             if ln is not None:          # the norm is feature-order-sensitive
                 x = rms_norm(x, ln, eps)

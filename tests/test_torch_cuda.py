@@ -749,3 +749,55 @@ def test_k8_repeat_call_same_bits(dev):
     FD.flash_decode(*b[:5], 100, b[5])
     again = FD.flash_decode(*a[:5], 1100, None, a[6])
     assert torch.equal(first, again)
+
+
+def _moe_target(dev, dtype):
+    cfg = ModelConfig.tiny_moe(vocab_size=512, hidden_size=512,
+                               intermediate_size=1024, num_heads=4,
+                               num_kv_heads=2, num_experts=8, dtype=dtype)
+    return cfg, init_quantized_params(cfg, seed=3, bits=4, device=dev)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_moe_row_bits_independent_of_row_count(dev, dtype):
+    """A row's router logits, top-k and _moe_ffn output are the same bits
+    at 1, 11 and 64 rows (K3 for the 3 * 8 expert products)."""
+    from hsd_tpu_torch.models.transformer import (_moe_ffn, moe_params,
+                                                  moe_route)
+    cfg, p = _moe_target(dev, dtype)
+    lp = moe_params(p.layers, 0)
+    g = torch.Generator(device=dev).manual_seed(5)
+    h = torch.randn((64, 512), generator=g, device=dev).to(dtype)
+    reset_launches()
+    full = moe_route(cfg, lp["gate"], h)
+    out = _moe_ffn(cfg, lp, h[None])[0]
+    assert launch_counts()["K3"] == 24
+    for n in (1, 11):
+        part = moe_route(cfg, lp["gate"], h[-n:])
+        for a, b in zip(part, full):
+            assert torch.equal(a, b[-n:])
+        assert torch.equal(_moe_ffn(cfg, lp, h[None, -n:])[0], out[-n:])
+
+
+def test_k3_on_an_expert_view_matches_plain(dev):
+    """K3 on expert e of layer l of a 4-D [L, E, in/2, out] stack, taken as
+    views, against its plain version, with zero points and a perm."""
+    _, p = _moe_target(dev, torch.bfloat16)
+    w = p.layers["wdown"]
+    g = torch.Generator(device=dev).manual_seed(6)
+    zeros = torch.randn(w.scales.shape, generator=g, device=dev)
+    perm = torch.stack([torch.stack([torch.randperm(1024, generator=g,
+                                                    device=dev)
+                                     for _ in range(8)]) for _ in range(2)])
+    wz = w._replace(zeros=zeros, perm=perm)
+    x = torch.randn((11, 1024), generator=g, device=dev).to(torch.bfloat16)
+    for l, e in ((0, 0), (1, 5)):
+        v = wz.layer(l).layer(e)
+        assert v.qweight.data_ptr() == w.qweight[l, e].data_ptr()
+        assert torch.equal(v.perm, perm[l, e])
+        before = launch_counts()["K3"]
+        got = apply_linear(v, x)
+        assert launch_counts()["K3"] == before + 1
+        xp = x.index_select(-1, perm[l, e])
+        _close(got, G.int4_matmul_plain(xp, v.qweight, v.scales, v.zeros),
+               torch.bfloat16)

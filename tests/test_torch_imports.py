@@ -1,5 +1,7 @@
 """The PyTorch port stands alone: no file of `hsd_tpu_torch/`, and not
-`chip_smoke.py`, imports jax, jaxlib or the JAX package.
+`chip_smoke.py`, imports jax, jaxlib or the JAX package, nor safetensors,
+which the card's machine does not have (the loader reads the format
+itself).
 
 An AST scan rather than `sys.modules`: this process may have JAX loaded by
 other tests or by site customization."""
@@ -12,7 +14,7 @@ ROOT = pathlib.Path(__file__).resolve().parent.parent
 FILES = sorted(str(p.relative_to(ROOT))
                for p in (ROOT / "hsd_tpu_torch").rglob("*.py"))
 FILES.append("chip_smoke.py")
-BANNED = ("jax", "jaxlib", "hsd_tpu")
+BANNED = ("jax", "jaxlib", "hsd_tpu", "safetensors")
 
 
 def _imported(tree: ast.AST):
