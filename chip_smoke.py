@@ -97,6 +97,24 @@ Phases (any failure exits nonzero, with no result line):
                char-level toy tokenizer pair and a context-repeat drafter,
                64 new tokens, with the launch counters zeroed before and read
                after (K1, K2 and K3 must launch, K8 must not)
+  5i. eval     the evaluation layer on phase 5's pair: the target's and
+               the draft's 2047- and 2046-row prefills of a GSM8K prompt
+               (the 2048 bucket, route A), timed with their peak
+               allocation; eval.gsm8k.run_eval (hsd, gamma 10, K 1,
+               temperature 1.0, 128 new tokens) over the 5 rows of
+               data/gsm8k/question.jsonl with the port's prompt_original
+               and ByteTokenizer (each prompt ~3.3 kB: bucket 2048,
+               truncated), with the launch counters zeroed before and read
+               after (K1, K2, K3 and K4 must launch, K8 must not): the
+               artifacts in the reference's shapes, summarize's BE the mean
+               of accepts + 1 in the counts file, question 0's tokens those
+               of make_generate called with the generator run_eval derives
+               for it, bit for bit; then eval.benches.run_multibench (hsd,
+               32 new tokens, warmup 1) over the first row of each of the
+               8 data/*/question.jsonl files (both mt_bench turns), keyed
+               100 x the bench's index + its id and fed in descending
+               order: evaluate_info_file reads 8 rows and
+               reorg_answer_file puts the 8 answers in question-id order
   6. greedy    temperature 0 on a 2-layer float32 pair built through the same
                kernels: the speculative stream must equal the AR stream, and
                so must every SlotEngine request and every make_generate_
@@ -201,6 +219,15 @@ Phases (any failure exits nonzero, with no result line):
                and an 11-row decode step, Eagle.from_pretrained, generate
                32 tokens in hsd mode (tokens in range, accepts within the
                trie's depth) and naive_generate 32; the directory deleted
+ 17. oracle    the realistic row's pair (eval/oracle.py) on the card, cut
+               from 1800 to 200 steps each: the reference's language
+               (make_language from its seed), a 4L/256H target trained by
+               next-token CE and a 2L/128H draft distilled against it
+               (vocab 2048, f32, AdamW under the warmup-cosine schedule);
+               each final loss must lie below its step-0 loss; ratio_stats,
+               then one 256-token tokenwise and one hsd generate (gamma 10)
+               through the trained pair: tokens in range, accepts in [0,
+               gamma]; no kernel launches (dense f32 models)
 The line before the last is the kernels' JSON summary; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -280,6 +307,11 @@ ENGINE_NEW, ENGINE_GAMMA = 64, 4           # phase 5d
 STRIPED_K, STRIPED_NEW = 2, 64             # phase 5f: R = 1 + 10 * (2 - 1)
 SERVING_REQS = 16                          # phase 5g: cut from the row's 32
 UAD_NEW, UAD_GAMMA = 64, 4                 # phase 5h
+EVAL_NEW, EVAL_BENCH_NEW = 128, 32         # phase 5i: GSM8K, multi-bench
+EVAL_BENCHES = ("mt_bench", "alpaca", "qa", "sum", "humaneval", "gsm8k",
+                "flores200", "cnndailymail")
+ORACLE_STEPS, ORACLE_NEW = 200, 256        # phase 17: cut from 1800 steps
+REPO = os.path.dirname(os.path.abspath(__file__))
 LONG_LENS, LONG_ITERS = (1056, 2080, 4128), 10
 MIXTRAL_VERIFY = 11                        # phase 15: gamma + 1 rows
 MIXTRAL_NEW = 64                           # phase 15: cut from phase 5's 128
@@ -1241,6 +1273,206 @@ def uad_phase(target, cfg_b):
     return dict(tokens=len(out), secs=secs, counts=counts)
 
 
+def eval_phase(draft, target, cfg_s, cfg_b):
+    """Phase 5i: the GSM8K harness and the multi-bench driver on phase 5's
+    full-width pair."""
+    from hsd_tpu_torch.eval.benches import (load_bench_questions,
+                                            reorg_answer_file, run_multibench)
+    from hsd_tpu_torch.eval.eagle_metrics import evaluate_info_file
+    from hsd_tpu_torch.eval.gsm8k import (ByteTokenizer, EvalConfig,
+                                          build_prompt, bucket_pad,
+                                          default_prompt_path,
+                                          load_gsm8k_jsonl, prompt_tensor,
+                                          question_generator, run_eval)
+
+    fwd, ops = make_coupled_target(cfg_s, cfg_b)
+    tok = ByteTokenizer()
+    with open(default_prompt_path("original")) as f:
+        shots = f.read()
+    qs = load_gsm8k_jsonl(os.path.join(REPO, "data", "gsm8k",
+                                       "question.jsonl"), stride=1)
+    padded, n = bucket_pad(tok.encode(build_prompt(qs[0]["question"],
+                                                   shots)))
+    P = padded.shape[0]
+    if (P, n) != (2048, 2048):
+        raise AssertionError(f"eval: question 0 landed in bucket {P}, n {n}")
+    prompt = prompt_tensor(padded, DEV)
+    S = P + EVAL_NEW + GAMMA + 2
+    start = torch.zeros((1,), dtype=torch.int64, device=DEV)
+    prefill = {}
+    for name, call in (
+            ("target", lambda: fwd(target, prompt[None, :-1],
+                                   ops[0](1, S, start.clone(), DEV),
+                                   skip_head=True)),
+            ("draft", lambda: transformer.forward(
+                cfg_s, draft, prompt[None, :-2],
+                init_cache(cfg_s, 1, S, DEV), skip_head=True))):
+        call()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        reset_launches()
+        t0 = time.perf_counter()
+        call()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+        launched = {k: v for k, v in launch_counts().items() if v}
+        nrows = P - (1 if name == "target" else 2)
+        prefill[name] = dict(rows=nrows, ms=ms, peak_gib=peak)
+        log(f"eval: {name} prefill of a GSM8K prompt ({nrows} rows, route "
+            f"A): {ms:.2f} ms, peak {peak:.3f} GiB above the allocated, "
+            f"kernel launches {launched or 'none'}")
+
+    eng = EngineConfig(verifier=VerifierConfig(method="hsd", gamma=GAMMA,
+                                               num_drafts=1),
+                       max_new_tokens=EVAL_NEW, temperature=1.0)
+    with tempfile.TemporaryDirectory() as tmp:
+        ev = EvalConfig(engine=eng, out_dir=tmp, tag="hsd14b", seed=0)
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        summary = run_eval(cfg_s, cfg_b, draft, target, tok, qs, shots, ev,
+                           target_forward=fwd, target_cache_ops=ops,
+                           device=DEV)
+        secs = time.perf_counter() - t0
+        counts = launch_counts()
+        with open(summary["artifacts"]["counts"]) as f:
+            rows = json.load(f)
+        with open(summary["artifacts"]["answers"]) as f:
+            answers = f.read()
+    keys = {"accepts", "draft_lens", "time_s", "new_tokens", "draft_eval",
+            "sample_length", "target_eval", "total_step", "time", "ids"}
+    if len(rows) != len(qs) or answers.count("\nA_model:\n") != len(qs):
+        raise AssertionError("eval: artifacts miss a question")
+    for r in rows:
+        nb = len(r["accepts"])
+        if set(r) != keys or not (
+                1 <= r["new_tokens"] <= EVAL_NEW
+                and len(r["ids"][0]) == r["new_tokens"]
+                and r["draft_lens"] == [GAMMA] * nb
+                and all(0 <= a <= GAMMA for a in r["accepts"])
+                and r["sample_length"] == [[a + 1 for a in r["accepts"]]]
+                and r["target_eval"] == [[1] * nb]
+                and r["draft_eval"] == [r["draft_lens"]]):
+            raise AssertionError(f"eval: a counts row's shape: {sorted(r)}")
+    acc = [a for r in rows for a in r["accepts"]]
+    be = statistics.fmean(a + 1 for a in acc)
+    if abs(summary["block_efficiency"] - be) > 1e-9:
+        raise AssertionError(f"eval: summarize's BE "
+                             f"{summary['block_efficiency']} vs {be}")
+    for k in SPEC_KERNELS:
+        if counts[k] <= 0:
+            raise AssertionError(f"eval: {k} was not launched")
+    if counts["K8"]:
+        raise AssertionError("eval: K8 launched on the default path")
+    res = make_generate(cfg_s, cfg_b, eng, target_forward=fwd,
+                        target_cache_ops=ops)(
+        draft, target, prompt, n, question_generator(0, 0, DEV))
+    direct = res.tokens[P:res.length].tolist()
+    if direct != rows[0]["ids"][0]:
+        raise AssertionError("eval: question 0's tokens differ from "
+                             "make_generate's on its generator")
+    log(f"eval (GSM8K, {len(qs)} questions x {EVAL_NEW} tokens, hsd, 14B): "
+        f"BE {summary['block_efficiency']:.4f} (the mean of accepts + 1 "
+        f"over {len(acc)} blocks), {summary['decoding_speed']:.2f} tok/s "
+        f"by the reference's DS, {secs:.2f}s in all; question 0 == "
+        f"make_generate on its generator ({len(direct)} tokens): True; "
+        f"launches {counts}")
+
+    bench_rows = []
+    for bi, b in enumerate(EVAL_BENCHES):
+        q = load_bench_questions(b, os.path.join(REPO, "data", b,
+                                                 "question.jsonl"))[0]
+        bench_rows.append(dict(q, question_id=100 * bi + q["question_id"]))
+    bench_rows.reverse()
+    beng = EngineConfig(verifier=VerifierConfig(method="hsd", gamma=GAMMA),
+                        max_new_tokens=EVAL_BENCH_NEW, temperature=1.0)
+    bgen = make_generate(cfg_s, cfg_b, beng, target_forward=fwd,
+                         target_cache_ops=ops)
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        out = run_multibench(bench_rows, tok,
+                             lambda p, n, g: bgen(draft, target, p, n, g),
+                             tmp, "eight", warmup=1, device=DEV)
+        bsecs = time.perf_counter() - t0
+        m = evaluate_info_file(out["info"], gamma=GAMMA)
+        reorg_answer_file(out["answers"])
+        with open(out["answers"]) as f:
+            ids = [json.loads(l)["question_id"] for l in f if l.strip()]
+    want = sorted(r["question_id"] for r in bench_rows)
+    if m is None or m["questions"] != 8 or ids != want:
+        raise AssertionError(f"eval: multi-bench rows {m} ids {ids}")
+    log(f"eval (multi-bench, 8 benches' first rows, hsd, {EVAL_BENCH_NEW} "
+        f"tokens a turn): {out['new_tokens']} tokens in {bsecs:.2f}s; "
+        f"evaluate_info_file BE {m['block_efficiency']:.4f} over "
+        f"{m['questions']} rows; reorg_answer_file order {ids}")
+    return dict(prefill=prefill, be=summary["block_efficiency"], secs=secs,
+                counts=counts, bench_be=m["block_efficiency"])
+
+
+def oracle_phase():
+    """Phase 17: the realistic row's trained pair on the card, cut to
+    ORACLE_STEPS steps each."""
+    from hsd_tpu_torch.eval.oracle import (distill_lm, make_language,
+                                           ratio_stats, sample_tokens,
+                                           train_lm)
+    from hsd_tpu_torch.ops.sampling import fold_generator, fold_seed
+
+    cfg_t, cfg_d = BM.realistic_configs()
+    lang = make_language(BM.REAL_LANG_SEED, vocab=cfg_t.vocab_size,
+                         device=DEV)
+    torch.cuda.synchronize()
+    reset_launches()
+    out = {}
+    t0 = time.time()
+    tl, dl = [], []
+    pt, tce = train_lm(cfg_t, fold_seed(BM.REAL_SEED, 32), lang,
+                       steps=ORACLE_STEPS, device=DEV, losses=tl)
+    out["train_s"] = time.time() - t0
+    t0 = time.time()
+    pd, dce = distill_lm(cfg_d, cfg_t, pt, fold_seed(BM.REAL_SEED, 33), lang,
+                         steps=ORACLE_STEPS, device=DEV, losses=dl)
+    out["distill_s"] = time.time() - t0
+    log(f"oracle: target CE {tl[0]:.4f} -> {tce:.4f} over {ORACLE_STEPS} "
+        f"steps ({out['train_s']:.1f}s), draft soft CE {dl[0]:.4f} -> "
+        f"{dce:.4f} ({out['distill_s']:.1f}s)")
+    if not (math.isfinite(tce) and math.isfinite(dce) and tce < tl[0]
+            and dce < dl[0]):
+        raise AssertionError("oracle: a loss did not fall")
+    st = ratio_stats(cfg_d, cfg_t, pd, pt, lang,
+                     fold_generator(BM.REAL_SEED, 35, device=DEV),
+                     gamma=GAMMA)
+    log(f"oracle ratio_stats: {st}")
+    prompts = sample_tokens(fold_generator(BM.REAL_SEED, 34, device=DEV),
+                            lang, 8, 64)
+    for m in ("tokenwise", "hsd"):
+        gen = make_generate(cfg_d, cfg_t, EngineConfig(
+            verifier=VerifierConfig(method=m, gamma=GAMMA),
+            max_new_tokens=ORACLE_NEW))
+        t0 = time.perf_counter()
+        res = gen(pd, pt, prompts[0], 64,
+                  fold_generator(BM.REAL_SEED, 700, device=DEV))
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        acc = res.accepts[:res.blocks]
+        toks = res.tokens[64:res.length]
+        if not (1 <= res.ncommit <= ORACLE_NEW and int(toks.min()) >= 0
+                and int(toks.max()) < cfg_t.vocab_size
+                and int(acc.min()) >= 0 and int(acc.max()) <= GAMMA):
+            raise AssertionError(f"oracle: {m} stream out of range")
+        out[m] = float((acc + 1).float().mean())
+        log(f"oracle {m}: {res.ncommit} tokens in {secs:.2f}s, BE "
+            f"{out[m]:.4f} over {res.blocks} blocks")
+    counts = launch_counts()
+    if any(counts.values()):
+        raise AssertionError(f"oracle: a kernel launched on dense f32 "
+                             f"models: {counts}")
+    out.update(target_ce=tce, distill_ce=dce, alpha=st["alpha"],
+               counts=counts)
+    return out
+
+
 def long_context_phase(target, cfg_b):
     """ms per decode step of the 48-layer 14B int4 trunk at long caches, by
     the einsum path and by K8 (scripts/bench_longctx.py's counterpart)."""
@@ -1675,21 +1907,6 @@ def greedy_serving_small(cfg, draft, target):
         raise AssertionError("greedy UAD != AR")
 
 
-def eagle_configs():
-    """bench.py's EAGLE serving row: Llama-3.1-8B geometry, an EOS that is
-    never drawn, bf16 operands at 129-1024 rows, and the v1 head."""
-    cfg = ModelConfig.llama3_8b()
-    cfg = dataclasses.replace(cfg, eos_token_id=cfg.vocab_size,
-                              gptq_mxu_bf16=True)
-    ecfg = EagleConfig(
-        hidden_size=cfg.hidden_size, target_hidden_size=cfg.hidden_size,
-        num_heads=cfg.num_heads, num_kv_heads=cfg.num_kv_heads,
-        vocab_size=cfg.vocab_size, draft_vocab_size=32000,
-        intermediate_size=cfg.intermediate_size, rope_theta=cfg.rope_theta,
-        top_k=10, depth=6, total_tokens=59, version=1)
-    return cfg, ecfg
-
-
 def eagle_kernel_phase(target, cfg):
     g = torch.Generator(device=DEV).manual_seed(321)
     big = target.big.layers
@@ -1814,10 +2031,7 @@ def eagle_serving(target, head, cfg, ecfg, trace,
     `absent` ones not; a repeat run identical."""
     fwd = make_coupled_eagle_target(cfg, (-1,))
     prefill = prefill_last_only(target, cfg, fwd)
-    rng = np.random.default_rng(0)
-    warm = rng.integers(10, 1000, (EAGLE_BUCKET,)).tolist()
-    prompts = [rng.integers(10, 1000, (int(rng.integers(32, 64)),)).tolist()
-               for _ in range(EAGLE_REQS)]
+    warm, prompts = BM.eagle_serving_requests(EAGLE_REQS, EAGLE_BUCKET)
 
     def engine(mode, steps=EAGLE_MACRO):
         return EagleSlotEngine(
@@ -2803,11 +3017,12 @@ def main():
     striped = striped_phase(draft, target, cfg_s, cfg_b)
     spec_serving = serving_phase(draft, target, cfg_s, args.trace)
     uad = uad_phase(target, cfg_b)
+    evals = eval_phase(draft, target, cfg_s, cfg_b)
     greedy_small()
 
     del draft, target
     torch.cuda.empty_cache()
-    cfg_e, ecfg = eagle_configs()
+    cfg_e, ecfg = BM.eagle_configs()
     t0 = time.time()
     head, etarget = build_coupled_eagle_pair(0, cfg_e, ecfg, scale=6.0,
                                              lam=1.312, big_bits=8,
@@ -2849,6 +3064,7 @@ def main():
     torch.cuda.empty_cache()
     greedy_moe_small()
     loader_counts = loader_phase()
+    oracle = oracle_phase()
 
     src_i8 = "hsd_tpu_torch/csrc/gptq_i8.cu"
     ecounts = serving["hsd_ref"]["launches"]
@@ -2917,14 +3133,24 @@ def main():
         f"{mixtral['verify']['wall_ms']:.2f} ms wall, "
         f"{mixtral['verify']['device_ms']:.3f} ms device; greedy common "
         f"prefix {mixtral['greedy_common_prefix']} of {MIXTRAL_GREEDY_NEW}")
-    # each path's own launches: phase 5 (the "launches" key), 5g, 5h, 15
-    # (the Mixtral hsd + tokenwise runs) and 16 (the loader phase)
+    e0 = evals["prefill"]
+    log(f"eval (5i): GSM8K hsd BE {evals['be']:.4f} in {evals['secs']:.2f}s, "
+        f"launches {evals['counts']}; multi-bench BE {evals['bench_be']:.4f};"
+        f" the 2047-row target prefill {e0['target']['ms']:.2f} ms, "
+        f"{e0['target']['peak_gib']:.3f} GiB; oracle (17): CEs "
+        f"{oracle['target_ce']:.4f} / {oracle['distill_ce']:.4f}, tokenwise "
+        f"BE {oracle['tokenwise']:.4f}, hsd BE {oracle['hsd']:.4f}")
+    # each path's own launches: phase 5 (the "launches" key), 5g, 5h, 5i
+    # (run_eval's GSM8K run), 15 (the Mixtral hsd + tokenwise runs), 16
+    # (the loader phase) and 17 (the oracle pair: none)
     for k in kernels:
         k["launches_by_phase"] = {
             "5": counts[k["name"]], "5g": spec_serving["counts"][k["name"]],
             "5h": uad["counts"][k["name"]],
+            "5i": evals["counts"][k["name"]],
             "15": mixtral["counts"][k["name"]],
-            "16": loader_counts[k["name"]]}
+            "16": loader_counts[k["name"]],
+            "17": oracle["counts"][k["name"]]}
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

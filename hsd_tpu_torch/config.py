@@ -63,10 +63,41 @@ class ModelConfig:
         return ModelConfig(**kw)
 
     @staticmethod
+    def qwen2_15b(**kw) -> "ModelConfig":
+        """Qwen2.5-1.5B-Instruct geometry (the eval CLIs' default target)."""
+        d = dict(hidden_size=1536, intermediate_size=8960, num_layers=28,
+                 num_heads=12, num_kv_heads=2, tie_word_embeddings=True)
+        d.update(kw)
+        return ModelConfig(**d)
+
+    @staticmethod
+    def qwen2_7b(**kw) -> "ModelConfig":
+        d = dict(hidden_size=3584, intermediate_size=18944, num_layers=28,
+                 num_heads=28, num_kv_heads=4, tie_word_embeddings=False)
+        d.update(kw)
+        return ModelConfig(**d)
+
+    @staticmethod
     def qwen2_14b(**kw) -> "ModelConfig":
         """Qwen2.5-14B geometry (the target model)."""
         d = dict(hidden_size=5120, intermediate_size=13824, num_layers=48,
                  num_heads=40, num_kv_heads=8, tie_word_embeddings=False,
+                 rms_norm_eps=1e-5)
+        d.update(kw)
+        return ModelConfig(**d)
+
+    @staticmethod
+    def qwen2_32b(**kw) -> "ModelConfig":
+        d = dict(hidden_size=5120, intermediate_size=27648, num_layers=64,
+                 num_heads=40, num_kv_heads=8, tie_word_embeddings=False,
+                 rms_norm_eps=1e-5)
+        d.update(kw)
+        return ModelConfig(**d)
+
+    @staticmethod
+    def qwen2_72b(**kw) -> "ModelConfig":
+        d = dict(hidden_size=8192, intermediate_size=29568, num_layers=80,
+                 num_heads=64, num_kv_heads=8, tie_word_embeddings=False,
                  rms_norm_eps=1e-5)
         d.update(kw)
         return ModelConfig(**d)

@@ -9,8 +9,25 @@ from __future__ import annotations
 
 from typing import Optional
 
+import numpy as np
 import torch
 import torch.nn.functional as F
+
+
+def fold_seed(seed: int, *path: int) -> int:
+    """A 63-bit seed derived from `seed` along the integers of `path`, the
+    port's counterpart of folding a JAX key (`jax.random.fold_in(key, i)`
+    for each i of `path` in turn): numpy's SeedSequence([seed, *path])
+    hashes them, so distinct paths give unrelated streams."""
+    lo, hi = np.random.SeedSequence([int(seed), *map(int, path)]
+                                    ).generate_state(2, np.uint32)
+    return (int(hi) << 32 | int(lo)) & (2 ** 63 - 1)
+
+
+def fold_generator(seed: int, *path: int, device=None) -> torch.Generator:
+    """A torch.Generator on `device` seeded with fold_seed(seed, *path)."""
+    return torch.Generator(device=device or "cpu").manual_seed(
+        fold_seed(seed, *path))
 
 
 def process_logits(logits: torch.Tensor, temperature: float = 1.0,

@@ -9,6 +9,9 @@ logit_scale=S)`), gamma 10, 256 new tokens, temperature 1.0, the one
     python hsd_tpu_torch/tools/bench_main.py --calibrate --rows k1
     python hsd_tpu_torch/tools/bench_main.py --scale 1.467 --rows k11
     python hsd_tpu_torch/tools/bench_main.py --scale 1.467 --rows serving
+    python hsd_tpu_torch/tools/bench_main.py --rows gsm8k_parity
+    python hsd_tpu_torch/tools/bench_main.py --rows eagle_serving
+    python hsd_tpu_torch/tools/bench_main.py --rows realistic
 
 Rows (`--rows`, comma-separated):
   k1   hsd and tokenwise at K = 1;
@@ -32,6 +35,30 @@ Rows (`--rows`, comma-separated):
        excluded), tok/s = committed tokens over the run_all wall seconds,
        the pool blocks each schedule ran (every slot's rows a block) and
        the launch counts of each run.
+The rows that build no 14B pair (they need no --scale; each builds its
+own models after the 14B rows have freed theirs):
+  gsm8k_parity  `bench.py:405-475`: the 2-layer byte-vocab pair (vocab 256,
+       D 32; the target is the draft with its embedding x 1.3), 20
+       questions x 25 reps through the port's `eval.gsm8k.run_eval`,
+       gamma 4, 48 tokens, tokenwise against hsd: the TV of the
+       first-digit answer laws and the port's own 400-permutation floor
+       (p50, p95), beside the reference's (`gsm8k_parity_row`);
+  eagle_serving  `bench.py:345-402`, uncut: `llama3_8b()` with
+       `gptq_mxu_bf16`, the symmetric-int8 trunk and the v1 head as the
+       bigram oracle (scale 6.0, lam 1.312), EagleSlotEngine with 8 slots,
+       bucket 64, 4 pool steps a dispatch, hsd_ref; a warm request, then 24
+       requests x 96 tokens drawn with numpy's default_rng(0) as bench.py
+       draws them; BE (the reference's: stats(), the warm request
+       included) beside 3.978, and tok/s (`eagle_serving_row`);
+  realistic  `bench.py:206-336`: the reference's mixed-entropy language
+       (its numpy seed), a 4L/256H target trained 1800 steps and a 2L/128H
+       draft distilled 1800 steps at vocab 2048 in f32 (the port's own
+       RNG), the draft temperature tau bisected toward tokenwise BE 5.99
+       on 24-run probes, then 288 runs a method for tokenwise, blockwise
+       and hsd: the uplifts over tokenwise with delta-method CIs, ratio_stats'
+       alpha and frac_hard_disagree and the CEs, beside the reference's
+       bands (`realistic_row`). A reading outside a band is reported, not
+       re-seeded.
 Each speculative row makes one warm run, then 10 timed runs, one per
 seed, each from the call to `torch.cuda.synchronize()`. BE per run is
 mean(accepts + 1) over its blocks; the row's BE is the mean over runs,
@@ -57,11 +84,15 @@ over its timed runs), each BE against the reference's band
 from __future__ import annotations
 
 import argparse
+import collections
+import dataclasses
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 from typing import Callable, List, Optional, Tuple
@@ -450,6 +481,390 @@ def calibrate(cfg_s, cfg_b, device, n_runs: int = PROBE_RUNS):
     return scale, probes, builds
 
 
+# ---------------------------------------------------------------------------
+# the rows without the 14B pair: gsm8k_parity, eagle_serving, realistic
+# ---------------------------------------------------------------------------
+
+# bench.py's _gsm8k_parity_row (:405-475): the reference's numbers
+# (BENCH_r05.json; its accuracies are of random byte models, shown as is)
+PARITY_REF = {"answer_tv": 0.048, "n_outputs": 500, "noise_floor_tv50": 0.078,
+              "noise_floor_tv95": 0.114}
+PARITY_Q, PARITY_REPS, PARITY_GAMMA, PARITY_NEW = 20, 25, 4, 48
+PARITY_PERMS = 400
+PARITY_SHOTS = ("Question: 1 plus 1?\nLet's think step by step\n"
+                "The answer is 2\n")
+
+
+def parity_questions(n: int = PARITY_Q) -> List[dict]:
+    return [{"question": f"A box holds {3 + i} pears and gains {2 + i} "
+                         "more. How many pears are in the box?",
+             "answer": f"#### {5 + 2 * i}"} for i in range(n)]
+
+
+def first_digit(text: str) -> str:
+    m = re.search(r"[0-9]", text or "")
+    return m.group(0) if m else "none"
+
+
+def law(cats: List[str]) -> dict:
+    c = collections.Counter(cats)
+    return {k: v / len(cats) for k, v in c.items()}
+
+
+def tv_of(da: dict, db: dict) -> float:
+    return 0.5 * sum(abs(da.get(k, 0) - db.get(k, 0))
+                     for k in set(da) | set(db))
+
+
+def permutation_floor(a: List[str], b: List[str],
+                      perms: int = PARITY_PERMS) -> List[float]:
+    """bench.py's noise floor: the TV between two random halves of the
+    pooled outputs (numpy default_rng(0)), `perms` times."""
+    pool = a + b
+    rng = np.random.default_rng(0)
+    out = []
+    for _ in range(perms):
+        perm = rng.permutation(len(pool))
+        out.append(tv_of(law([pool[i] for i in perm[:len(a)]]),
+                         law([pool[i] for i in perm[len(a):]])))
+    return out
+
+
+def gsm8k_parity_row(device, questions: int = PARITY_Q,
+                     reps: int = PARITY_REPS, max_new: int = PARITY_NEW,
+                     perms: int = PARITY_PERMS) -> dict:
+    """bench.py's `_gsm8k_parity_row` on the port: the 2-layer byte-vocab
+    pair (`tiny`, vocab 256, D 32; the target = the draft with its
+    embedding x 1.3), `questions` x `reps` outputs a method through the
+    port's run_eval (gamma 4, `max_new` tokens, seed 0), tokenwise
+    against hsd: the first-digit answer law's TV and its permutation
+    floor (p50, p95), beside the reference's."""
+    from hsd_tpu_torch.eval.gsm8k import ByteTokenizer, EvalConfig, run_eval
+    from hsd_tpu_torch.models import init_params
+
+    cfg = ModelConfig.tiny(vocab_size=256, hidden_size=32,
+                           intermediate_size=64, num_layers=2, num_heads=4,
+                           num_kv_heads=2)
+    pd = init_params(cfg, seed=0, device=device)
+    pt = pd._replace(embed=pd.embed * 1.3)
+    rows = [q for q in parity_questions(questions) for _ in range(reps)]
+    out = {"n_outputs": len(rows)}
+    cats = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for m in ("tokenwise", "hsd"):
+            ev = EvalConfig(engine=EngineConfig(
+                verifier=VerifierConfig(method=m, gamma=PARITY_GAMMA),
+                max_new_tokens=max_new), out_dir=tmp, tag=m, seed=0)
+            t0 = time.perf_counter()
+            summary = run_eval(cfg, cfg, pd, pt, ByteTokenizer(), rows,
+                               PARITY_SHOTS, ev, device=device)
+            secs = time.perf_counter() - t0
+            cats[m] = [first_digit(a) for a in summary["model_answers"]]
+            out[m] = dict(acc=summary["accuracy"],
+                          be=summary["block_efficiency"], seconds=secs,
+                          law=law(cats[m]))
+            log(f"gsm8k_parity {m}: {len(rows)} outputs in {secs:.1f}s, BE "
+                f"{summary['block_efficiency']}, first-digit law "
+                f"{out[m]['law']}")
+    floor = permutation_floor(cats["tokenwise"], cats["hsd"], perms)
+    out.update(answer_tv=tv_of(law(cats["tokenwise"]), law(cats["hsd"])),
+               noise_floor_tv50=float(np.median(floor)),
+               noise_floor_tv95=float(np.quantile(floor, 0.95)),
+               reference=PARITY_REF)
+    out["at_or_below_tv95"] = out["answer_tv"] <= out["noise_floor_tv95"]
+    log(f"gsm8k_parity: answer TV {out['answer_tv']} against the port's "
+        f"floor p50 {out['noise_floor_tv50']} p95 {out['noise_floor_tv95']} "
+        f"(the reference: TV {PARITY_REF['answer_tv']}, floor "
+        f"{PARITY_REF['noise_floor_tv50']} / {PARITY_REF['noise_floor_tv95']}"
+        f" at N = {PARITY_REF['n_outputs']})")
+    return out
+
+
+# bench.py's _eagle_serving_row (:345-402), uncut; the reference's BE
+# (BENCH_r05.json; its tok/s were a TPU's and are not shown)
+EAGLE_REF_BE = 3.978
+EAGLE_SLOTS, EAGLE_REQS, EAGLE_NEW = 8, 24, 96
+EAGLE_BUCKET, EAGLE_MACRO = 64, 4
+EAGLE_SCALE, EAGLE_LAM, EAGLE_WARM_RID = 6.0, 1.312, 10_000
+
+
+def eagle_serving_requests(reqs: int = EAGLE_REQS, bucket: int = EAGLE_BUCKET
+                           ) -> Tuple[List[int], List[List[int]]]:
+    """bench.py's draws (:387-394): numpy default_rng(0); the warm
+    request's `bucket` ids in [10, 1000), then for each request a length
+    in [32, 64) and that many ids."""
+    rng = np.random.default_rng(0)
+    warm = rng.integers(10, 1000, (bucket,)).tolist()
+    return warm, [rng.integers(10, 1000, (int(rng.integers(32, 64)),))
+                  .tolist() for _ in range(reqs)]
+
+
+def eagle_configs():
+    """bench.py's EAGLE serving configuration: Llama-3.1-8B geometry, an
+    EOS that is never drawn, bf16 operands at 129-1024 rows, the v1 head
+    (draft vocab 32000, top_k 10, depth 6, 59 nodes)."""
+    from hsd_tpu_torch.models.eagle import EagleConfig
+
+    cfg = ModelConfig.llama3_8b()
+    cfg = dataclasses.replace(cfg, eos_token_id=cfg.vocab_size,
+                              gptq_mxu_bf16=True)
+    ecfg = EagleConfig(
+        hidden_size=cfg.hidden_size, target_hidden_size=cfg.hidden_size,
+        num_heads=cfg.num_heads, num_kv_heads=cfg.num_kv_heads,
+        vocab_size=cfg.vocab_size, draft_vocab_size=32000,
+        intermediate_size=cfg.intermediate_size, rope_theta=cfg.rope_theta,
+        top_k=10, depth=6, total_tokens=59, version=1)
+    return cfg, ecfg
+
+
+def eagle_serving_row(device, cfg=None, ecfg=None, n_slots: int = EAGLE_SLOTS,
+                      reqs: int = EAGLE_REQS, max_new: int = EAGLE_NEW,
+                      bucket: int = EAGLE_BUCKET) -> dict:
+    """bench.py's `_eagle_serving_row` on the port, uncut: the int8 pair
+    (`build_coupled_eagle_pair(0, ..., scale=6.0, lam=1.312,
+    big_bits=8)`), EagleSlotEngine with `n_slots` slots, the bucket,
+    4 pool steps a dispatch, hsd_ref, seed 1; a warm request (4 tokens),
+    then `reqs` requests of `max_new` tokens. BE as the reference reads it
+    (`stats()`, the warm request included) and over the timed requests
+    alone; tok/s = their committed tokens over run_all's wall seconds;
+    the launches of the timed run."""
+    from hsd_tpu_torch.engine.eagle_server import EagleSlotEngine
+    from hsd_tpu_torch.eval.synthetic import (build_coupled_eagle_pair,
+                                              make_coupled_eagle_target)
+
+    if cfg is None:
+        cfg, ecfg = eagle_configs()
+    t0 = time.time()
+    head, target = build_coupled_eagle_pair(0, cfg, ecfg, scale=EAGLE_SCALE,
+                                            lam=EAGLE_LAM, big_bits=8,
+                                            device=device)
+    sync(device)
+    build_s = time.time() - t0
+    log(f"eagle_serving: pair built in {build_s:.1f}s")
+    se = EagleSlotEngine(
+        cfg, ecfg, EngineConfig(max_new_tokens=max_new, temperature=1.0),
+        n_slots=n_slots, bucket=bucket, params_t=target, params_e=head,
+        mode="hsd_ref", seed=1,
+        target_forward=make_coupled_eagle_target(cfg, (-1,)),
+        steps_per_dispatch=EAGLE_MACRO, admit_batch=n_slots, device=device)
+    warm, prompts = eagle_serving_requests(reqs, bucket)
+    se.submit(EAGLE_WARM_RID, warm, max_new=4)
+    se.run_all()                                   # warm every path
+    sync(device)
+    reset_launches()
+    for rid, p in enumerate(prompts):
+        se.submit(rid, p, max_new=max_new)
+    t0 = time.perf_counter()
+    done = se.run_all()
+    sync(device)
+    secs = time.perf_counter() - t0
+    if sorted(r.rid for r in done) != list(range(reqs)):
+        raise AssertionError("eagle_serving: a request was lost")
+    for r in done:
+        if not (1 <= len(r.out_tokens) <= max_new and all(
+                0 <= t < cfg.vocab_size for t in r.out_tokens)):
+            raise AssertionError(f"eagle_serving: request {r.rid}'s tokens")
+    toks = sum(len(r.out_tokens) for r in done)
+    blocks = sum(r.blocks for r in done)
+    out = dict(be=se.stats()["block_efficiency"],
+               be_requests=(sum(r.accepts for r in done) + blocks) / blocks,
+               tok_s=toks / secs, tokens=toks, seconds=secs, blocks=blocks,
+               build_s=build_s, slots=n_slots, reqs=reqs, max_new=max_new,
+               mode="hsd_ref", launches=launch_counts(),
+               reference_be=EAGLE_REF_BE)
+    log(f"eagle_serving ({reqs} x {max_new}, {n_slots} slots): BE "
+        f"{out['be']} (the timed requests alone {out['be_requests']}; the "
+        f"reference {EAGLE_REF_BE}), {toks} tokens in {secs}s = "
+        f"{out['tok_s']} tok/s, {blocks} slot-blocks, launches "
+        f"{out['launches']}")
+    del head, target, se
+    free(device)
+    return out
+
+
+# bench.py's _realistic_row (:206-336); the reference's numbers
+# (BENCH_r05.json): BEs, the uplifts over tokenwise with their CI95s
+REAL_REF = {"be": {"tokenwise": 6.315, "blockwise": 6.465, "hsd": 6.581},
+            "uplift": {"hsd": (1.0421, 0.0359), "blockwise": (1.0238, 0.0357)},
+            "tau": 1.406, "alpha": 0.8851, "frac_hard_disagree": 0.1051}
+REAL_V, REAL_STEPS, REAL_FINAL, REAL_PROBE = 2048, 1800, 288, 24
+REAL_NEW, REAL_PROMPTS, REAL_PLEN, REAL_RUN0, REAL_WARM = 256, 8, 64, 700, 999
+# the last word of the reference's language key, fold_in(fold_in(
+# PRNGKey(0), 40), 31), which make_language seeds numpy with: the port's
+# language is the reference's, bit for bit
+REAL_LANG_SEED = 3592766398
+# the port's own seeds for the trained pair, the prompts and the probes
+# (fold_seed(REAL_SEED, k) for bench.py's fold k)
+REAL_SEED = 0
+
+
+def realistic_configs(V: int = REAL_V, target_hidden: int = 256,
+                      target_layers: int = 4, draft_hidden: int = 128,
+                      draft_layers: int = 2):
+    """bench.py's pair: a 4L/256H target and a 2L/128H draft, f32, untied,
+    vocab 2048, EOS V - 1."""
+    common = dict(vocab_size=V, num_heads=4, num_kv_heads=2,
+                  dtype=torch.float32, tie_word_embeddings=False,
+                  eos_token_id=V - 1)
+    return (ModelConfig.tiny(hidden_size=target_hidden,
+                             intermediate_size=2 * target_hidden,
+                             num_layers=target_layers, **common),
+            ModelConfig.tiny(hidden_size=draft_hidden,
+                             intermediate_size=2 * draft_hidden,
+                             num_layers=draft_layers, **common))
+
+
+def uplift(rows: dict, m: str) -> Tuple[float, float]:
+    """bench.py's delta-method uplift over tokenwise and its CI95."""
+    r = rows[m]["be"] / rows["tokenwise"]["be"]
+    ci = r * ((rows[m]["ci95"] / rows[m]["be"]) ** 2
+              + (rows["tokenwise"]["ci95"] / rows["tokenwise"]["be"]) ** 2
+              ) ** 0.5
+    return r, ci
+
+
+def calibrate_tau(be_at: Callable[[float], float],
+                  target_be: float = TARGET_BE) -> float:
+    """bench.py's tau search (:277-296): a probe at 1.0; while above the
+    target, raise the upper end by 1.4x from 2.0; then up to 7 bisections
+    until a probe lands within 0.1; the tau whose probe landed closest."""
+    cal = []
+
+    def probe(t):
+        be = be_at(t)
+        cal.append((t, be))
+        return be
+
+    lo, hi = 1.0, 2.0
+    be = probe(1.0)
+    if be > target_be:
+        while be > target_be and hi < 6.0:
+            be = probe(hi)
+            if be > target_be:
+                lo, hi = hi, hi * 1.4
+        for _ in range(7):
+            if abs(be - target_be) < 0.1:
+                break
+            tau = 0.5 * (lo + hi)
+            be = probe(tau)
+            if be > target_be:
+                lo = tau
+            else:
+                hi = tau
+    return min(cal, key=lambda tb: abs(tb[1] - target_be))[0], cal
+
+
+def realistic_row(device, steps: int = REAL_STEPS, n_final: int = REAL_FINAL,
+                  probe_runs: int = REAL_PROBE, max_new: int = REAL_NEW,
+                  configs=None, lang_kw=None, batch: int = 64,
+                  seq: int = 96) -> dict:
+    """bench.py's `_realistic_row` on the port: the reference's language
+    (REAL_LANG_SEED), a target trained `steps` steps and a draft distilled
+    `steps` steps (the port's own RNG: seeds fold_seed(0, 32) and
+    fold_seed(0, 33)), 8 prompts of 64 tokens (fold_seed(0, 34)); the
+    draft's temperature tau bisected toward tokenwise BE 5.99 on
+    `probe_runs`-run probes; then `n_final` runs a method for tokenwise,
+    blockwise and hsd (gamma 10, `max_new` tokens; run i on prompt i % 8
+    with generator fold_seed(0, 700 + i), one warm run first with
+    fold_seed(0, 999)); the uplifts over tokenwise with delta-method CIs,
+    ratio_stats' alpha and frac_hard_disagree (fold_seed(0, 35)), the
+    CEs, beside the reference's bands."""
+    from hsd_tpu_torch.eval.oracle import (distill_lm, make_language,
+                                           ratio_stats, sample_tokens,
+                                           scale_draft_temperature, train_lm)
+    from hsd_tpu_torch.ops.sampling import fold_generator, fold_seed
+
+    cfg_t, cfg_d = configs or realistic_configs()
+    lang = make_language(REAL_LANG_SEED, vocab=cfg_t.vocab_size,
+                         device=device, **(lang_kw or {}))
+    t0 = time.time()
+    tl = []
+    pt, tce = train_lm(cfg_t, fold_seed(REAL_SEED, 32), lang, steps=steps,
+                       batch=batch, seq=seq, device=device, losses=tl)
+    train_s = time.time() - t0
+    log(f"realistic: target trained {steps} steps in {train_s:.1f}s, CE "
+        f"{tl[0]} -> {tce}")
+    t0 = time.time()
+    dl = []
+    pd, dce = distill_lm(cfg_d, cfg_t, pt, fold_seed(REAL_SEED, 33), lang,
+                         steps=steps, batch=batch, seq=seq, device=device,
+                         losses=dl)
+    distill_s = time.time() - t0
+    log(f"realistic: draft distilled {steps} steps in {distill_s:.1f}s, "
+        f"soft CE {dl[0]} -> {dce}")
+    prompts = sample_tokens(fold_generator(REAL_SEED, 34, device=device),
+                            lang, REAL_PROMPTS, REAL_PLEN)
+
+    def gen_for(m):
+        return make_generate(cfg_d, cfg_t, EngineConfig(
+            verifier=VerifierConfig(method=m, gamma=GAMMA),
+            max_new_tokens=max_new))
+
+    def measure_runs(gen, pdt, n):
+        gen(pdt, pt, prompts[0], REAL_PLEN,
+            fold_generator(REAL_SEED, REAL_WARM, device=device))
+        sync(device)
+        accepts, toks, secs = [], 0, 0.0
+        for i in range(n):
+            g = fold_generator(REAL_SEED, REAL_RUN0 + i, device=device)
+            t0 = time.perf_counter()
+            res = gen(pdt, pt, prompts[i % REAL_PROMPTS], REAL_PLEN, g)
+            sync(device)
+            secs += time.perf_counter() - t0
+            toks += res.ncommit
+            accepts.append(res.accepts[:res.blocks].tolist())
+        return row_stats(accepts, toks, secs)
+
+    gen_tok = gen_for("tokenwise")
+
+    def be_at(tau):
+        r = measure_runs(gen_tok, scale_draft_temperature(pd, cfg_d, tau),
+                         probe_runs)
+        log(f"realistic probe tau {tau}: tokenwise BE {r['be']} +- "
+            f"{r['ci95']}")
+        return r["be"]
+
+    t0 = time.time()
+    tau, cal = calibrate_tau(be_at)
+    cal_s = time.time() - t0
+    pdt = scale_draft_temperature(pd, cfg_d, tau)
+    rows = {}
+    for m in ("tokenwise", "blockwise", "hsd"):
+        r = measure_runs(gen_for(m), pdt, n_final)
+        rows[m] = {k: r[k] for k in ("be", "ci95", "tok_s", "tokens",
+                                     "seconds")}
+        log(f"realistic {m} ({n_final} runs at tau {tau}): BE {r['be']} +- "
+            f"{r['ci95']}, {r['tok_s']} tok/s (the reference: BE "
+            f"{REAL_REF['be'][m]})")
+    st = ratio_stats(cfg_d, cfg_t, pdt, pt, lang,
+                     fold_generator(REAL_SEED, 35, device=device),
+                     gamma=GAMMA)
+    out = dict(rows=rows, tau=tau, cal=cal, alpha=st["alpha"],
+               frac_hard_disagree=st["frac_hard_disagree"], target_ce=tce,
+               distill_ce=dce, target_ce0=tl[0], distill_ce0=dl[0],
+               train_s=train_s, distill_s=distill_s, calibrate_s=cal_s,
+               steps=steps, n_final=n_final, probe_runs=probe_runs,
+               reference=REAL_REF)
+    for m in ("hsd", "blockwise"):
+        r, ci = uplift(rows, m)
+        ref, ref_ci = REAL_REF["uplift"][m]
+        out[f"uplift_{m}"] = r
+        out[f"uplift_{m}_ci95"] = ci
+        out[f"uplift_{m}_inside_band"] = ref - ref_ci <= r <= ref + ref_ci
+        log(f"realistic uplift {m} / tokenwise: {r} +- {ci} (the "
+            f"reference's band {ref} +- {ref_ci}: "
+            f"{'inside' if out[f'uplift_{m}_inside_band'] else 'outside'})")
+    log(f"realistic: tau {tau}, probes {cal}, alpha {st['alpha']}, "
+        f"frac_hard_disagree {st['frac_hard_disagree']}, CEs {tce} / {dce}")
+    return out
+
+
+EXTRA_ROWS = {"gsm8k_parity": gsm8k_parity_row,
+              "eagle_serving": eagle_serving_row,
+              "realistic": realistic_row}
+PAIR_ROWS = ("k1", "k11", "ar", "serving")
+
+
 def card_line() -> str:
     return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
@@ -458,18 +873,22 @@ def card_line() -> str:
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    how = ap.add_mutually_exclusive_group(required=True)
+    how = ap.add_mutually_exclusive_group()
     how.add_argument("--scale", type=float,
                      help="the trunk sharpening (skips the calibration)")
     how.add_argument("--calibrate", action="store_true",
                      help="find the scale whose tokenwise BE is 5.99 first")
     ap.add_argument("--rows", default="k1,k11,ar",
-                    help="comma-separated rows: k1, k11, ar, serving")
+                    help="comma-separated rows: k1, k11, ar, serving, "
+                         "gsm8k_parity, eagle_serving, realistic")
     args = ap.parse_args(argv)
     rows = [r for r in args.rows.split(",") if r]
-    bad = set(rows) - {"k1", "k11", "ar", "serving"}
+    bad = set(rows) - set(PAIR_ROWS) - set(EXTRA_ROWS)
     if bad:
         ap.error(f"unknown rows {sorted(bad)}")
+    pair_rows = [r for r in rows if r in PAIR_ROWS]
+    if pair_rows and args.scale is None and not args.calibrate:
+        ap.error(f"rows {pair_rows} need --scale or --calibrate")
     if not torch.cuda.is_available():
         sys.exit("bench_main: no CUDA device")
     device = torch.device("cuda")
@@ -482,19 +901,28 @@ def main(argv=None):
         f"{torch.cuda.get_device_name(0)}")
     t0 = time.time()
     _build.lib("gptq_i8")
+    if "eagle_serving" in rows:
+        _build.lib("gptq_mma")
     log(f"kernels built and loaded in {time.time() - t0:.1f}s")
 
-    cfg_s, cfg_b = ModelConfig.qwen2_05b(), ModelConfig.qwen2_14b()
     result = {"card": smi, "kind": torch.cuda.get_device_name(0),
-              "gamma": GAMMA, "max_new": MAX_NEW, "runs": N_RUNS}
-    if args.calibrate:
-        scale, probes, builds = calibrate(cfg_s, cfg_b, device)
-        result.update(calibrated=True, probes=probes, probe_build_s=builds)
-    else:
-        scale = args.scale
-        result["calibrated"] = False
-    result["scale"] = scale
-    result.update(measure(rows, scale, cfg_s, cfg_b, device))
+              "gamma": GAMMA, "max_new": MAX_NEW, "runs": N_RUNS, "rows": {}}
+    if pair_rows:
+        cfg_s, cfg_b = ModelConfig.qwen2_05b(), ModelConfig.qwen2_14b()
+        if args.calibrate:
+            scale, probes, builds = calibrate(cfg_s, cfg_b, device)
+            result.update(calibrated=True, probes=probes,
+                          probe_build_s=builds)
+        else:
+            scale = args.scale
+            result["calibrated"] = False
+        result["scale"] = scale
+        result.update(measure(pair_rows, scale, cfg_s, cfg_b, device))
+    for name in rows:
+        if name in EXTRA_ROWS:
+            t0 = time.time()
+            result["rows"][name] = EXTRA_ROWS[name](device)
+            log(f"row {name} done in {time.time() - t0:.1f}s")
     for name, row in result["rows"].items():
         band = against_band(name, row)
         if band is not None:
