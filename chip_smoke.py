@@ -228,6 +228,31 @@ Phases (any failure exits nonzero, with no result line):
                then one 256-token tokenwise and one hsd generate (gamma 10)
                through the trained pair: tokens in range, accepts in [0,
                gamma]; no kernel launches (dense f32 models)
+ 18. train     EAGLE head training over phase 9's frozen int8 8B trunk
+               (run right after 9f): byte-tokenized conversations from a
+               seed through train.data (llama3 template, bucket 512), the
+               draft vocabulary (count_tokens + build_draft_vocab, 32000 of
+               128256), an EAGLE-3 head at the published EAGLE3-LLaMA3.1-8B
+               width in dense bf16; 10 train.eagle3 steps (7 chained steps,
+               lr 1e-3, warmup 2, total 100) on one repeated 2 x 512 batch:
+               every loss finite, step 0 (lr 0) leaves the weights, the last
+               loss below step 1's, embed / d2t / t2d bit-equal; launches: K7
+               and no other kernel (wdown declines the bf16 route); the
+               step's peak GiB and tokens/s, then one more step with each
+               part timed alone (target forward, head forward, backward,
+               clip, AdamW); one 1 x 2048 step (every product on route A: no
+               launch), its time and peak GiB; dump_features of the batch
+               (its f16 shard's non-finite share: the trunk's layer inputs
+               reach ~1e6), then on the same codes with each layer's scales
+               over sqrt(in) and a head over the full vocabulary: 3 online
+               and 3 offline steps from one head, their losses within 1e-2
+               (f16 shards; the target argmaxes that f16 moves printed), the
+               offline step-0 loss within 1e-4 of the online loss on the
+               f16-rounded inputs; 3
+               train.eagle1 steps with phase 9's v1 head geometry (finite,
+               K7 alone); make_kacc_probe on the batch (5 values in [0, 1]);
+               a checkpoint round trip at full width (params and Adam
+               moments bit-equal; seconds and bytes; the directory deleted)
 The line before the last is the kernels' JSON summary; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -318,6 +343,11 @@ MIXTRAL_NEW = 64                           # phase 15: cut from phase 5's 128
 MIXTRAL_ROWS = (1, 11, 64)                 # phase 15's row-bit check
 MIXTRAL_GREEDY_NEW, MIXTRAL_GREEDY_GAMMA = 64, 4
 LOADER_SEED, LOADER_PERM = 16, 5           # phase 16: w2 of expert 5 permuted
+TRAIN_B, TRAIN_T, TRAIN_STEPS = 2, 512, 10  # phase 18: one repeated batch
+TRAIN_LONG = 2048                          # phase 18: the reference's max_len
+TRAIN_TC = dict(steps=7, lr=1e-3, warmup_steps=2, total_steps=100)
+OFFLINE_RTOL = 1e-2      # offline vs online losses: the shards are f16
+EXACT_RTOL = 1e-4        # offline step 0 vs online on the f16 image
 T0 = time.time()
 
 
@@ -1409,6 +1439,311 @@ def eval_phase(draft, target, cfg_s, cfg_b):
         f"{m['questions']} rows; reorg_answer_file order {ids}")
     return dict(prefill=prefill, be=summary["block_efficiency"], secs=secs,
                 counts=counts, bench_be=m["block_efficiency"])
+
+
+TRAIN_WORDS = ("the model drafts tokens and the target verifies them in one "
+               "forward pass so the output keeps its law while the speed "
+               "grows with every accepted token of a longer draft").split()
+
+
+def train_conversations(n, user, reply, seed):
+    """n chats (system, user, assistant) with user[0]..user[1] words in the
+    question and reply[0]..reply[1] in the answer, drawn from a seeded
+    numpy generator."""
+    rng = np.random.default_rng(seed)
+
+    def text(lo, hi):
+        return " ".join(rng.choice(TRAIN_WORDS, int(rng.integers(lo, hi))))
+    return [[{"role": "system", "content": "Be brief."},
+             {"role": "user", "content": text(*user)},
+             {"role": "assistant", "content": text(*reply)}]
+            for _ in range(n)]
+
+
+def expect_only_k7(label, counts):
+    """K7 launched, every other kernel not."""
+    bad = {k: v for k, v in counts.items() if (v > 0) != (k == "K7")}
+    if bad:
+        raise AssertionError(f"{label}: launches {counts}")
+
+
+def train_step_parts(step, state, trunk, ids, lm):
+    """One more train step with each part run alone, a synchronize before
+    and after it: {part: ms} and the step's total ms."""
+    from hsd_tpu_torch.train import eagle3 as E3
+    parts = {}
+
+    def timed(name, fn):
+        def f(*a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            parts[name] = parts.get(name, 0.0) + 1e3 * (time.perf_counter()
+                                                        - t0)
+            return out
+        return f
+
+    saved = (E3.target_stream, E3.multi_step_head_loss,
+             E3.clip_by_global_norm_, torch.Tensor.backward, state.opt.step)
+    E3.target_stream = timed("target forward", saved[0])
+    E3.multi_step_head_loss = timed("head forward", saved[1])
+    E3.clip_by_global_norm_ = timed("clip", saved[2])
+    torch.Tensor.backward = timed("head backward", saved[3])
+    state.opt.step = timed("AdamW", saved[4])
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, trunk, ids, lm)
+        float(m["loss"])
+        total = 1e3 * (time.perf_counter() - t0)
+    finally:
+        (E3.target_stream, E3.multi_step_head_loss, E3.clip_by_global_norm_,
+         torch.Tensor.backward, state.opt.step) = saved
+    return parts, total
+
+
+def tamed(params):
+    """The trunk's int8 codes with each layer product's scales over
+    sqrt(in), so its layer inputs stay inside f16's range; the head keeps
+    its scales, so the logits keep their spread (few near-ties for f16 to
+    flip)."""
+    def t(w):
+        if not isinstance(w, QuantizedLinear):
+            return w
+        return w._replace(scales=(w.scales.float() / math.sqrt(w.din))
+                          .to(w.scales.dtype))
+    return params._replace(layers={k: t(v) for k, v in params.layers.items()})
+
+
+def offline_round(cfg, ecfg, tc, trunk, head, ids, lm, fl, label):
+    """dump_features of one batch into a temporary directory, the shard read
+    back, then 3 offline steps from `head`: sizes, the shard's non-finite
+    share and largest magnitudes, the losses."""
+    from hsd_tpu_torch.train import eagle3 as E3
+    from hsd_tpu_torch.train.features import (dump_features,
+                                              offline_data_epochs)
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        dump_features(cfg, trunk, [(ids, lm)], d, feature_layers=fl,
+                      version=3, device=DEV)
+        dump_s = time.perf_counter() - t0
+        size = sum(os.path.getsize(os.path.join(d, f)) for f in os.listdir(d))
+        batch = next(iter(offline_data_epochs(d, device=DEV)(0)))
+    f, lg = batch["features"], batch["target_logits"]
+    out = dict(bytes=size, dump_s=dump_s,
+               nonfinite=float((~torch.isfinite(f)).float().mean()
+                               + (~torch.isfinite(lg)).float().mean()),
+               feats_max=float(f[torch.isfinite(f)].abs().max()),
+               logits_max=float(lg[torch.isfinite(lg)].abs().max()))
+    state = E3.init_train_state(head, tc)
+    ostep = E3.make_train_step_offline(cfg, ecfg, tc)
+    out["losses"] = [float(ostep(state, None, **batch)[1]["loss"])
+                     for _ in range(3)]
+    log(f"train: dump_features on {label}: {size} bytes in {dump_s:.2f}s; "
+        f"non-finite share {out['nonfinite']:.4f}, largest finite |feats| "
+        f"{out['feats_max']:.1f}, |logits| {out['logits_max']:.1f}; offline "
+        f"losses {out['losses']}")
+    return out
+
+
+def train_phase(trunk, cfg):
+    """Phase 18: EAGLE head training over the frozen int8 8B trunk."""
+    from hsd_tpu_torch.eval.benches import ChatTemplate
+    from hsd_tpu_torch.eval.gsm8k import ByteTokenizer
+    from hsd_tpu_torch.models.eagle import init_eagle_params_v1
+    from hsd_tpu_torch.train import eagle1 as E1
+    from hsd_tpu_torch.train import eagle3 as E3
+    from hsd_tpu_torch.train.data import conversation_batches
+    from hsd_tpu_torch.train.draft_vocab import build_draft_vocab, count_tokens
+    from hsd_tpu_torch.train.probes import make_kacc_probe
+    from hsd_tpu_torch.engine.eagle_engine import default_feature_layers
+
+    fl = default_feature_layers(cfg)
+    tok, tmpl = ByteTokenizer(), ChatTemplate(style="llama3")
+    batches = list(conversation_batches(
+        train_conversations(8, (15, 25), (80, 110), 18), tok, TRAIN_B, tmpl,
+        max_len=TRAIN_T, buckets=(TRAIN_T,), seed=18))
+    long_ids, long_lm = next(iter(conversation_batches(
+        train_conversations(1, (30, 40), (380, 420), 19), tok, 1, tmpl,
+        max_len=TRAIN_LONG, buckets=(TRAIN_LONG,), seed=19)))
+    ids, lm = batches[0]
+    if ids.shape != (TRAIN_B, TRAIN_T) or long_ids.shape != (1, TRAIN_LONG):
+        raise AssertionError(f"train: batch shapes {ids.shape} "
+                             f"{long_ids.shape}")
+    counts_v = count_tokens([b[0] for b in batches] + [long_ids],
+                            cfg.vocab_size)
+    with tempfile.TemporaryDirectory() as d:
+        with open(f"{d}/config.json", "w") as f:
+            json.dump(EAGLE3_CONFIG, f)
+        ecfg = EagleConfig.from_json(f"{d}/config.json")
+    d2t, t2d = build_draft_vocab(counts_v, ecfg.draft_vocab_size)
+    vocab = dict(d2t=torch.from_numpy(d2t).long().to(DEV),
+                 t2d=torch.from_numpy(t2d).to(DEV))
+    head = init_eagle_params(ecfg, seed=18, device=DEV)._replace(**vocab)
+    tc = E3.TrainConfig(**TRAIN_TC)
+    log(f"train: {len(batches)} batches of {TRAIN_B} x {TRAIN_T} "
+        f"({int(lm.sum())} of {lm.size} positions train), draft vocabulary "
+        f"{int(t2d.sum())} of {cfg.vocab_size} ({int((counts_v > 0).sum())} "
+        f"ids seen); the head {ecfg.hidden_size} wide, bf16, {tc}")
+
+    # online EAGLE-3 steps on one repeated batch
+    state = E3.init_train_state(head, tc)
+    step = E3.make_train_step(cfg, ecfg, tc, fl)
+    frozen0 = {k: getattr(head, k).clone() for k in E3.FROZEN}
+    wq0 = state.params.wq.detach().clone()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    losses, secs = [], []
+    for i in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        state, m = step(state, trunk, ids, lm)
+        losses.append(float(m["loss"]))
+        secs.append(time.perf_counter() - t0)
+        if i == 0 and not torch.equal(state.params.wq, wq0):
+            raise AssertionError("train: step 0 (lr 0) moved a weight")
+    counts = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    out = dict(losses=losses, counts=counts, step_s=secs,
+               base_gib=base / 2**30, peak_gib=peak / 2**30,
+               k7_per_forward=counts["K7"] / TRAIN_STEPS,
+               acc=[float(m[f"acc_{i}"]) for i in range(tc.steps)])
+    out["step_ms"] = 1e3 * statistics.mean(secs[2:])
+    out["tok_s"] = TRAIN_B * TRAIN_T / statistics.mean(secs[2:])
+    log(f"train: EAGLE-3 losses {[round(x, 4) for x in losses]}; step ms "
+        f"{[round(1e3 * x, 2) for x in secs]}; {out['tok_s']:.1f} tokens/s "
+        f"trained (steps 2..{TRAIN_STEPS - 1}); peak {out['peak_gib']:.2f} "
+        f"GiB ({out['base_gib']:.2f} before the steps); launches {counts} "
+        f"({out['k7_per_forward']} K7 a target forward); acc_i after "
+        f"{[round(x, 4) for x in out['acc']]}")
+    if not all(math.isfinite(x) for x in losses) or losses[-1] >= losses[1]:
+        raise AssertionError(f"train: losses {losses}")
+    for k in E3.FROZEN:
+        if not torch.equal(getattr(state.params, k), frozen0[k]):
+            raise AssertionError(f"train: frozen {k} changed")
+    expect_only_k7("train: EAGLE-3 steps", counts)
+    parts, total = train_step_parts(step, state, trunk, ids, lm)
+    out["parts_ms"], out["parts_total_ms"] = parts, total
+    log(f"train: one step with its parts run alone, {total:.2f} ms: "
+        + ", ".join(f"{k} {v:.2f} ms" for k, v in parts.items())
+        + f" (the rest {total - sum(parts.values()):.2f} ms)")
+
+    # one step at the reference's max_len: every product on route A
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    state, m = step(state, trunk, long_ids, long_lm)
+    long_loss = float(m["loss"])
+    out["long_ms"] = 1e3 * (time.perf_counter() - t0)
+    out["long_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    long_counts = launch_counts()
+    log(f"train: one 1 x {TRAIN_LONG} step {out['long_ms']:.2f} ms, loss "
+        f"{long_loss:.4f}, peak {out['long_peak_gib']:.2f} GiB, launches "
+        f"{long_counts}")
+    if not math.isfinite(long_loss) or any(long_counts.values()):
+        raise AssertionError("train: the 2048-row step")
+
+    # offline features. The trunk's layer inputs outgrow f16 (random int8
+    # codes at scales ~1e-2 with no 1/sqrt(fan-in)): its shard is dumped and
+    # its non-finite share read; the agreement with the online steps is
+    # checked on the same codes with every layer's scales over sqrt(in),
+    # with a head over the full vocabulary (that trunk's argmax lands
+    # outside the 32000 drafted ids, which would mask every position)
+    out["raw_shard"] = offline_round(cfg, ecfg, tc, trunk, head, ids, lm,
+                                     fl, "the trunk")
+    tame = tamed(trunk)
+    fcfg = dataclasses.replace(ecfg, draft_vocab_size=cfg.vocab_size)
+    fhead = init_eagle_params(fcfg, seed=20, device=DEV)
+    tstate = E3.init_train_state(fhead, tc)
+    fstep = E3.make_train_step(cfg, fcfg, tc, fl)
+    tl = [float(fstep(tstate, tame, ids, lm)[1]["loss"]) for _ in range(3)]
+    del tstate
+    shard = offline_round(cfg, fcfg, tc, tame, fhead, ids, lm, fl,
+                          "the scaled trunk")
+    # the online loss on the shard's f16 image of the online inputs
+    ids_t = torch.from_numpy(ids).long().to(DEV)
+    lm_t = torch.from_numpy(lm).to(DEV)
+    logits, feats = E3.target_stream(cfg, tame, ids_t, fl)
+    half = lambda t: t.half().float()
+    flips = int((logits.argmax(-1) != half(logits).argmax(-1)).sum())
+    with torch.no_grad():
+        ref = float(E3.multi_step_head_loss(
+            fcfg, fhead, half(feats), E3._shift(half(logits)),
+            E3._shift(ids_t), lm_t, tc.steps)[0])
+    del logits, feats, fhead
+    if not ref > 0:
+        raise AssertionError(f"train: the scaled trunk's loss {ref}")
+    exact = abs(shard["losses"][0] - ref) / ref
+    rel = max(abs(a - b) / abs(b) for a, b in zip(shard["losses"], tl))
+    out.update(offline_losses=shard["losses"], tamed_losses=tl,
+               offline_rel=rel, offline_exact=exact, f16_flips=flips,
+               shard=shard)
+    log(f"train: the scaled trunk's online losses {tl}, offline "
+        f"{shard['losses']}: max relative difference {rel:.2e} (bound "
+        f"{OFFLINE_RTOL}; {flips} of {ids.size} target argmaxes move under "
+        f"f16); offline step 0 vs the online loss on the f16-rounded inputs "
+        f"{exact:.2e} (bound {EXACT_RTOL})")
+    if shard["nonfinite"] or exact > EXACT_RTOL or rel > OFFLINE_RTOL:
+        raise AssertionError("train: offline vs online")
+
+    # EAGLE-1: phase 9's v1 head geometry over the final hidden state
+    _, ecfg1 = BM.eagle_configs()
+    head1 = init_eagle_params_v1(ecfg1, seed=19, device=DEV)._replace(
+        **vocab)
+    s1 = E3.init_train_state(head1, tc)
+    step1 = E1.make_eagle1_train_step(cfg, ecfg1, tc)
+    reset_launches()
+    t0 = time.perf_counter()
+    l1 = [float(step1(s1, trunk, ids, lm)[1]["loss"]) for _ in range(3)]
+    e1_s = time.perf_counter() - t0
+    c1 = launch_counts()
+    out["eagle1_losses"] = l1
+    log(f"train: EAGLE-1 losses {l1} in {e1_s:.2f}s; launches {c1}")
+    if not all(math.isfinite(x) for x in l1):
+        raise AssertionError("train: EAGLE-1 losses")
+    expect_only_k7("train: EAGLE-1 steps", c1)
+    del s1, head1, step1
+
+    # the rollout probe
+    t0 = time.perf_counter()
+    kacc = make_kacc_probe(cfg, ecfg)(state.params, trunk, ids, lm)
+    out["kacc"] = {k: round(v, 4) for k, v in kacc.items()}
+    log(f"train: kacc probe {out['kacc']} in "
+        f"{time.perf_counter() - t0:.2f}s")
+    if len(kacc) != 5 or not all(0.0 <= v <= 1.0 for v in kacc.values()):
+        raise AssertionError(f"train: kacc {kacc}")
+
+    # a checkpoint round trip at full width
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        E3.save_checkpoint(d, state)
+        out["ckpt_save_s"] = time.perf_counter() - t0
+        out["ckpt_bytes"] = sum(
+            os.path.getsize(os.path.join(r, f))
+            for r, _, fs in os.walk(d) for f in fs)
+        t0 = time.perf_counter()
+        back = E3.restore_checkpoint(d, state.step,
+                                     E3.init_train_state(head, tc))
+        torch.cuda.synchronize()
+        out["ckpt_restore_s"] = time.perf_counter() - t0
+    same = back.step == state.step and all(
+        torch.equal(p, q) and all(
+            torch.equal(state.opt.state[p][k], back.opt.state[q][k])
+            for k in ("exp_avg", "exp_avg_sq"))
+        for (_, p), (_, q) in zip(E3.trainable_leaves(state.params),
+                                  E3.trainable_leaves(back.params)))
+    log(f"train: checkpoint at step {state.step}: {out['ckpt_bytes']} bytes,"
+        f" saved in {out['ckpt_save_s']:.2f}s, restored in "
+        f"{out['ckpt_restore_s']:.2f}s; params and Adam moments bit-equal: "
+        f"{same}")
+    if not same:
+        raise AssertionError("train: the checkpoint round trip")
+    del state, back, head
+    torch.cuda.empty_cache()
+    return out
 
 
 def oracle_phase():
@@ -3033,6 +3368,7 @@ def main():
     eagle_kernel_phase(etarget, cfg_e)
     serving = eagle_serving(etarget, head, cfg_e, ecfg, args.trace)
     eagle1 = eagle_single(etarget, head, cfg_e, ecfg)
+    train = train_phase(etarget.big, cfg_e)
     del head, etarget
     torch.cuda.empty_cache()
     eagle_greedy_small()
@@ -3140,9 +3476,24 @@ def main():
         f"{e0['target']['peak_gib']:.3f} GiB; oracle (17): CEs "
         f"{oracle['target_ce']:.4f} / {oracle['distill_ce']:.4f}, tokenwise "
         f"BE {oracle['tokenwise']:.4f}, hsd BE {oracle['hsd']:.4f}")
+    log(f"train (18): EAGLE-3 {TRAIN_B} x {TRAIN_T} loss "
+        f"{train['losses'][0]:.4f} -> {train['losses'][-1]:.4f}, "
+        f"{train['step_ms']:.2f} ms a step, {train['tok_s']:.1f} tokens/s, "
+        f"peak {train['peak_gib']:.2f} GiB, K7 {train['k7_per_forward']:.1f} "
+        f"a target forward; 1 x {TRAIN_LONG} {train['long_ms']:.2f} ms, peak "
+        f"{train['long_peak_gib']:.2f} GiB; the raw shard's non-finite "
+        f"share {train['raw_shard']['nonfinite']:.4f}; offline vs online "
+        f"{train['offline_rel']:.2e} ({train['f16_flips']} argmaxes moved), "
+        f"vs the f16-rounded inputs {train['offline_exact']:.2e}; EAGLE-1 "
+        f"losses "
+        f"{[round(x, 4) for x in train['eagle1_losses']]}; kacc "
+        f"{train['kacc']}; checkpoint {train['ckpt_bytes']} bytes saved "
+        f"{train['ckpt_save_s']:.2f}s, restored "
+        f"{train['ckpt_restore_s']:.2f}s")
     # each path's own launches: phase 5 (the "launches" key), 5g, 5h, 5i
     # (run_eval's GSM8K run), 15 (the Mixtral hsd + tokenwise runs), 16
-    # (the loader phase) and 17 (the oracle pair: none)
+    # (the loader phase), 17 (the oracle pair: none) and 18 (the EAGLE-3
+    # online training steps)
     for k in kernels:
         k["launches_by_phase"] = {
             "5": counts[k["name"]], "5g": spec_serving["counts"][k["name"]],
@@ -3150,7 +3501,8 @@ def main():
             "5i": evals["counts"][k["name"]],
             "15": mixtral["counts"][k["name"]],
             "16": loader_counts[k["name"]],
-            "17": oracle["counts"][k["name"]]}
+            "17": oracle["counts"][k["name"]],
+            "18": train["counts"][k["name"]]}
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

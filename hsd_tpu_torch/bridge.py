@@ -15,6 +15,11 @@ The EAGLE structures (EagleParams, CoupledEagleParams, EagleKV, Trie) of
 the JAX package hold one slot; the port's carry a leading slot axis, so
 EagleKV and Trie gain a batch of one on the way across. Integer index
 arrays become int64.
+
+An optax `TrainState` of the EAGLE trainers (`chain(clip_by_global_norm,
+adamw)`: opt_state[1][0] holds Adam's count, mu and nu) crosses into the
+port's `train.eagle3.TrainState`: the params, AdamW's moments and the
+count, which sets the scheduler's position and the step.
 """
 from __future__ import annotations
 
@@ -26,6 +31,8 @@ from .eval.synthetic import CoupledEagleParams
 from .models.eagle import EagleKV, EagleParams, Trie
 from .models.transformer import ModelParams, QuantizedEmbedding
 from .ops.linear import QuantizedLinear
+from .train.eagle3 import (TrainConfig, TrainState, init_train_state,
+                           lr_lambda, trainable_leaves)
 
 
 def to_torch(a, device="cpu") -> torch.Tensor:
@@ -109,3 +116,25 @@ def trie_from_jax(trie, device="cpu") -> Trie:
     return Trie(*(to_torch(getattr(trie, f), device)[None]
                   .to(torch.bool if f == "tree_mask" else torch.int64)
                   for f in Trie._fields))
+
+
+def train_state_from_jax(state, tc: TrainConfig, device="cpu") -> TrainState:
+    """A JAX `train.eagle3.TrainState` -> the port's: the head's params, then
+    each trainable leaf's Adam mu / nu as AdamW's exp_avg / exp_avg_sq at
+    the optax count, the scheduler and the optimizer's lr at that count,
+    and the step. A run resumed from it continues where the JAX one was."""
+    out = init_train_state(eagle_params_from_jax(state.params, device), tc)
+    adam = state.opt_state[1][0]
+    count = int(np.asarray(adam.count))
+    for name, p in trainable_leaves(out.params):
+        out.opt.state[p] = {
+            "step": torch.tensor(float(count)),
+            "exp_avg": to_torch(adam.mu[name], device),
+            "exp_avg_sq": to_torch(adam.nu[name], device)}
+    lr = tc.lr * lr_lambda(tc)(count)
+    for g in out.opt.param_groups:
+        g["lr"] = lr
+    out.sched.load_state_dict(dict(out.sched.state_dict(), last_epoch=count,
+                                   _last_lr=[lr]))
+    out.step = int(np.asarray(state.step))
+    return out

@@ -12,6 +12,7 @@ logit_scale=S)`), gamma 10, 256 new tokens, temperature 1.0, the one
     python hsd_tpu_torch/tools/bench_main.py --rows gsm8k_parity
     python hsd_tpu_torch/tools/bench_main.py --rows eagle_serving
     python hsd_tpu_torch/tools/bench_main.py --rows realistic
+    python hsd_tpu_torch/tools/bench_main.py --rows realistic_eagle
 
 Rows (`--rows`, comma-separated):
   k1   hsd and tokenwise at K = 1;
@@ -59,6 +60,14 @@ own models after the 14B rows have freed theirs):
        alpha and frac_hard_disagree and the CEs, beside the reference's
        bands (`realistic_row`). A reading outside a band is reported, not
        re-seeded.
+  realistic_eagle  `scripts/bench_realistic.py:223-292`: the realistic
+       row's target (trained as there), an EAGLE-3 head 256 wide
+       (intermediate 512, top_k 10, depth 6, 59 nodes) trained 1500 steps
+       of 64 x 96 by the port's `train.eagle3` (lr 2e-3, 3 chained steps),
+       then typical, hsd, hsd_ref and greedy through `make_eagle_generate`
+       over 8 prompts x 128 tokens: BE +- CI95, tok/s, the accept
+       histogram, hsd over typical (`realistic_eagle_row`). No bar: the
+       script's figures are the paper's H100 telemetry on real models.
 Each speculative row makes one warm run, then 10 timed runs, one per
 seed, each from the call to `torch.cuda.synchronize()`. BE per run is
 mean(accepts + 1) over its blocks; the row's BE is the mean over runs,
@@ -859,9 +868,132 @@ def realistic_row(device, steps: int = REAL_STEPS, n_final: int = REAL_FINAL,
     return out
 
 
+# scripts/bench_realistic.py's eagle_rows (:223-292): the paper's H100
+# telemetry on real models (80 GSM8K questions), the script's only figures;
+# the JAX records hold no number for this row, so it carries no bar
+EAGLE_REAL_REF = {"typical_be": 4.217, "hsd_be": 4.608, "uplift": 1.093,
+                  "typical_hist": [.203, .121, .109, .098, .080, .072, .317],
+                  "hsd_hist": [.138, .104, .113, .106, .092, .093, .354],
+                  "source": "EAGLE-3H/results/h100_*/*_info.jsonl"}
+EAGLE_REAL_STEPS, EAGLE_REAL_NEW, EAGLE_REAL_INTER = 1500, 128, 512
+EAGLE_MODES = ("typical", "hsd", "hsd_ref", "greedy")
+
+
+def realistic_eagle_row(device, steps: int = REAL_STEPS,
+                        head_steps: int = EAGLE_REAL_STEPS,
+                        max_new: int = EAGLE_REAL_NEW, configs=None,
+                        lang_kw=None, batch: int = 64, seq: int = 96,
+                        head_inter: int = EAGLE_REAL_INTER) -> dict:
+    """scripts/bench_realistic.py's `eagle_rows` on the port: the realistic
+    row's language and target (trained `steps` steps from fold_seed(0,
+    32)), then an EAGLE-3 head as wide as the target (intermediate
+    `head_inter`, top_k 10, depth 6, 59 nodes, f32; init seed
+    fold_seed(0, 8)) trained `head_steps` steps by `train.eagle3.
+    make_train_step` (TrainConfig(steps=3, lr=2e-3, warmup min(100,
+    max(1, head_steps // 5)), total head_steps), batches of `batch` x
+    `seq` from fold_seed(17, i) for step i, the JAX script's key 17). Then
+    typical, hsd, hsd_ref and greedy through `make_eagle_generate` over the
+    realistic row's 8 prompts of 64 tokens, `max_new` tokens each (one warm
+    run with fold_seed(0, 900), run i with fold_seed(0, 300 + i)): BE (mean
+    accepts + 1 over every block) with a CI95 over the per-prompt means,
+    tok/s, the accept histogram, and hsd's BE over typical's. The
+    script's reference figures are the paper's H100 telemetry on real
+    models; the row carries no bar."""
+    from hsd_tpu_torch.engine.eagle_engine import (default_feature_layers,
+                                                   make_eagle_generate)
+    from hsd_tpu_torch.eval.oracle import (make_language, sample_tokens,
+                                           train_lm)
+    from hsd_tpu_torch.models.eagle import EagleConfig, init_eagle_params
+    from hsd_tpu_torch.ops.sampling import fold_generator, fold_seed
+    from hsd_tpu_torch.train.eagle3 import (TrainConfig, init_train_state,
+                                            make_train_step)
+
+    cfg_t, _ = configs or realistic_configs()
+    lang = make_language(REAL_LANG_SEED, vocab=cfg_t.vocab_size,
+                         device=device, **(lang_kw or {}))
+    t0 = time.time()
+    tl = []
+    pt, tce = train_lm(cfg_t, fold_seed(REAL_SEED, 32), lang, steps=steps,
+                       batch=batch, seq=seq, device=device, losses=tl)
+    train_s = time.time() - t0
+    log(f"realistic_eagle: target trained {steps} steps in {train_s:.1f}s, "
+        f"CE {tl[0]} -> {tce}")
+    D = cfg_t.hidden_size
+    ecfg = EagleConfig(hidden_size=D, target_hidden_size=D,
+                       num_heads=cfg_t.num_heads,
+                       num_kv_heads=cfg_t.num_kv_heads,
+                       vocab_size=cfg_t.vocab_size,
+                       draft_vocab_size=cfg_t.vocab_size,
+                       intermediate_size=head_inter, top_k=10, depth=6,
+                       total_tokens=59, dtype=torch.float32,
+                       rope_theta=cfg_t.rope_theta)
+    tc = TrainConfig(steps=3, lr=2e-3,
+                     warmup_steps=min(100, max(1, head_steps // 5)),
+                     total_steps=head_steps, max_len=seq)
+    state = init_train_state(init_eagle_params(
+        ecfg, seed=fold_seed(REAL_SEED, 8), device=device), tc)
+    hstep = make_train_step(cfg_t, ecfg, tc, default_feature_layers(cfg_t))
+    mask = torch.ones((batch, seq), device=device)
+    hl = []
+    sync(device)
+    t0 = time.time()
+    for i in range(head_steps):
+        ids = sample_tokens(fold_generator(17, i, device=device), lang,
+                            batch, seq)
+        state, metrics = hstep(state, pt, ids, mask)
+        if i in (0, head_steps - 1):
+            hl.append({k: float(v) for k, v in metrics.items()})
+    sync(device)
+    head_s = time.time() - t0
+    pe = type(state.params)(*(None if v is None else v.detach()
+                              for v in state.params))
+    log(f"realistic_eagle: head trained {head_steps} steps in {head_s:.1f}s "
+        f"({1e3 * head_s / head_steps:.2f} ms a step): loss {hl[0]['loss']} "
+        f"-> {hl[-1]['loss']}, acc_0 {hl[0]['acc_0']} -> {hl[-1]['acc_0']}")
+    prompts = sample_tokens(fold_generator(REAL_SEED, 34, device=device),
+                            lang, REAL_PROMPTS, REAL_PLEN)
+    eng = EngineConfig(max_new_tokens=max_new, temperature=1.0)
+    modes = {}
+    for mode in EAGLE_MODES:
+        egen = make_eagle_generate(cfg_t, ecfg, eng, mode=mode)
+        egen(pt, pe, prompts[0], REAL_PLEN,
+             fold_generator(REAL_SEED, 900, device=device))
+        sync(device)
+        accepts, per_prompt, toks, secs = [], [], 0, 0.0
+        for i in range(REAL_PROMPTS):
+            g = fold_generator(REAL_SEED, 300 + i, device=device)
+            t0 = time.perf_counter()
+            r = egen(pt, pe, prompts[i], REAL_PLEN, g)
+            sync(device)
+            secs += time.perf_counter() - t0
+            toks += r.ncommit
+            a = r.accepts[:r.blocks].tolist()
+            accepts.extend(a)
+            if a:
+                per_prompt.append(statistics.mean(x + 1 for x in a))
+        hist = np.bincount(np.clip(accepts, 0, None), minlength=7)
+        ci = (1.96 * statistics.stdev(per_prompt) / len(per_prompt) ** 0.5
+              if len(per_prompt) > 1 else 0.0)
+        modes[mode] = dict(be=statistics.mean(x + 1 for x in accepts),
+                           be_ci95=ci, tok_s=toks / secs, tokens=toks,
+                           seconds=secs, blocks=len(accepts),
+                           accept_hist=(hist / max(len(accepts), 1)).tolist())
+        log(f"realistic_eagle {mode}: BE {modes[mode]['be']} +- {ci}, "
+            f"{modes[mode]['tok_s']} tok/s, accept hist "
+            f"{modes[mode]['accept_hist']}")
+    out = dict(modes=modes, uplift_hsd_vs_typical=modes["hsd"]["be"]
+               / modes["typical"]["be"], target_ce=tce, target_ce0=tl[0],
+               train_s=train_s, head_s=head_s, head_steps=head_steps,
+               head_metrics=hl, steps=steps, reference=EAGLE_REAL_REF)
+    log(f"realistic_eagle: hsd / typical BE {out['uplift_hsd_vs_typical']} "
+        f"(the paper's H100 telemetry {EAGLE_REAL_REF['uplift']}; no bar)")
+    return out
+
+
 EXTRA_ROWS = {"gsm8k_parity": gsm8k_parity_row,
               "eagle_serving": eagle_serving_row,
-              "realistic": realistic_row}
+              "realistic": realistic_row,
+              "realistic_eagle": realistic_eagle_row}
 PAIR_ROWS = ("k1", "k11", "ar", "serving")
 
 
@@ -880,7 +1012,8 @@ def main(argv=None):
                      help="find the scale whose tokenwise BE is 5.99 first")
     ap.add_argument("--rows", default="k1,k11,ar",
                     help="comma-separated rows: k1, k11, ar, serving, "
-                         "gsm8k_parity, eagle_serving, realistic")
+                         "gsm8k_parity, eagle_serving, realistic, "
+                         "realistic_eagle")
     args = ap.parse_args(argv)
     rows = [r for r in args.rows.split(",") if r]
     bad = set(rows) - set(PAIR_ROWS) - set(EXTRA_ROWS)

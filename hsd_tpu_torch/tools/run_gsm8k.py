@@ -22,11 +22,13 @@ Examples (the reference's four shipped configs):
 Weights: --draft-path/--target-path are HF checkpoint dirs (safetensors;
 GPTQ via --target-bits 8|4), read by `hsd_tpu_torch/models/loader.py`.
 Without paths, random weights of the given geometry run the pipeline end
-to end. --tokenizer-path needs the `transformers` package; without it the
-byte tokenizer runs. --tp above 1 is not ported yet (ROADMAP.md §1.10).
+to end. --tokenizer-path (a local directory) needs the `transformers`
+package; without it the byte tokenizer runs. --tp above 1 is not ported
+yet (ROADMAP.md §1.10).
 """
 import argparse
 import json
+import os
 import sys
 from pathlib import Path
 
@@ -39,13 +41,15 @@ def load_tokenizer(path):
     if not path:
         from hsd_tpu_torch.eval.gsm8k import ByteTokenizer
         return ByteTokenizer()
+    if not os.path.isdir(path):
+        raise SystemExit(f"--tokenizer-path {path}: not a local directory")
     try:
         from transformers import AutoTokenizer
     except ImportError as e:
         raise SystemExit(
             f"--tokenizer-path needs the `transformers` package ({e}); "
             "leave the flag out to use the byte tokenizer") from e
-    return AutoTokenizer.from_pretrained(path)
+    return AutoTokenizer.from_pretrained(path, local_files_only=True)
 
 
 def no_tp(tp: int) -> None:

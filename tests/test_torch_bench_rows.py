@@ -1,6 +1,6 @@
 """The rows of `hsd_tpu_torch/tools/bench_main.py` that build no 14B pair
-(gsm8k_parity, eagle_serving, realistic) on the CPU: their arithmetic
-against bench.py's (`:206-475`, written out here: importing bench.py
+(gsm8k_parity, eagle_serving, realistic, realistic_eagle) on the CPU: their
+arithmetic against bench.py's (`:206-475`, written out here: importing bench.py
 would configure JAX at import) and each row end to end at a tiny size
 with device="cpu"."""
 import collections
@@ -175,3 +175,24 @@ def test_main_rejects_bad_rows(capsys):
     with pytest.raises(SystemExit):
         B.main(["--rows", "k1,gsm8k_parity"])       # k1 needs --scale
     assert "need --scale" in capsys.readouterr().err
+
+
+def test_realistic_eagle_row_on_cpu():
+    """The EAGLE row end to end at a tiny size (vocab 64, a 2-layer 32-wide
+    target trained 20 steps, the head 12 steps, 16 tokens a run): every
+    mode's BE in [1, depth + 1], a histogram over depth + 1 accept counts,
+    the head's loss lower after its steps."""
+    configs = B.realistic_configs(V=64, target_hidden=32, target_layers=2,
+                                  draft_hidden=16, draft_layers=1)
+    row = B.realistic_eagle_row("cpu", steps=20, head_steps=12, max_new=16,
+                                configs=configs, lang_kw=dict(n_words=30),
+                                batch=4, seq=24, head_inter=64)
+    assert set(row["modes"]) == set(B.EAGLE_MODES)
+    for r in row["modes"].values():
+        assert 1.0 <= r["be"] <= 7.0 and r["tokens"] >= 8
+        assert len(r["accept_hist"]) >= 7
+        assert abs(sum(r["accept_hist"]) - 1.0) < 1e-9
+    assert row["uplift_hsd_vs_typical"] == (row["modes"]["hsd"]["be"]
+                                            / row["modes"]["typical"]["be"])
+    assert row["head_metrics"][-1]["loss"] < row["head_metrics"][0]["loss"]
+    assert row["target_ce"] < row["target_ce0"]

@@ -1,6 +1,6 @@
 """The PyTorch port stands alone: no file of `hsd_tpu_torch/`, and not
 `chip_smoke.py`, imports jax, jaxlib or the JAX package, nor safetensors
-or optax, which the card's machine does not have (the loader reads the
+or optax or orbax, which the card's machine does not have (the loader reads the
 format itself; the oracle trains with torch.optim).
 
 An AST scan rather than `sys.modules`: this process may have JAX loaded by
@@ -14,7 +14,7 @@ ROOT = pathlib.Path(__file__).resolve().parent.parent
 FILES = sorted(str(p.relative_to(ROOT))
                for p in (ROOT / "hsd_tpu_torch").rglob("*.py"))
 FILES.append("chip_smoke.py")
-BANNED = ("jax", "jaxlib", "hsd_tpu", "safetensors", "optax")
+BANNED = ("jax", "jaxlib", "hsd_tpu", "safetensors", "optax", "orbax")
 
 
 def _imported(tree: ast.AST):
