@@ -253,6 +253,42 @@ Phases (any failure exits nonzero, with no result line):
                K7 alone); make_kacc_probe on the batch (5 values in [0, 1]);
                a checkpoint round trip at full width (params and Adam
                moments bit-equal; seconds and bytes; the directory deleted)
+ 19. parallel  the parallel layer (hsd_tpu_torch/parallel/, run by
+               hsd_tpu_torch/tools/parallel_smoke.py), last, after every
+               earlier pair is freed: first, here, K3 at the 14B target's
+               tp-2 shard shapes (11 rows) and K7 at the 8B int8 target's
+               (480 rows) against their plain versions, timed as in phase
+               4 (a shard no kernel takes is named and skipped: the 14B
+               head's 75968 columns go to xla_matmul); then two spawned
+               worlds of ranks sharing the card over gloo (NCCL needs a
+               card a rank), the backend and world printed. World 2:
+               19a TP 2 on the 14B packed-int4 target (unfused): one
+               11-row verify against rank 0's single-card forward (within
+               2^-4 of the largest logit), 97 collectives a forward,
+               greedy spec == greedy AR over 64 tokens, hsd on 3 prompts x
+               32 (BE, tok/s; no bar: an uncoupled random target; a token
+               costs a block, so cut from 64), SlotEngine (4 slots, 8
+               requests x 32); K3 and K4 launch, K1 and K2 not; 19b PP 2 on
+               the fused target: the verify's logits and each stage's
+               cache bit-equal to the single card's, PP hsd tokens (8) ==
+               the single card's; 19c SP 2: a 4096-token ring prefill of
+               the trunk with each layer's scales over sqrt(in) (the
+               random trunk's hard attention flips near-ties) within 2^-4
+               of the single prefill in bf16 and 2^-10 with f32
+               activations, gather_cache, 16 greedy tokens, peak GiB a
+               rank; 19d the EAGLE pool (8 slots, 8 requests x 32,
+               hsd_ref) over the 8B int8 target under TP 2, K7 at the
+               shard shapes, greedy EAGLE == AR; 19e DP 2 with ZeRO: the
+               EAGLE-3 step at 8B
+               width, 1 x 512 a rank, 3 steps at lr 1e-3, against the
+               single-rank 2 x 512 steps (losses, the parameters' update,
+               moment bytes a rank, ms a step). World 4:
+               19f PP x TP 2 x 2 on the 14B target cut to 8 layers, and
+               Mixtral-8x7B cut to 4 layers with 2 experts a rank x tp 4,
+               against the single card; K3 at the expert shapes. Every
+               rank's tokens and streams must agree; launches per rank and
+               summed; whether gloo takes a CUDA tensor in send / recv
+               (printed, or the rank gloo aborts; no collective uses them)
 The line before the last is the kernels' JSON summary; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -3305,6 +3341,62 @@ def loader_phase():
     return used
 
 
+# phase 19: the shard shapes of the tensor-parallel paths (tp 2), the
+# 14B packed-int4 target at the verify's 11 rows (K3) and the 8B int8
+# target at the EAGLE pool's 480 rows (K7); (label, din, dout)
+TP_SHARDS_14B = (("wq", 5120, 2560), ("wk/wv", 5120, 512),
+                 ("wo", 2560, 5120), ("wgate/wup", 5120, 6912),
+                 ("wdown", 6912, 5120), ("lm_head", 5120, 75968))
+TP_SHARDS_8B = (("wq", 4096, 2048), ("wk/wv", 4096, 512),
+                ("wo", 2048, 4096), ("wgate/wup", 4096, 7168),
+                ("wdown", 7168, 4096), ("lm_head", 4096, 64128))
+
+
+def random_stack(din, dout, bits, layers=4, seed=0):
+    """`layers` symmetric GPTQ weights [din, dout] (groups of 128) from
+    N(0, 1/din), stacked."""
+    g = torch.Generator(device=DEV).manual_seed(seed)
+    qs = [quantize(torch.randn((din, dout), generator=g, device=DEV)
+                   * din ** -0.5, bits=bits, group_size=128, symmetric=True)
+          for _ in range(layers)]
+    return QuantizedLinear(qweight=torch.stack([q.qweight for q in qs]),
+                           scales=torch.stack([q.scales for q in qs]),
+                           zeros=None)
+
+
+def parallel_phase():
+    """Phase 19: K3 and K7 against their plain versions at the TP 2 shard
+    shapes (here, before the ranks start), then the ranks
+    (hsd_tpu_torch/tools/parallel_smoke.py)."""
+    from hsd_tpu_torch.ops.linear import bf16_route, kernel_route
+    from hsd_tpu_torch.tools import parallel_smoke as PS
+    g = torch.Generator(device=DEV).manual_seed(19)
+
+    def act(n, din):
+        return torch.randn((n, din), generator=g, device=DEV
+                           ).to(torch.bfloat16)
+
+    for (label, din, dout), (label8, din8, dout8) in zip(TP_SHARDS_14B,
+                                                         TP_SHARDS_8B):
+        w = random_stack(din, dout, 4)
+        if kernel_route(w.layer(0), PS.VERIFY, False):
+            quant_case("K3", f"tp2 {label} {din}x{dout}", w, PS.VERIFY, act,
+                       None, 0.0)
+        else:
+            log(f"tp2 {label} {din}x{dout} at {PS.VERIFY} rows: no kernel "
+                f"takes the shape (xla_matmul, as the reference's route)")
+        w8 = random_stack(din8, dout8, 8)
+        if bf16_route(w8.layer(0), EAGLE_SLOTS * 60, True):
+            quant_case("K7", f"tp2 {label8} {din8}x{dout8}", w8,
+                       EAGLE_SLOTS * 60, act, None, 0.0)
+        else:
+            log(f"tp2 {label8} {din8}x{dout8} at {EAGLE_SLOTS * 60} rows: "
+                f"the bf16 route declines the shape")
+        del w, w8
+    torch.cuda.empty_cache()
+    return PS.run(log, EAGLE3_CONFIG)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--trace", action="store_true",
@@ -3401,6 +3493,8 @@ def main():
     greedy_moe_small()
     loader_counts = loader_phase()
     oracle = oracle_phase()
+    torch.cuda.empty_cache()
+    par = parallel_phase()
 
     src_i8 = "hsd_tpu_torch/csrc/gptq_i8.cu"
     ecounts = serving["hsd_ref"]["launches"]
@@ -3492,8 +3586,9 @@ def main():
         f"{train['ckpt_restore_s']:.2f}s")
     # each path's own launches: phase 5 (the "launches" key), 5g, 5h, 5i
     # (run_eval's GSM8K run), 15 (the Mixtral hsd + tokenwise runs), 16
-    # (the loader phase), 17 (the oracle pair: none) and 18 (the EAGLE-3
-    # online training steps)
+    # (the loader phase), 17 (the oracle pair: none), 18 (the EAGLE-3
+    # online training steps) and 19 (the parallel runs, summed over the
+    # ranks; per rank on the line before)
     for k in kernels:
         k["launches_by_phase"] = {
             "5": counts[k["name"]], "5g": spec_serving["counts"][k["name"]],
@@ -3502,7 +3597,8 @@ def main():
             "15": mixtral["counts"][k["name"]],
             "16": loader_counts[k["name"]],
             "17": oracle["counts"][k["name"]],
-            "18": train["counts"][k["name"]]}
+            "18": train["counts"][k["name"]],
+            "19": par["launches"][k["name"]]}
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -10,7 +10,11 @@ imports torch and never jax. Layout mirrors the JAX package:
             EAGLE decoding and its continuous-batching slot server
   ops/      quantized linear layers, the hand-written CUDA kernels
             (csrc/*.cu, built with nvcc at first use) and sampling
-  eval/     synthetic coupled draft/target pairs (speculative and EAGLE)
+  eval/     synthetic coupled draft/target pairs (speculative and EAGLE),
+            the evaluation harnesses
+  train/    EAGLE head training over a frozen target
+  parallel/ tensor, pipeline, sequence, expert and data parallelism on
+            torch.distributed, one process a rank
   bridge    carries JAX parameters, caches and tries into the port (tests)
   modeling_eagle  the Eagle facade: a base model and an EAGLE head,
             loaded from HF checkpoints (models/loader.py)

@@ -118,11 +118,14 @@ def trie_from_jax(trie, device="cpu") -> Trie:
                   for f in Trie._fields))
 
 
-def train_state_from_jax(state, tc: TrainConfig, device="cpu") -> TrainState:
+def train_state_from_jax(state, tc: TrainConfig, device="cpu",
+                         zero_mesh=None) -> TrainState:
     """A JAX `train.eagle3.TrainState` -> the port's: the head's params, then
     each trainable leaf's Adam mu / nu as AdamW's exp_avg / exp_avg_sq at
     the optax count, the scheduler and the optimizer's lr at that count,
-    and the step. A run resumed from it continues where the JAX one was."""
+    and the step. A run resumed from it continues where the JAX one was.
+    zero_mesh: a ZeRO state (`init_train_state(zero_mesh=...)`) whose
+    rank keeps its slices of the (replicated) optax moments."""
     out = init_train_state(eagle_params_from_jax(state.params, device), tc)
     adam = state.opt_state[1][0]
     count = int(np.asarray(adam.count))
@@ -137,4 +140,10 @@ def train_state_from_jax(state, tc: TrainConfig, device="cpu") -> TrainState:
     out.sched.load_state_dict(dict(out.sched.state_dict(), last_epoch=count,
                                    _last_lr=[lr]))
     out.step = int(np.asarray(state.step))
-    return out
+    if zero_mesh is None:
+        return out
+    z = init_train_state(out.params, tc, zero_mesh=zero_mesh)
+    z.opt.load_state_dict(out.opt.state_dict())
+    z.sched.load_state_dict(out.sched.state_dict())
+    z.step = out.step
+    return z

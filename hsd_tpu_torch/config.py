@@ -1,10 +1,10 @@
 """Typed configuration for models, verification and the decode engine.
 
 The PyTorch port's own copy of `hsd_tpu/config.py`: the same fields and
-presets, with `dtype` a `torch.dtype`. The GPTQ path knob (`gptq_path`) and
-the mesh config of the JAX package are left out: on a CUDA tensor every
-quantized matmul runs its hand-written kernel, and the port runs on one
-card. `gptq_mxu_bf16` stays, because it changes the numerics. Fields
+presets, with `dtype` a `torch.dtype`. The GPTQ path knob (`gptq_path`) of
+the JAX package is left out: on a CUDA tensor every quantized matmul runs
+its hand-written kernel. `MeshConfig` shapes the (data, model) grid of
+ranks of `parallel/mesh.py`. `gptq_mxu_bf16` stays, because it changes the numerics. Fields
 that nothing reads (`mlp_bias` and `max_position_embeddings`, which the
 JAX package declares and never reads either, and the engine's max_seq_len
 and seed) are left out, so that setting one cannot quietly give a
@@ -160,6 +160,19 @@ class VerifierConfig:
     gamma: int = 10
     num_drafts: int = 1
     parallel: bool = True
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshConfig:
+    """The grid of ranks over which the target is sharded
+    (`parallel.mesh.make_mesh`): one process per rank."""
+
+    data: int = 1    # data-parallel axis (requests / training batch)
+    model: int = 1   # tensor-parallel axis (heads / ffn / vocab)
+
+    @property
+    def shape(self) -> Tuple[int, int]:
+        return (self.data, self.model)
 
 
 @dataclasses.dataclass(frozen=True)

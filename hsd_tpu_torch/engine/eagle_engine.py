@@ -102,7 +102,8 @@ def autotune_total_tokens(cfg_t: ModelConfig, ecfg: EagleConfig,
 def make_eagle_block(cfg_t: ModelConfig, ecfg: EagleConfig,
                      engine: EngineConfig, mode: str = "hsd",
                      target_forward=None,
-                     static_tree: Optional[StaticTree] = None):
+                     static_tree: Optional[StaticTree] = None,
+                     target_cache_init=None):
     """The reusable pieces of the eagenerate loop: returns `(prefill, block,
     absorb_window, commit)`, shared by `make_eagle_generate` (a loop around
     `block`), `make_eagle_pool` (absorb and commit around ONE slot-batched
@@ -120,6 +121,9 @@ def make_eagle_block(cfg_t: ModelConfig, ecfg: EagleConfig,
     feats)`, e.g. eval.synthetic.make_coupled_eagle_target; the prefill
     passes last_only=True and reads logits[:, -1]. Without one, the plain
     target runs with the head's feature stream (`_target_forward`).
+    target_cache_init: optional `(batch, max_len, device) -> KVCache` for a
+    target whose cache is not `init_cache(cfg_t, ...)` (a tensor-parallel
+    rank's kv-head shard, parallel/tp.tp_cache_init).
     static_tree: draft a fixed choice tree (models/choices.py) in place of
     the beam trie; pass ecfg = choices.eagle_config_for_tree(ecfg, tree)."""
     if static_tree is not None and (
@@ -137,6 +141,9 @@ def make_eagle_block(cfg_t: ModelConfig, ecfg: EagleConfig,
     max_new = engine.max_new_tokens
     eos = cfg_t.eos_token_id
     tfwd = _target_forward(cfg_t, ecfg, target_forward)
+    t_init = target_cache_init or (
+        lambda batch, max_len, device: init_cache(cfg_t, batch, max_len,
+                                                  device))
 
     def prefill(params_t, params_e: EagleParams, prompt: torch.Tensor,
                 prompt_len: int, generator: Optional[torch.Generator]):
@@ -145,7 +152,7 @@ def make_eagle_block(cfg_t: ModelConfig, ecfg: EagleConfig,
         S = P + max_new + N + 2
         start = torch.full((1,), P - int(prompt_len), dtype=torch.int64,
                            device=dev)
-        tcache = init_cache(cfg_t, 1, S, dev).replace(start=start)
+        tcache = t_init(1, S, dev).replace(start=start)
         scratch = max(depth * ecfg.top_k, N) + T_abs
         ekv = init_eagle_kv(ecfg, 1, S + scratch, dev)
         ekv = ekv._replace(start=start.clone())
@@ -260,7 +267,8 @@ def make_eagle_block(cfg_t: ModelConfig, ecfg: EagleConfig,
 def make_eagle_pool(cfg_t: ModelConfig, ecfg: EagleConfig,
                     engine: EngineConfig, mode: str = "hsd",
                     target_forward=None,
-                    static_tree: Optional[StaticTree] = None):
+                    static_tree: Optional[StaticTree] = None,
+                    target_cache_init=None):
     """Slot-BATCHED eagenerate block: one step for a whole pool of B slots
     with ONE target tree forward over the stacked tries, so the quantized
     products see B * (N+1) rows and stream each weight once (8 slots x 60
@@ -280,7 +288,7 @@ def make_eagle_pool(cfg_t: ModelConfig, ecfg: EagleConfig,
     N = ecfg.total_tokens
     _, _, absorb_window, commit = make_eagle_block(
         cfg_t, ecfg, engine, mode=mode, target_forward=target_forward,
-        static_tree=static_tree)
+        static_tree=static_tree, target_cache_init=target_cache_init)
     temp = processor(engine.temperature, engine.top_k, engine.top_p)
     tfwd = _target_forward(cfg_t, ecfg, target_forward)
 
@@ -315,7 +323,8 @@ def make_eagle_pool(cfg_t: ModelConfig, ecfg: EagleConfig,
 def make_eagle_generate(cfg_t: ModelConfig, ecfg: EagleConfig,
                         engine: EngineConfig, mode: str = "hsd",
                         target_forward=None,
-                        static_tree: Optional[StaticTree] = None):
+                        static_tree: Optional[StaticTree] = None,
+                        target_cache_init=None):
     """Build `generate(params_target, eagle_params, prompt, prompt_len,
     generator) -> EagleGenerateResult` for mode in {'greedy', 'typical',
     'hsd', 'hsd_ref'}. prompt: [P] int64 on the device, left-padded.
@@ -325,7 +334,7 @@ def make_eagle_generate(cfg_t: ModelConfig, ecfg: EagleConfig,
     eos = cfg_t.eos_token_id
     prefill_fn, block_fn, _, _ = make_eagle_block(
         cfg_t, ecfg, engine, mode=mode, target_forward=target_forward,
-        static_tree=static_tree)
+        static_tree=static_tree, target_cache_init=target_cache_init)
 
     def generate(params_t, params_e: EagleParams, prompt: torch.Tensor,
                  prompt_len: int, generator: Optional[torch.Generator] = None

@@ -33,6 +33,9 @@ class EagleSlotEngine(SlotScheduler):
     Every request draws from the engine's one generator (seeded by
     `seed`). The JAX package's per-slot vmapped pool (`batched=False`) is
     an A/B artifact of the Pallas grid and is not ported.
+    target_forward / target_cache_init: the pool's target override and its
+    cache (`eagle_engine.make_eagle_block`), e.g. parallel/tp.py's
+    `make_tp_eagle_pool_forward` and `tp_cache_init`.
     """
 
     def __init__(self, cfg_t: ModelConfig, ecfg: EagleConfig,
@@ -40,7 +43,7 @@ class EagleSlotEngine(SlotScheduler):
                  params_t=None, params_e=None, seed: int = 0,
                  admit_batch: int = 4, mode: str = "hsd",
                  target_forward=None, steps_per_dispatch: int = 1,
-                 device=None):
+                 device=None, target_cache_init=None):
         super().__init__(n_slots, bucket, engine.max_new_tokens,
                          cfg_t.eos_token_id, admit_batch,
                          steps_per_dispatch, device)
@@ -50,9 +53,11 @@ class EagleSlotEngine(SlotScheduler):
         self.params_t, self.params_e = params_t, params_e
         self.gen = torch.Generator(device=self.dev).manual_seed(seed)
         self._prefill1, _, _, _ = make_eagle_block(
-            cfg_t, ecfg, engine, mode=mode, target_forward=target_forward)
+            cfg_t, ecfg, engine, mode=mode, target_forward=target_forward,
+            target_cache_init=target_cache_init)
         self._pool_block = make_eagle_pool(
-            cfg_t, ecfg, engine, mode=mode, target_forward=target_forward)
+            cfg_t, ecfg, engine, mode=mode, target_forward=target_forward,
+            target_cache_init=target_cache_init)
         self.state = None            # built from the first prefill's shapes
 
     def _init_state(self, tc: KVCache, ek, fb):

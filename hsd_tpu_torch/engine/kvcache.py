@@ -113,6 +113,29 @@ def _gather_seq(buf: torch.Tensor, src: torch.Tensor) -> torch.Tensor:
         L, B, T, H, D))
 
 
+def compact_path_batched(cache: KVCache, rel_indices: torch.Tensor,
+                         n_valid: torch.Tensor, base: torch.Tensor) -> KVCache:
+    """Per-ROW tree-path compaction, in place: row b keeps seq slots
+    base[b] + rel_indices[b] (fixed-size, -1 padded) into contiguous
+    [base[b], base[b] + n_valid[b]); junk lands past n_valid[b], dead by
+    each row's length contract. The batched `compact_path` of the JAX
+    package (kvcache.py:138-159): every index is clipped into the buffer
+    as JAX clips it; n_valid is not read there either."""
+    del n_valid
+    B, T = rel_indices.shape
+    S = cache.max_len
+    dev = cache.k.device
+    src = torch.clamp(base[:, None] + torch.clamp(rel_indices, 0, S - 1),
+                      0, S - 1)
+    kg, vg = _gather_seq(cache.k, src), _gather_seq(cache.v, src)
+    b_ids = torch.arange(B, device=dev)[:, None].expand(B, T)
+    dst = torch.clamp(base[:, None] + torch.arange(T, device=dev)[None, :],
+                      0, S - 1)
+    cache.k[:, b_ids, dst] = kg
+    cache.v[:, b_ids, dst] = vg
+    return cache
+
+
 def compact_path_staged(cache: KVCache, rel_indices: torch.Tensor,
                         n_valid: torch.Tensor, dst_base: torch.Tensor,
                         src_base: int) -> KVCache:

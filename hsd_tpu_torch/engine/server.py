@@ -194,9 +194,10 @@ class SlotEngine(SlotScheduler):
     target_forward / target_cache_ops: SlotPool's flattened-rows protocol,
     `(params, tokens [slots * R, T], cache, lengths, skip_head=False) ->
     (logits, cache)` and `(init, put, select)`; the default is the plain
-    transformer with every product routed on one slot's rows. (The JAX
-    package's shard_map tensor- and pipeline-parallel server forwards wait
-    for the port's parallel slice.)
+    transformer with every product routed on one slot's rows. The tensor-
+    and pipeline-parallel server forwards (parallel/tp.py
+    `make_tp_server_forward` with `tp_pool_cache_ops`, parallel/pp.py
+    `make_pp_server_forward` with `pp_pool_cache_ops`) plug in here.
     """
 
     def __init__(self, cfg_d: ModelConfig, cfg_t: ModelConfig,

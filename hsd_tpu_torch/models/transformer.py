@@ -19,8 +19,11 @@ decode steps with the RoPE of q inside the kernel.
 The Mixtral family's sparse-MoE block (`_moe_ffn`) runs every expert on
 every token, as the JAX package does, with the router's top-k weights
 (exact zeros elsewhere) mixing them; `forward(hidden_in=...)` with
-skip_head is the pipeline stage's hook. Tensor, pipeline and ring
-parallelism come with a later slice.
+skip_head is the pipeline stage's hook (parallel/pp.py). Under tensor
+parallelism (`tp_axis`, parallel/tp.py) the forward runs on one rank's
+Megatron shards with the psums after wo, wdown and the expert mix; under
+sequence parallelism (`ring_axis`, parallel/sp.py) attention is ring
+attention over the sequence-sharded prompt.
 """
 from __future__ import annotations
 
@@ -192,30 +195,44 @@ def _expert(w, e: int):
 
 
 def _moe_ffn(cfg: ModelConfig, lp: Dict[str, Any], h: torch.Tensor,
-             slots: int = 1) -> torch.Tensor:
+             slots: int = 1, tp_axis=None) -> torch.Tensor:
     """Sparse-MoE SwiGLU block (Mixtral family), the JAX package's
-    `_moe_ffn` (transformer.py:150-198) without its expert-parallel branch.
-    h: [B, T, D] -> [B, T, D]. lp: one layer's `gate` [D, E] and expert
-    stacks `wgate` / `wup` [E, D, F], `wdown` [E, F, D] (dense, or
-    QuantizedLinear with the [E] axis leading).
+    `_moe_ffn` (transformer.py:150-198). h: [B, T, D] -> [B, T, D]. lp: one
+    layer's `gate` [D, E] and expert stacks `wgate` / `wup` [E, D, F],
+    `wdown` [E, F, D] (dense, or QuantizedLinear with the [E] axis leading).
 
     Every expert runs on every token, as in JAX: 3 * E apply_linear calls,
     each on one expert's weight as a view, so each product routes on its
     own rows (`slots`: as forward's) and reaches the kernels; silu(g) * u
     and each expert's output in the activation dtype. The router is
     `moe_route`; the mix is f32, summed over the experts in expert order,
-    rounded once to h's dtype."""
+    rounded once to h's dtype.
+
+    tp_axis (a parallel.mesh.Axis): the stacks are this rank's shard. With
+    fewer experts than cfg.num_experts (expert parallelism) it holds experts
+    [i * E_local, (i + 1) * E_local) and mixes them with those columns of
+    the routing weights; with all of them it holds a slice of every
+    expert's ffn (the GSPMD layout, parallel/sharding.py). Either way the
+    f32 mix is a partial sum, psummed over the axis before the rounding."""
     B, T, D = h.shape
     x = h.reshape(B * T, D)
     _, _, weights = moe_route(cfg, lp["gate"], x)
+    wg = lp["wgate"]
+    E_local = (wg.qweight if isinstance(wg, QuantizedLinear) else wg).shape[0]
+    if tp_axis is not None and E_local < cfg.num_experts:
+        off = tp_axis.index * E_local
+        weights = weights[:, off:off + E_local]
     y = None
-    for e in range(cfg.num_experts):
+    for e in range(E_local):
         g = apply_linear(_expert(lp["wgate"], e), x, slots=slots)
         u = apply_linear(_expert(lp["wup"], e), x, slots=slots)
         out = apply_linear(_expert(lp["wdown"], e), F.silu(g) * u,
                            slots=slots)
         term = weights[:, e:e + 1] * out.float()
         y = term if y is None else y + term
+    if tp_axis is not None:
+        from ..parallel.mesh import psum
+        y = psum(y, tp_axis)
     return y.reshape(B, T, D).to(h.dtype)
 
 
@@ -300,12 +317,32 @@ def attention(q, k, v, mask, bias=None) -> torch.Tensor:
     return out.reshape(B, T, H, d)
 
 
-def _embed(cfg: ModelConfig, embed, tokens: torch.Tensor) -> torch.Tensor:
+def _embed(cfg: ModelConfig, embed, tokens: torch.Tensor,
+           tp_axis=None) -> torch.Tensor:
+    """The embedding of `tokens`. An embedding of fewer rows than the
+    vocabulary under `tp_axis` is this rank's vocab shard (the GSPMD layout,
+    parallel/sharding.py): the lookup takes the tokens in its rows, zeros
+    elsewhere, and the shards are psummed (one nonzero term: exact)."""
+    table = embed.codes if isinstance(embed, QuantizedEmbedding) else embed
+    rows = table.shape[0]
+    sharded = tp_axis is not None and rows != cfg.vocab_size
+    if sharded:
+        if rows * tp_axis.size != cfg.vocab_size:
+            raise ValueError(f"embedding of {rows} rows is no vocab shard of "
+                             f"{cfg.vocab_size} over {tp_axis.size} ranks")
+        local = tokens - tp_axis.index * rows
+        inside = (local >= 0) & (local < rows)
+        tokens = torch.where(inside, local, 0)
     if isinstance(embed, QuantizedEmbedding):
-        rows = embed.codes[tokens].float()
-        sc = embed.scale[tokens].float()
-        return (rows * sc[..., None]).to(cfg.dtype)
-    return embed[tokens].to(cfg.dtype)
+        x = (embed.codes[tokens].float()
+             * embed.scale[tokens].float()[..., None]).to(cfg.dtype)
+    else:
+        x = embed[tokens].to(cfg.dtype)
+    if sharded:
+        from ..parallel.mesh import psum
+        x = psum(torch.where(inside[..., None], x, torch.zeros_like(x)),
+                 tp_axis)
+    return x
 
 
 def forward(cfg: ModelConfig, params: ModelParams, tokens: torch.Tensor,
@@ -315,7 +352,8 @@ def forward(cfg: ModelConfig, params: ModelParams, tokens: torch.Tensor,
             feature_layers: Optional[Tuple[int, ...]] = None,
             lengths: Optional[torch.Tensor] = None,
             staging_at: Optional[int] = None, last_only: bool = False,
-            slots: int = 1, hidden_in: Optional[torch.Tensor] = None):
+            slots: int = 1, hidden_in: Optional[torch.Tensor] = None,
+            tp_axis=None, ring_axis=None):
     """Run the decoder over `tokens` [B, T], appending to `cache` in place.
 
     Returns (logits [B, T, V] f32, cache with length += T). RoPE positions
@@ -350,6 +388,20 @@ def forward(cfg: ModelConfig, params: ModelParams, tokens: torch.Tensor,
     (a pipeline stage's hook; with skip_head it leaves with the raw
     pre-norm hidden state for the next stage).
 
+    tp_axis (a parallel.mesh.Axis): the weights and the cache are this
+    rank's Megatron shards (parallel/tp.py): H / tp query heads and Hkv / tp
+    kv heads, the ffn columns of wgate / wup and rows of wdown, the experts
+    or ffn slices of an MoE stack, the vocab columns of the head; the
+    activations are replicated. wo's and wdown's products are psummed over
+    the axis in the activation dtype, the MoE mix in f32, and the logits
+    come back vocab-sharded (the TP forwards gather them). The layout must
+    be unfused, so K1 and K2 do not run under TP. An embedding of fewer
+    rows than the vocabulary is a vocab shard (`_embed`).
+    ring_axis (a parallel.mesh.Axis): sequence-parallel prefill
+    (parallel/sp.py): `tokens` are this rank's chunk of the prompt, the
+    cache a fresh local one, `positions` the GLOBAL positions; attention is
+    `ops.ring_attention` over the chunks of the axis, never K8.
+
     Attention routes, as the JAX package's (transformer.py:263-269,
     406-412, 483-508): with no lengths and no staging, FD.use_fused_rope_attn
     and no bias, q reaches K8 raw and is rotated inside it (k is still
@@ -359,6 +411,20 @@ def forward(cfg: ModelConfig, params: ModelParams, tokens: torch.Tensor,
     """
     B, T = tokens.shape
     H, Hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim_
+    if tp_axis is not None:
+        from ..parallel.mesh import psum
+        tp = tp_axis.size
+        if H % tp or Hkv % tp:
+            raise ValueError(f"{H} heads / {Hkv} kv heads do not split over "
+                             f"{tp} ranks")
+        if "wqkv" in params.layers or "wgu" in params.layers:
+            raise ValueError("TP runs keep the unfused layout")
+        H, Hkv = H // tp, Hkv // tp
+    if ring_axis is not None:
+        from ..ops.ring_attention import ring_attention
+        if positions is None or cache.length != 0:
+            raise ValueError("ring attention prefills a fresh cache at "
+                             "explicit global positions")
     dev = tokens.device
     length = cache.length
     if staging_at is not None and lengths is None:
@@ -373,13 +439,13 @@ def forward(cfg: ModelConfig, params: ModelParams, tokens: torch.Tensor,
     if positions is None:
         positions = torch.clamp(q_index - cache.start[:, None], min=0)
     tables = rope_tables(positions, hd, cfg.rope_theta, cfg.rope_scaling)
-    one_frontier = lengths is None
+    one_frontier = lengths is None and ring_axis is None
     fused_rope = (one_frontier and attn_bias is None
                   and FD.use_fused_rope_attn(B, T, hd, cache.max_len))
     mask = bias = None      # the einsum path's, built at its first use
 
     x = (hidden_in.to(cfg.dtype) if hidden_in is not None
-         else _embed(cfg, params.embed, tokens))
+         else _embed(cfg, params.embed, tokens, tp_axis))
     names = params.layers
     first = next(iter(names.values()))
     n_layers = (first.qweight if isinstance(first, QuantizedLinear)
@@ -424,7 +490,9 @@ def forward(cfg: ModelConfig, params: ModelParams, tokens: torch.Tensor,
             append_layer_stacked(k_all, v_all, l,
                                  length if staging_at is None else staging_at,
                                  k, v)
-        if fused_rope:
+        if ring_axis is not None:
+            att = ring_attention(q, k, v, positions, ring_axis).to(q.dtype)
+        elif fused_rope:
             att = FD.flash_attention_decode(q, k_all[l], v_all[l], q_index,
                                             length, cache.start, None,
                                             rope=tables)
@@ -446,10 +514,12 @@ def forward(cfg: ModelConfig, params: ModelParams, tokens: torch.Tensor,
             x = apply_attn_mlp(att2, x, names["wo"], names["wgu"],
                                names["wdown"], names["ln2"][l], eps, layer=l)
             continue
-        x = x + lin("wo", att2)
+        y = lin("wo", att2)
+        x = x + (y if tp_axis is None else psum(y, tp_axis))
         if "gate" in names:
             x = x + _moe_ffn(cfg, moe_params(names, l),
-                             rms_norm(x, names["ln2"][l], eps), slots=slots)
+                             rms_norm(x, names["ln2"][l], eps), slots=slots,
+                             tp_axis=tp_axis)
         elif "wgu" in names:
             x = x + apply_mlp(names["wgu"], names["wdown"], x,
                               names["ln2"][l], eps, layer=l, mxu_bf16=bf16,
@@ -457,7 +527,8 @@ def forward(cfg: ModelConfig, params: ModelParams, tokens: torch.Tensor,
         else:
             h = rms_norm(x, names["ln2"][l], eps)
             ff = F.silu(lin("wgate", h)) * lin("wup", h)
-            x = x + lin("wdown", ff)
+            y = lin("wdown", ff)
+            x = x + (y if tp_axis is None else psum(y, tp_axis))
 
     new_cache = cache.replace(length=length + T)
     feats = None

@@ -26,8 +26,10 @@ Without --*-path flags, random weights of the chosen geometry run the whole
 pipeline. --eagle-path is an EAGLE-3 head directory (its config.json and
 safetensors). After sharded runs appending to one answers file, pass
 --reorg to sort + dedup it (ref reorg_answer_file). --tokenizer-path needs
-the `transformers` package; --tp above 1 is not ported yet (ROADMAP.md
-§1.10).
+the `transformers` package. --tp N runs as N processes (torchrun
+--nproc-per-node N ... --tp N), the target in the GSPMD layout
+(`sharding.shard_params`) on every engine, the draft or the head
+replicated; rank 0 alone writes and prints (see tools/run_gsm8k.py).
 """
 import argparse
 import json
@@ -38,7 +40,9 @@ from pathlib import Path
 if __package__ in (None, ""):            # run as a script from its path
     sys.path.insert(0, str(Path(__file__).resolve().parents[2]))
 
-from hsd_tpu_torch.tools.run_gsm8k import load_tokenizer, no_tp
+from hsd_tpu_torch.tools.run_gsm8k import (geometry, load_tokenizer,
+                                           parallel_setup, rank_out_dir,
+                                           tp_target)
 
 
 def main(argv=None):
@@ -82,7 +86,12 @@ def main(argv=None):
     ap.add_argument("--out-dir", default="bench_out")
     ap.add_argument("--tag", default=None)
     ap.add_argument("--tp", type=int, default=1,
-                    help="tensor-parallel size (not ported: 1 only)")
+                    help="tensor-parallel size: run under torchrun "
+                         "--nproc-per-node TP")
+    ap.add_argument("--dtype", default=None,
+                    choices=["bfloat16", "float32"],
+                    help="activation dtype of random geometries (default: "
+                         "the preset's)")
     ap.add_argument("--flores-source", default="eng_Latn")
     ap.add_argument("--flores-target", default="fra_Latn")
     ap.add_argument("--reorg", default=None,
@@ -99,10 +108,9 @@ def main(argv=None):
         reorg_answer_file(args.reorg)
         print(f"reorganized {args.reorg}")
         return None
-    no_tp(args.tp)
+    rank, mesh = parallel_setup(tp=args.tp)
 
-    from hsd_tpu_torch.config import (EngineConfig, ModelConfig,
-                                      VerifierConfig)
+    from hsd_tpu_torch.config import EngineConfig, VerifierConfig
     from hsd_tpu_torch.eval.eagle_metrics import evaluate_info_file
     from hsd_tpu_torch.models import init_params
     from hsd_tpu_torch.models.loader import load_hf
@@ -122,7 +130,7 @@ def main(argv=None):
                                   quantized=args.target_bits or None,
                                   device=dev)
     else:
-        cfg_t = getattr(ModelConfig, args.target_geometry)()
+        cfg_t = geometry(args.target_geometry, args.dtype)
         params_t = init_params(cfg_t, seed=1, device=dev)
 
     eng = EngineConfig(
@@ -152,9 +160,21 @@ def main(argv=None):
                 draft_vocab_size=cfg_t.vocab_size,
                 intermediate_size=cfg_t.intermediate_size,
                 top_k=args.top_k, depth=args.depth,
-                total_tokens=args.total_tokens)
+                total_tokens=args.total_tokens, dtype=cfg_t.dtype)
             params_e = init_eagle_params(ecfg, seed=2, device=dev)
-        gen_fn = make_eagle_generate(cfg_t, ecfg, eng, mode=args.mode)
+        tfwd = tinit = None
+        if mesh is not None:
+            from hsd_tpu_torch.engine.eagle_engine import (
+                default_feature_layers)
+            from hsd_tpu_torch.parallel import tp
+            feats = ((-1,) if ecfg.version == 1
+                     else default_feature_layers(cfg_t))
+            tfwd = tp.make_tp_eagle_forward(cfg_t, params_t, feats, mesh)
+            tinit = tp.tp_cache_init(cfg_t, mesh)
+            params_t, _, _ = tp_target(cfg_t, params_t, mesh)
+        gen_fn = make_eagle_generate(cfg_t, ecfg, eng, mode=args.mode,
+                                     target_forward=tfwd,
+                                     target_cache_init=tinit)
         generate = lambda p, n, g: gen_fn(params_t, params_e, p, n, g)
         gamma = ecfg.total_tokens
     else:
@@ -162,10 +182,12 @@ def main(argv=None):
         if args.draft_path:
             cfg_d, params_d = load_hf(args.draft_path, device=dev)
         else:
-            cfg_d = getattr(ModelConfig, args.draft_geometry)(
-                vocab_size=cfg_t.vocab_size)
+            cfg_d = geometry(args.draft_geometry, args.dtype,
+                             vocab_size=cfg_t.vocab_size)
             params_d = init_params(cfg_d, seed=0, device=dev)
-        gen_fn = make_generate(cfg_d, cfg_t, eng)
+        params_t, tfwd, tops = tp_target(cfg_t, params_t, mesh)
+        gen_fn = make_generate(cfg_d, cfg_t, eng, target_forward=tfwd,
+                               target_cache_ops=tops)
         generate = lambda p, n, g: gen_fn(params_d, params_t, p, n, g)
         gamma = args.gamma
 
@@ -173,14 +195,16 @@ def main(argv=None):
     tag = args.tag or f"{args.bench_name}_{args.model_id}"
     if args.shard:
         tag += "_shard" + args.shard.replace("/", "of")
-    summary = run_multibench(
-        questions, tok, generate, args.out_dir, tag,
-        bench_name=args.bench_name, model_id=args.model_id,
-        num_choices=args.num_choices, warmup=args.warmup, seed=args.seed,
-        template=ChatTemplate(style=args.template), device=dev)
-    metrics = evaluate_info_file(summary["info"], gamma=gamma)
+    with rank_out_dir(rank, args.out_dir) as out_dir:
+        summary = run_multibench(
+            questions, tok, generate, out_dir, tag,
+            bench_name=args.bench_name, model_id=args.model_id,
+            num_choices=args.num_choices, warmup=args.warmup, seed=args.seed,
+            template=ChatTemplate(style=args.template), device=dev)
+        metrics = evaluate_info_file(summary["info"], gamma=gamma)
     out = {**summary, "metrics": metrics}
-    print(json.dumps(out, indent=2, default=str))
+    if rank == 0:
+        print(json.dumps(out, indent=2, default=str))
     return out
 
 

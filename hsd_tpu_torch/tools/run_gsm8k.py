@@ -22,11 +22,24 @@ Examples (the reference's four shipped configs):
 Weights: --draft-path/--target-path are HF checkpoint dirs (safetensors;
 GPTQ via --target-bits 8|4), read by `hsd_tpu_torch/models/loader.py`.
 Without paths, random weights of the given geometry run the pipeline end
-to end. --tokenizer-path (a local directory) needs the `transformers`
-package; without it the byte tokenizer runs. --tp above 1 is not ported
-yet (ROADMAP.md §1.10).
+to end (--dtype float32 for an f32 model, e.g. to compare --tp runs on the
+CPU). --tokenizer-path (a local directory) needs the `transformers`
+package; without it the byte tokenizer runs.
+
+Tensor parallelism: --tp N runs as N processes, one a card, each the
+whole engine loop on its Megatron shard of the target (parallel/tp.py)
+with the draft replicated, e.g. on a machine with N cards
+
+  torchrun --nproc-per-node N hsd_tpu_torch/tools/run_gsm8k.py --tp N ...
+
+(NCCL). --tp-mode shardmap shards as `tp.shard_params_tp` (the embedding
+replicated), gspmd as `sharding.shard_params` (the embedding
+vocab-sharded); both run the same explicit-collective forward with the
+kernels on the local shards. Rank 0 alone writes the artifacts and
+prints.
 """
 import argparse
+import dataclasses
 import json
 import os
 import sys
@@ -52,11 +65,52 @@ def load_tokenizer(path):
     return AutoTokenizer.from_pretrained(path, local_files_only=True)
 
 
-def no_tp(tp: int) -> None:
-    if tp > 1:
-        raise NotImplementedError(
-            "tensor parallelism (--tp > 1) is not ported to PyTorch yet: "
-            "ROADMAP.md §1.10")
+def parallel_setup(dp: int = 1, tp: int = 1):
+    """(rank, mesh) of a --dp / --tp run: the process group from torchrun's
+    environment (a no-op in one process), a (dp, tp) grid of the world's
+    ranks, or no mesh for one process."""
+    import torch.distributed as dist
+    from hsd_tpu_torch.parallel import initialize_multihost, make_mesh
+    rank = initialize_multihost()
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    if world != dp * tp:
+        raise SystemExit(f"--dp {dp} --tp {tp} runs as {dp * tp} processes "
+                         f"(torchrun --nproc-per-node {dp * tp}); the world "
+                         f"has {world}")
+    return rank, (make_mesh(dp, tp) if world > 1 else None)
+
+
+def tp_target(cfg_t, params_t, mesh, mode: str = "gspmd"):
+    """(this rank's target shard, make_generate's target_forward and
+    target_cache_ops) for --tp-mode gspmd or shardmap; the plain target
+    without a mesh."""
+    if mesh is None:
+        return params_t, None, None
+    from hsd_tpu_torch.parallel import sharding, tp
+    local = (tp.shard_params_tp(params_t, mesh) if mode == "shardmap"
+             else sharding.shard_params(params_t, mesh))
+    return (local, tp.make_tp_target_forward(cfg_t, params_t, mesh),
+            tp.tp_cache_ops(cfg_t, mesh))
+
+
+def rank_out_dir(rank: int, out_dir: str):
+    """Rank 0's outputs go to out_dir; another rank's to a temporary
+    directory, deleted with the context (its artifacts are rank 0's)."""
+    import contextlib
+    import tempfile
+    if rank == 0:
+        return contextlib.nullcontext(out_dir)
+    return tempfile.TemporaryDirectory(prefix=f"rank{rank}_")
+
+
+def geometry(name: str, dtype: str = None, **kw):
+    """A ModelConfig preset, with --dtype's activation dtype if given."""
+    import dataclasses
+    import torch
+    from hsd_tpu_torch.config import ModelConfig
+    cfg = getattr(ModelConfig, name)(**kw)
+    return cfg if dtype is None else dataclasses.replace(
+        cfg, dtype=getattr(torch, dtype))
 
 
 def main(argv=None):
@@ -97,17 +151,23 @@ def main(argv=None):
                     help="i/n — evaluate the i-th of n question shards "
                          "(one process per shard)")
     ap.add_argument("--tp", type=int, default=1,
-                    help="tensor-parallel size (not ported: 1 only)")
+                    help="tensor-parallel size: run under torchrun "
+                         "--nproc-per-node TP")
     ap.add_argument("--tp-mode", default="gspmd",
                     choices=["gspmd", "shardmap"],
-                    help="the JAX CLI's TP mode (not ported)")
+                    help="gspmd: sharding.shard_params (vocab-sharded "
+                         "embedding); shardmap: tp.shard_params_tp "
+                         "(replicated embedding)")
+    ap.add_argument("--dtype", default=None,
+                    choices=["bfloat16", "float32"],
+                    help="activation dtype of random geometries (default: "
+                         "the preset's)")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA card)")
     args = ap.parse_args(argv)
-    no_tp(args.tp)
+    rank, mesh = parallel_setup(tp=args.tp)
 
-    from hsd_tpu_torch.config import (EngineConfig, ModelConfig,
-                                      VerifierConfig)
+    from hsd_tpu_torch.config import EngineConfig, VerifierConfig
     from hsd_tpu_torch.eval.gsm8k import (EvalConfig, default_prompt_path,
                                           load_gsm8k_jsonl, run_eval)
     from hsd_tpu_torch.models import init_params
@@ -120,13 +180,13 @@ def main(argv=None):
                                   quantized=args.target_bits or None,
                                   device=dev)
     else:
-        cfg_t = getattr(ModelConfig, args.target_geometry)()
+        cfg_t = geometry(args.target_geometry, args.dtype)
         params_t = init_params(cfg_t, seed=1, device=dev)
     if args.draft_path:
         cfg_d, params_d = load_hf(args.draft_path, device=dev)
     else:
-        cfg_d = getattr(ModelConfig, args.draft_geometry)(
-            vocab_size=cfg_t.vocab_size)
+        cfg_d = geometry(args.draft_geometry, args.dtype,
+                         vocab_size=cfg_t.vocab_size)
         params_d = init_params(cfg_d, seed=0, device=dev)
 
     if cfg_d.vocab_size != cfg_t.vocab_size:
@@ -154,12 +214,17 @@ def main(argv=None):
             max_new_tokens=args.max_new_tokens,
             temperature=args.temperature),
         out_dir=args.out_dir, tag=args.tag)
-    summary = run_eval(cfg_d, cfg_t, params_d, params_t, tok, qs, shots, ev,
-                       device=dev)
+    params_t, tfwd, tops = tp_target(cfg_t, params_t, mesh, args.tp_mode)
+    with rank_out_dir(rank, args.out_dir) as out_dir:
+        summary = run_eval(cfg_d, cfg_t, params_d, params_t, tok, qs, shots,
+                           dataclasses.replace(ev, out_dir=out_dir),
+                           target_forward=tfwd, target_cache_ops=tops,
+                           device=dev)
     # raw model answers live in the answers artifact; keep the console
     # summary readable
     summary.pop("model_answers", None)
-    print(json.dumps(summary, indent=2, default=str))
+    if rank == 0:
+        print(json.dumps(summary, indent=2, default=str))
     return summary
 
 

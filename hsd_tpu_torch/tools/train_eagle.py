@@ -19,9 +19,16 @@ Examples:
 Without --target-path, random weights of --geometry run the whole pipeline
 (the loss is meaningless but every stage is real). --target-path goes
 through the port's `load_hf`; --tokenizer-path takes a local directory and
-needs the `transformers` package, else the byte tokenizer runs. --dp or
---tp above 1 is not ported yet (ROADMAP.md §1.10). Without --device the
-run needs the card.
+needs the `transformers` package, else the byte tokenizer runs. Without
+--device the run needs the card.
+
+--dp D --tp T runs as D x T processes (torchrun --nproc-per-node D*T ...):
+every rank reads the same batches and trains on its data-parallel share of
+the rows (--batch-size a multiple of D), the Adam moments ZeRO-sharded
+over the D ranks (train/eagle3.py), the frozen target Megatron-sharded
+over T (the GSPMD layout, `sharding.shard_params`). Rank 0 alone logs,
+checkpoints and prints. --dump-features and --kacc-probe run in one
+process.
 """
 import argparse
 import itertools
@@ -32,14 +39,8 @@ from pathlib import Path
 if __package__ in (None, ""):            # run as a script from its path
     sys.path.insert(0, str(Path(__file__).resolve().parents[2]))
 
-from hsd_tpu_torch.tools.run_gsm8k import load_tokenizer
-
-
-def no_mesh(dp: int, tp: int) -> None:
-    if dp * tp > 1:
-        raise NotImplementedError(
-            "data / tensor parallelism (--dp or --tp > 1) is not ported to "
-            "PyTorch yet: ROADMAP.md §1.10")
+from hsd_tpu_torch.tools.run_gsm8k import (geometry, load_tokenizer,
+                                           parallel_setup)
 
 
 def main(argv=None):
@@ -82,12 +83,17 @@ def main(argv=None):
     ap.add_argument("--features-dir", default=None, metavar="DIR",
                     help="train FROM a feature dump: no target forward in "
                          "the step (--data is ignored)")
+    ap.add_argument("--dtype", default=None,
+                    choices=["bfloat16", "float32"],
+                    help="activation dtype of a random --geometry and its "
+                         "head (default: the preset's)")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the card)")
     args = ap.parse_args(argv)
-    no_mesh(args.dp, args.tp)
-
-    from hsd_tpu_torch.config import ModelConfig
+    rank, mesh = parallel_setup(args.dp, args.tp)
+    if mesh is not None and (args.dump_features or args.kacc_probe):
+        raise SystemExit("--dump-features and --kacc-probe run in one "
+                         "process (no --dp / --tp)")
     from hsd_tpu_torch.engine.eagle_engine import default_feature_layers
     from hsd_tpu_torch.eval.benches import ChatTemplate
     from hsd_tpu_torch.models import init_params
@@ -104,7 +110,7 @@ def main(argv=None):
         from hsd_tpu_torch.models.loader import load_hf
         cfg_t, params_t = load_hf(args.target_path, device=dev)
     else:
-        cfg_t = getattr(ModelConfig, args.geometry)()
+        cfg_t = geometry(args.geometry, args.dtype)
         params_t = init_params(cfg_t, seed=0, device=dev)
 
     if args.eagle_config:
@@ -159,25 +165,32 @@ def main(argv=None):
                             warmup_steps=max(1, total // 20),
                             **({"lr": args.lr} if args.lr else {}))
 
+    zm = mesh if mesh is not None and args.dp > 1 else None
+    if mesh is not None and args.tp > 1:
+        from hsd_tpu_torch.parallel import sharding
+        params_t = sharding.shard_params(params_t, mesh)
+    kw = dict(zero_mesh=mesh)
     if args.version == 1:
         params_e = init_eagle_params_v1(ecfg, seed=1, device=dev)
-        step = (eagle1.make_eagle1_train_step_offline(cfg_t, ecfg, tc)
+        step = (eagle1.make_eagle1_train_step_offline(cfg_t, ecfg, tc, **kw)
                 if args.features_dir
-                else eagle1.make_eagle1_train_step(cfg_t, ecfg, tc))
+                else eagle1.make_eagle1_train_step(cfg_t, ecfg, tc, **kw))
     else:
         params_e = init_eagle_params(ecfg, seed=1, device=dev)
-        step = (eagle3.make_train_step_offline(cfg_t, ecfg, tc)
+        step = (eagle3.make_train_step_offline(cfg_t, ecfg, tc, **kw)
                 if args.features_dir
                 else eagle3.make_train_step(cfg_t, ecfg, tc,
-                                            default_feature_layers(cfg_t)))
-    state = eagle3.init_train_state(params_e, tc)
+                                            default_feature_layers(cfg_t),
+                                            **kw))
+    state = eagle3.init_train_state(params_e, tc, zero_mesh=zm)
 
     probe = None
     if args.kacc_probe:
         from hsd_tpu_torch.train.probes import make_kacc_probe
         probe = make_kacc_probe(cfg_t, ecfg)
 
-    logger = MetricLogger(args.log_jsonl) if args.log_jsonl else None
+    logger = (MetricLogger(args.log_jsonl) if args.log_jsonl and rank == 0
+              else None)
     state = train_loop(state, step, params_t, de, args.epochs,
                        ckpt_dir=args.ckpt_dir,
                        save_every_epochs=args.save_every_epochs,
@@ -185,9 +198,11 @@ def main(argv=None):
                        epoch_probe=probe)
     if logger is not None:
         logger.close()
-    print(json.dumps({"final_step": state.step,
-                      "epochs": args.epochs, "batches_per_epoch": n_batches,
-                      "ckpt_dir": args.ckpt_dir}))
+    if rank == 0:
+        print(json.dumps({"final_step": state.step,
+                          "epochs": args.epochs,
+                          "batches_per_epoch": n_batches,
+                          "ckpt_dir": args.ckpt_dir}))
 
 
 if __name__ == "__main__":

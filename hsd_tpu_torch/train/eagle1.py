@@ -17,6 +17,8 @@ EAGLE-3 trainer's (train/eagle3.py).
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from ..config import ModelConfig
@@ -24,8 +26,8 @@ from ..models.eagle import (EagleConfig, EagleParams, head_forward,
                             init_eagle_kv)
 from ..ops.linear import apply_linear
 from .data import as_tensor
-from .eagle3 import (TrainConfig, TrainState, _as_batch, _device,
-                     apply_update, final_hidden)
+from .eagle3 import (Share, TrainConfig, TrainState, _as_batch, _device,
+                     apply_update, data_share, final_hidden)
 from .probes import top_k_accuracy
 
 
@@ -36,10 +38,14 @@ def smooth_l1(x, y, beta: float = 1.0):
 
 def eagle1_loss(ecfg: EagleConfig, params: EagleParams, hidden: torch.Tensor,
                 input_ids: torch.Tensor, loss_mask: torch.Tensor,
-                v_w: float = 1.0, p_w: float = 0.1):
+                v_w: float = 1.0, p_w: float = 0.1,
+                share: Optional[Share] = None):
     """hidden: [B, T, D] target final hidden states; input_ids [B, T];
     the head consumes (emb(ids_{t+1}), hidden_t) and must predict
-    hidden_{t+1} (the standard EAGLE-1 shift)."""
+    hidden_{t+1} (the standard EAGLE-1 shift). share: a data-parallel
+    rank's share (train.eagle3.Share): every ratio's denominator is then
+    the global batch's, so loss and metrics are this rank's parts."""
+    total = (share or Share()).total
     B, T, D = hidden.shape
     dev = hidden.device
     emb = params.embed[input_ids.long()].to(ecfg.dtype)
@@ -54,56 +60,62 @@ def eagle1_loss(ecfg: EagleConfig, params: EagleParams, hidden: torch.Tensor,
     lm = loss_mask[:, 1:].float()
     m = lm[..., None]
     vloss = torch.sum(smooth_l1(out.float(), target_h.float()) * m) \
-        / (torch.sum(m) * D + 1e-6)
+        / (total(torch.sum(m)) * D + 1e-6)
     logits_pred = apply_linear(params.lm_head, out).float()
     with torch.no_grad():
         logits_tgt = apply_linear(params.lm_head,
                                   target_h.to(ecfg.dtype)).float()
         tgt_p = torch.softmax(logits_tgt, -1)
     ploss = -torch.sum(tgt_p * torch.log_softmax(logits_pred, -1), -1)
-    ploss = torch.sum(ploss * lm) / (torch.sum(lm) + 1e-6)
+    ploss = torch.sum(ploss * lm) / (total(torch.sum(lm)) + 1e-6)
     with torch.no_grad():
         hit = torch.argmax(logits_pred, -1) == torch.argmax(logits_tgt, -1)
-        acc = torch.sum(hit * lm) / (torch.sum(lm) + 1e-6)
+        acc = torch.sum(hit * lm) / (total(torch.sum(lm)) + 1e-6)
     metrics = {"vloss": vloss, "ploss": ploss, "acc": acc}
     # per-step top-k probes (ref main.py:345-379 top_3acc logging)
-    metrics.update(top_k_accuracy(logits_pred, logits_tgt, lm))
+    metrics.update(top_k_accuracy(logits_pred, logits_tgt, lm, total=total))
     return v_w * vloss + p_w * ploss, metrics
 
 
 def make_eagle1_train_step(cfg_t: ModelConfig, ecfg: EagleConfig,
                            tc: TrainConfig, v_w: float = 1.0,
-                           p_w: float = 0.1):
+                           p_w: float = 0.1, zero_mesh=None):
     """The legacy head's train step: (state, params_target, input_ids,
     loss_mask) -> (state, metrics), the target's final pre-norm hidden
-    state computed without gradients (and without its head)."""
+    state computed without gradients (and without its head). zero_mesh:
+    data parallelism, as `eagle3.make_train_step`."""
+    share = data_share(zero_mesh)
 
     def step(state: TrainState, params_t, input_ids, loss_mask):
         ids, lm = _as_batch(input_ids, loss_mask, _device(state))
-        hidden = final_hidden(cfg_t, params_t, ids)
+        ids, lm = share.rows(ids), share.rows(lm)
+        hidden = final_hidden(cfg_t, params_t, ids, share.tp_axis)
         loss, metrics = eagle1_loss(ecfg, state.params, hidden, ids, lm,
-                                    v_w, p_w)
-        return apply_update(state, tc, loss, metrics)
+                                    v_w, p_w, share)
+        return apply_update(state, tc, loss, metrics, share)
 
     return step
 
 
 def make_eagle1_train_step_offline(cfg_t: ModelConfig, ecfg: EagleConfig,
                                    tc: TrainConfig, v_w: float = 1.0,
-                                   p_w: float = 0.1):
+                                   p_w: float = 0.1, zero_mesh=None):
     """Offline-features EAGLE-1 step (the reference's ORIGINAL training
     mode: CustomDataset pre-dumped hidden states, train/main.py:133-172):
     (state, params_t_ignored, *, input_ids, loss_mask, hidden) ->
-    (state, metrics), with no target forward."""
+    (state, metrics), with no target forward. zero_mesh: as
+    `make_eagle1_train_step`."""
     del cfg_t
+    share = data_share(zero_mesh)
 
     def step(state: TrainState, params_t, *, input_ids, loss_mask, hidden):
         del params_t
         dev = _device(state)
         ids, lm = _as_batch(input_ids, loss_mask, dev)
-        hidden = as_tensor(hidden, dev).float()
+        ids, lm = share.rows(ids), share.rows(lm)
+        hidden = share.rows(as_tensor(hidden, dev)).float()
         loss, metrics = eagle1_loss(ecfg, state.params, hidden, ids, lm,
-                                    v_w, p_w)
-        return apply_update(state, tc, loss, metrics)
+                                    v_w, p_w, share)
+        return apply_update(state, tc, loss, metrics, share)
 
     return step

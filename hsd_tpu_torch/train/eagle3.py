@@ -25,11 +25,24 @@ counterpart of the reference's DeepSpeed pipeline
     package writes with orbax (auto-resume by the same regex); neither
     package reads the other's files.
 
-The step takes no mesh: data parallelism and the ZeRO-style sharding of
-the Adam moments (`zero_mesh`, `zero_opt_shardings`) come with the port's
-`parallel/`. The state is a mutable `TrainState`: the optimizer updates the
-head's leaves in place, and every step function returns the state it was
-given.
+Data parallelism (the steps' `zero_mesh`): every rank of the grid's
+`data` axis gets the GLOBAL batch and trains on its equal share of the
+rows (B % dp == 0). Each rank's loss is its part of the global loss (the
+loss is a mean over the B x T positions, so a part is the local mean over
+dp; a ratio's denominator is summed over the ranks first), the gradients
+are summed over the ranks, and the clip reads that reduced gradient, so
+every rank takes the same step. The metrics are summed the same way: an
+`acc` is the ranks' hits over the global sum of the mask. With
+`init_train_state(zero_mesh=...)` the Adam moments are sharded too
+(`ZeroAdamW`: each moment on its largest dim that dp divides, as
+`zero_opt_shardings` lays them out), each rank updates its slice of the
+parameters and the slices are gathered.
+`torch.distributed.optim.ZeroRedundancyOptimizer` shards whole tensors,
+which would leave the EAGLE-3 head's moments far from 1/dp a rank (its
+fc and lm_head hold most of them), so it is not used.
+
+The state is a mutable `TrainState`: the optimizer updates the head's
+leaves in place, and every step function returns the state it was given.
 """
 from __future__ import annotations
 
@@ -40,6 +53,7 @@ import re
 from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from ..config import ModelConfig
@@ -47,6 +61,7 @@ from ..engine.kvcache import init_cache
 from ..models import transformer
 from ..models.eagle import EagleConfig, EagleParams
 from ..ops.linear import apply_linear, rms_norm
+from ..parallel.mesh import DATA_AXIS, MODEL_AXIS, Axis, all_gather, psum
 from .data import as_tensor
 from .probes import top_k_accuracy
 
@@ -69,9 +84,133 @@ class TrainConfig:
 @dataclasses.dataclass
 class TrainState:
     params: EagleParams                 # trainable leaves require grad
-    opt: torch.optim.AdamW              # over trainable_leaves(params)
+    opt: "torch.optim.AdamW | ZeroAdamW"  # over trainable_leaves(params)
     sched: torch.optim.lr_scheduler.LambdaLR
     step: int = 0
+
+
+class Share:
+    """How a rank's terms make the global batch's over the data axis
+    (`axis` None or of size 1: the whole batch is here). `mean` is this
+    rank's part of a mean over equal shares; `total` the global sum of a
+    local denominator (no gradient flows through it). `tp_axis`: the axis
+    the frozen target is Megatron-sharded over, if any."""
+
+    def __init__(self, axis: Optional[Axis] = None,
+                 tp_axis: Optional[Axis] = None):
+        self.axis, self.tp_axis = axis, tp_axis
+        self.n = 1 if axis is None else axis.size
+
+    def mean(self, x: torch.Tensor) -> torch.Tensor:
+        return torch.mean(x) if self.n == 1 else torch.mean(x) / self.n
+
+    def total(self, x: torch.Tensor) -> torch.Tensor:
+        return x if self.n == 1 else psum(x.detach(), self.axis)
+
+    def rows(self, t: torch.Tensor) -> torch.Tensor:
+        """This rank's equal share of the global batch's rows."""
+        if self.n == 1:
+            return t
+        B = t.shape[0]
+        if B % self.n:
+            raise ValueError(f"batch of {B} rows does not split over "
+                             f"dp={self.n}")
+        b = B // self.n
+        return t[self.axis.index * b:(self.axis.index + 1) * b]
+
+
+def zero_dim(shape, n: int) -> Optional[int]:
+    """The dim a moment of `shape` shards on over n ranks: its largest dim
+    that n divides (the first of equal ones), None for n == 1 or none."""
+    best, best_d = 0, None
+    for d, s in enumerate(shape):
+        if s % n == 0 and s > best:
+            best, best_d = s, d
+    return best_d if n > 1 else None
+
+
+def zero_opt_shardings(params: EagleParams, mesh, axis: str = DATA_AXIS
+                       ) -> Dict[str, tuple]:
+    """Each trainable leaf's Adam-moment spec over the mesh axis (the JAX
+    package's `zero_opt_shardings`, eagle3.py:78-105): its largest dim that
+    the axis size divides sharded, replicated when none does."""
+    n = mesh[axis].size
+    out = {}
+    for name, p in trainable_leaves(params):
+        spec = [None] * p.dim()
+        d = zero_dim(p.shape, n)
+        if d is not None:
+            spec[d] = axis
+        out[name] = tuple(spec)
+    return out
+
+
+class ZeroAdamW:
+    """AdamW with ZeRO-sharded moments over a data axis: rank i keeps, for
+    every leaf, the moments of its slice i along `zero_dim` (the whole
+    leaf where no dim divides), runs `torch.optim.AdamW` on that slice
+    with the slice of the (already reduced and clipped) gradient, writes
+    it into the leaf and gathers the slices (exact copies), so every rank
+    holds the same parameters. `state_dict` / `load_state_dict` speak the
+    replicated AdamW's format (the moments gathered / sliced), so a
+    checkpoint does not depend on dp."""
+
+    def __init__(self, leaves: List[torch.Tensor], tc: TrainConfig,
+                 axis: Axis):
+        self.leaves, self.axis = leaves, axis
+        self.dims = [zero_dim(p.shape, axis.size) for p in leaves]
+        self.shards = [self._slice(p.detach(), d).clone()
+                       for p, d in zip(leaves, self.dims)]
+        self.opt = torch.optim.AdamW(self.shards, lr=tc.lr,
+                                     betas=(tc.b1, tc.b2), eps=1e-8,
+                                     weight_decay=tc.weight_decay)
+
+    @property
+    def param_groups(self):
+        return self.opt.param_groups
+
+    def _slice(self, t: torch.Tensor, d: Optional[int]) -> torch.Tensor:
+        if d is None:
+            return t
+        n = t.shape[d] // self.axis.size
+        return t.narrow(d, self.axis.index * n, n)
+
+    def zero_grad(self, set_to_none: bool = True):
+        for p in self.leaves:
+            p.grad = None
+
+    @torch.no_grad()
+    def step(self):
+        for p, d, s in zip(self.leaves, self.dims, self.shards):
+            s.grad = self._slice(p.grad, d).clone()
+        self.opt.step()
+        for p, d, s in zip(self.leaves, self.dims, self.shards):
+            s.grad = None
+            p.copy_(s if d is None else all_gather(s, self.axis, dim=d))
+
+    def moment_bytes(self) -> int:
+        """The bytes of the Adam moments this rank holds."""
+        return sum(t.numel() * t.element_size()
+                   for st in self.opt.state.values()
+                   for k, t in st.items() if k != "step")
+
+    def state_dict(self) -> dict:
+        sd = self.opt.state_dict()
+        state = {}
+        for i, st in sd["state"].items():
+            d = self.dims[i]
+            state[i] = {k: (v if k == "step" or d is None
+                            else all_gather(v, self.axis, dim=d))
+                        for k, v in st.items()}
+        return {"state": state, "param_groups": sd["param_groups"]}
+
+    def load_state_dict(self, sd: dict):
+        state = {i: {k: (v if k == "step" else
+                         self._slice(v, self.dims[i]).clone())
+                     for k, v in st.items()}
+                 for i, st in sd["state"].items()}
+        self.opt.load_state_dict({"state": state,
+                                  "param_groups": sd["param_groups"]})
 
 
 def lr_lambda(tc: TrainConfig) -> Callable[[int], float]:
@@ -120,15 +259,22 @@ def make_optimizer(leaves: List[torch.Tensor], tc: TrainConfig):
     return opt, torch.optim.lr_scheduler.LambdaLR(opt, lr_lambda(tc))
 
 
-def init_train_state(params: EagleParams, tc: TrainConfig) -> TrainState:
+def init_train_state(params: EagleParams, tc: TrainConfig,
+                     zero_mesh=None) -> TrainState:
     """A fresh state over a copy of the trainable leaves (the caller's
-    tensors stay untouched); the frozen buffers are shared."""
+    tensors stay untouched); the frozen buffers are shared. zero_mesh: the
+    Adam moments sharded over its data axis (`ZeroAdamW`)."""
     trainable, frozen = _split_trainable(params)
     trainable = {k: None if v is None
                  else v.detach().clone().requires_grad_(True)
                  for k, v in trainable.items()}
     params = _merge(trainable, frozen)
-    opt, sched = make_optimizer([v for _, v in trainable_leaves(params)], tc)
+    leaves = [v for _, v in trainable_leaves(params)]
+    if zero_mesh is None:
+        opt, sched = make_optimizer(leaves, tc)
+    else:
+        opt = ZeroAdamW(leaves, tc, zero_mesh[DATA_AXIS])
+        sched = torch.optim.lr_scheduler.LambdaLR(opt.opt, lr_lambda(tc))
     return TrainState(params=params, opt=opt, sched=sched, step=0)
 
 
@@ -146,22 +292,32 @@ def clip_by_global_norm_(grads: List[torch.Tensor], max_norm: float
 
 
 def apply_update(state: TrainState, tc: TrainConfig,
-                 loss: torch.Tensor, metrics: Dict[str, torch.Tensor]
+                 loss: torch.Tensor, metrics: Dict[str, torch.Tensor],
+                 share: Optional[Share] = None
                  ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
     """Backward of `loss`, the clip, one AdamW step under the schedule, and
-    the step count; returns (state, metrics with "loss")."""
+    the step count; returns (state, metrics with "loss"). Under a data
+    axis (`share`), loss and metrics are this rank's parts: the gradients
+    and the metrics are summed over the ranks first."""
+    axis = None if share is None or share.n == 1 else share.axis
     leaves = [v for _, v in trainable_leaves(state.params)]
     state.opt.zero_grad(set_to_none=True)
     loss.backward()
     for p in leaves:             # optax decays a leaf the loss misses too
         if p.grad is None:
             p.grad = torch.zeros_like(p)
+        elif axis is not None:
+            p.grad = psum(p.grad, axis)
     clip_by_global_norm_([p.grad for p in leaves], tc.grad_clip)
     state.opt.step()
     state.sched.step()
     state.step += 1
     out = {k: v.detach() for k, v in metrics.items()}
     out["loss"] = loss.detach()
+    if axis is not None:         # one collective for every metric
+        names = list(out)
+        vals = psum(torch.stack([out[k].float() for k in names]), axis)
+        out = dict(zip(names, vals.unbind()))
     return state, out
 
 
@@ -189,7 +345,8 @@ def _shift(t: torch.Tensor) -> torch.Tensor:
 def multi_step_head_loss(ecfg: EagleConfig, params: EagleParams,
                          features: torch.Tensor, target_logits: torch.Tensor,
                          input_ids: torch.Tensor, loss_mask: torch.Tensor,
-                         steps: int) -> Tuple[torch.Tensor, dict]:
+                         steps: int, share: Optional[Share] = None
+                         ) -> Tuple[torch.Tensor, dict]:
     """The reference's multi-step training forward (traineagle3/cnets.py:
     713-850).
 
@@ -201,7 +358,10 @@ def multi_step_head_loss(ecfg: EagleConfig, params: EagleParams,
     The target's argmax and its draft-vocabulary logits are read once and
     shifted each step, which gives what shifting the full logits gives
     (a zero row's argmax is 0, its draft logits zeros).
+    share: the rank's share of a data-parallel batch; the loss and metrics
+    returned are then this rank's parts of the global ones (`Share`).
     """
+    share = share or Share()
     B, T, _ = features.shape
     H, Hkv, hd = ecfg.num_heads, ecfg.num_kv_heads, ecfg.head_dim
     Vd = ecfg.draft_vocab_size
@@ -263,15 +423,17 @@ def multi_step_head_loss(ecfg: EagleConfig, params: EagleParams,
             pmask = (params.t2d[tgt_max] & (lm > 0)).float()
             tgt_p = torch.softmax(tgt_draft, -1)
         logp = torch.log_softmax(logits, -1)
-        loss = -torch.mean(torch.sum(tgt_p * logp, -1) * pmask)
+        loss = -share.mean(torch.sum(tgt_p * logp, -1) * pmask)
         losses.append(loss)
         with torch.no_grad():
             hit = torch.argmax(logits, -1) == torch.argmax(tgt_p, -1)
-            accs.append(torch.sum(hit * pmask) / (torch.sum(lm) + 1e-6))
+            accs.append(torch.sum(hit * pmask)
+                        / (share.total(torch.sum(lm)) + 1e-6))
             if s == 0:
                 # top-k probes on the first step's logits (the engine's
                 # first-draft position; ref main.py:345-379)
-                topk = top_k_accuracy(logits, tgt_draft, pmask)
+                topk = top_k_accuracy(logits, tgt_draft, pmask,
+                                      total=share.total)
 
         if s != steps - 1:
             hidden = out
@@ -298,71 +460,106 @@ def _as_batch(input_ids, loss_mask, device):
             as_tensor(loss_mask, device).float())
 
 
+def _target_cache(cfg_t: ModelConfig, B: int, T: int, device, tp_axis):
+    tp = 1 if tp_axis is None else tp_axis.size
+    if tp > 1:
+        from ..parallel.sharding import local_config
+        cfg_t = local_config(cfg_t, tp=tp)
+    return init_cache(cfg_t, B, T, device)
+
+
 @torch.no_grad()
 def target_stream(cfg_t: ModelConfig, params_t, input_ids: torch.Tensor,
-                  feature_layers) -> Tuple[torch.Tensor, torch.Tensor]:
+                  feature_layers, tp_axis: Optional[Axis] = None
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The frozen target over `input_ids` [B, T] in a fresh cache:
-    (logits [B, T, V] f32, feature stream), no gradient anywhere."""
+    (logits [B, T, V] f32, feature stream), no gradient anywhere. tp_axis:
+    params_t is this rank's Megatron shard (parallel/sharding.py); the
+    logits come back gathered."""
     B, T = input_ids.shape
-    cache = init_cache(cfg_t, B, T, input_ids.device)
+    cache = _target_cache(cfg_t, B, T, input_ids.device, tp_axis)
     logits, _, feats = transformer.forward(cfg_t, params_t, input_ids, cache,
-                                           feature_layers=feature_layers)
+                                           feature_layers=feature_layers,
+                                           tp_axis=tp_axis)
+    if logits.shape[-1] != cfg_t.vocab_size:
+        logits = all_gather(logits, tp_axis)
     return logits, feats
 
 
 @torch.no_grad()
-def final_hidden(cfg_t: ModelConfig, params_t,
-                 input_ids: torch.Tensor) -> torch.Tensor:
+def final_hidden(cfg_t: ModelConfig, params_t, input_ids: torch.Tensor,
+                 tp_axis: Optional[Axis] = None) -> torch.Tensor:
     """The frozen target's final pre-norm hidden state [B, T, D] (the
     EAGLE-1 stream), without gradients; its head is skipped, which the JAX
-    package's compiler drops as unused."""
+    package's compiler drops as unused. tp_axis: as `target_stream`."""
     B, T = input_ids.shape
-    hidden, _ = transformer.forward(cfg_t, params_t, input_ids,
-                                    init_cache(cfg_t, B, T, input_ids.device),
-                                    skip_head=True)
+    hidden, _ = transformer.forward(
+        cfg_t, params_t, input_ids,
+        _target_cache(cfg_t, B, T, input_ids.device, tp_axis),
+        skip_head=True, tp_axis=tp_axis)
     return hidden
 
 
+def data_share(zero_mesh=None) -> Share:
+    """The steps' data-parallel share over zero_mesh's data axis, else the
+    whole batch. The share's `tp_axis` is the grid's model axis when it
+    has more than one rank: the frozen target is then Megatron-sharded
+    over it. Whether the moments are sharded is the state's
+    (`init_train_state(zero_mesh=...)`); the step is the same either way."""
+    if zero_mesh is None:
+        return Share()
+    model = zero_mesh[MODEL_AXIS]
+    return Share(zero_mesh[DATA_AXIS], model if model.size > 1 else None)
+
+
 def make_train_step(cfg_t: ModelConfig, ecfg: EagleConfig, tc: TrainConfig,
-                    feature_layers: Tuple[int, int, int]):
+                    feature_layers: Tuple[int, int, int], zero_mesh=None):
     """The train step: (state, params_target, input_ids, loss_mask) ->
     (state, metrics). The batch may be numpy or tensors; it runs on the
-    head's device."""
+    head's device. zero_mesh: data parallelism over the grid's data axis
+    (module docstring): the step takes the global batch and trains on this
+    rank's rows, with replicated moments or with a state from
+    `init_train_state(..., zero_mesh=...)`."""
+    share = data_share(zero_mesh)
 
     def step(state: TrainState, params_t, input_ids, loss_mask):
         ids, lm = _as_batch(input_ids, loss_mask, _device(state))
-        logits, feats = target_stream(cfg_t, params_t, ids, feature_layers)
+        ids, lm = share.rows(ids), share.rows(lm)
+        logits, feats = target_stream(cfg_t, params_t, ids, feature_layers,
+                                      share.tp_axis)
         tgt = _shift(logits)
         del logits
         loss, metrics = multi_step_head_loss(ecfg, state.params, feats, tgt,
-                                             _shift(ids), lm, tc.steps)
+                                             _shift(ids), lm, tc.steps, share)
         del tgt
-        return apply_update(state, tc, loss, metrics)
+        return apply_update(state, tc, loss, metrics, share)
 
     return step
 
 
 def make_train_step_offline(cfg_t: ModelConfig, ecfg: EagleConfig,
-                            tc: TrainConfig):
+                            tc: TrainConfig, zero_mesh=None):
     """Offline-features train step (ref CustomDataset mode,
     train/main.py:133-172): consumes PRE-DUMPED target features + logits
     (train/features.py), with no target forward. Signature matches
     train_loop's dict-batch splat: (state, params_t_ignored, *, input_ids,
     loss_mask, features, target_logits) -> (state, metrics). Shifting is
     the online step's, so online and offline trajectories agree given
-    equal data."""
+    equal data. zero_mesh: as `make_train_step`."""
     del cfg_t
+    share = data_share(zero_mesh)
 
     def step(state: TrainState, params_t, *, input_ids, loss_mask,
              features, target_logits):
         del params_t
         dev = _device(state)
         ids, lm = _as_batch(input_ids, loss_mask, dev)
-        feats = as_tensor(features, dev).float()
-        tgt = _shift(as_tensor(target_logits, dev).float())
+        ids, lm = share.rows(ids), share.rows(lm)
+        feats = share.rows(as_tensor(features, dev)).float()
+        tgt = _shift(share.rows(as_tensor(target_logits, dev)).float())
         loss, metrics = multi_step_head_loss(ecfg, state.params, feats, tgt,
-                                             _shift(ids), lm, tc.steps)
-        return apply_update(state, tc, loss, metrics)
+                                             _shift(ids), lm, tc.steps, share)
+        return apply_update(state, tc, loss, metrics, share)
 
     return step
 
@@ -376,14 +573,23 @@ def save_checkpoint(path: str, state: TrainState):
     optimizer's and the scheduler's state_dicts and the step into
     `path/state_{step}/state.pt` (the JAX package's directory layout;
     replaces DeepSpeed save_16bit_model / save_checkpoint,
-    traineagle3/main.py:345-347)."""
-    d = _state_dir(path, state.step)
-    os.makedirs(d, exist_ok=True)
-    params = {k: v.detach() for k, v in state.params._asdict().items()
-              if v is not None}
-    torch.save({"params": params, "opt": state.opt.state_dict(),
-                "sched": state.sched.state_dict(), "step": state.step},
-               os.path.join(d, "state.pt"))
+    traineagle3/main.py:345-347). Under torch.distributed every rank calls
+    it (a ZeRO state gathers its moments) and rank 0 alone writes, between
+    two barriers: every rank has looked for the step's directory before it
+    appears, and finds it once it returns."""
+    opt = state.opt.state_dict()
+    if dist.is_initialized():
+        dist.barrier()
+    if not dist.is_initialized() or dist.get_rank() == 0:
+        d = _state_dir(path, state.step)
+        os.makedirs(d, exist_ok=True)
+        params = {k: v.detach() for k, v in state.params._asdict().items()
+                  if v is not None}
+        torch.save({"params": params, "opt": opt,
+                    "sched": state.sched.state_dict(), "step": state.step},
+                   os.path.join(d, "state.pt"))
+    if dist.is_initialized():
+        dist.barrier()
 
 
 def latest_checkpoint_step(path: str) -> Optional[int]:

@@ -35,17 +35,21 @@ from .data import as_tensor
 
 
 def top_k_accuracy(logits_pred: torch.Tensor, logits_tgt: torch.Tensor,
-                   loss_mask: torch.Tensor, ks: Sequence[int] = (1, 2, 3)):
+                   loss_mask: torch.Tensor, ks: Sequence[int] = (1, 2, 3),
+                   total=None):
     """Per-k accuracies over masked positions (ref main.py:216-229,345-379).
 
     logits_pred/logits_tgt: [..., V]; loss_mask broadcastable to the leading
-    dims. Returns {f'top{k}_acc': 0-d tensor}."""
+    dims. Returns {f'top{k}_acc': 0-d tensor}. total: maps the mask's local
+    sum to the global batch's (a data-parallel rank's part,
+    train.eagle3.Share.total)."""
     with torch.no_grad():
         tgt = torch.argmax(logits_tgt, -1)
         topi = torch.topk(logits_pred, max(ks), dim=-1).indices   # [..., kmax]
         hit = topi == tgt[..., None]
         m = loss_mask.float()
-        denom = torch.sum(m) + 1e-6
+        denom = (torch.sum(m) if total is None
+                 else total(torch.sum(m))) + 1e-6
         return {f"top{k}_acc": torch.sum(torch.any(hit[..., :k], -1) * m)
                 / denom for k in ks}
 

@@ -801,3 +801,41 @@ def test_k3_on_an_expert_view_matches_plain(dev):
         xp = x.index_select(-1, perm[l, e])
         _close(got, G.int4_matmul_plain(xp, v.qweight, v.scales, v.zeros),
                torch.bfloat16)
+
+
+def _tp_rank(dev):
+    """One rank of a TP 2 forward on the card (gloo: the ranks share it)
+    and the single-card forward of the same weights."""
+    from hsd_tpu_torch.engine.kvcache import init_cache
+    from hsd_tpu_torch.models import transformer
+    from hsd_tpu_torch.parallel import make_mesh
+    from hsd_tpu_torch.parallel import tp as TP
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = ModelConfig.tiny(vocab_size=1024, hidden_size=512,
+                           intermediate_size=1024, num_layers=2,
+                           num_heads=8, num_kv_heads=4,
+                           tie_word_embeddings=False, dtype=torch.float32)
+    full = TP.unfuse_params(cfg, init_quantized_params(cfg, seed=0, bits=4,
+                                                       device=dev))
+    toks = (torch.arange(11, device=dev) * 37 % 1000 + 3)[None]
+    ref, _ = transformer.forward(cfg, full, toks,
+                                 init_cache(cfg, 1, 16, dev))
+    mesh = make_mesh(1, 2)
+    local = TP.shard_params_tp(full, mesh)
+    reset_launches()
+    got, _ = TP.make_tp_target_forward(cfg, local, mesh)(
+        local, toks, TP.tp_cache_ops(cfg, mesh)[0](
+            1, 16, torch.zeros(1, dtype=torch.int64, device=dev), dev))
+    return ref, got, launch_counts()
+
+
+def test_tp2_forward_on_one_card_matches_single(dev):
+    """TP 2 over gloo on the one card: each rank's K3 launches on its
+    shard (packed int4 re-packed within it), the ranks' logits bit-equal,
+    within 1e-4 of the single-card forward (f32)."""
+    from hsd_tpu_torch.parallel import run_ranks
+    res = run_ranks(_tp_rank, 2, backend="gloo", device="cuda", timeout=300)
+    for ref, got, counts in res:
+        _close(got, ref, torch.float32)
+        assert counts["K3"] > 0 and not counts["K1"] and not counts["K2"]
+    assert torch.equal(res[0][1], res[1][1])

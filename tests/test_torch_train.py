@@ -19,8 +19,8 @@ Weights and optimizer states cross by `bridge`.
   +-lr step. JAX against itself, with that hidden state perturbed by 1e-6
   (relative), moves the loss by 1.3e-3 and the params by up to 6.6e-3 over
   the same steps; so v1 is held within 5e-3 and 1e-2.
-* Then every test of tests/test_train.py but the three on meshes (the
-  port's parallel/ is ROADMAP §1.10): the loss decreases, frozen buffers
+* Then every test of tests/test_train.py but the three on meshes (those
+  are in tests/test_torch_train_dp.py): the loss decreases, frozen buffers
   stay, the checkpoint round trip (params and Adam moments bit-equal),
   online == offline, train_loop's resume, logging and epoch probe, the
   top-k metrics, the kacc probe; top_k_accuracy and getkacc with fixed

@@ -474,7 +474,9 @@ def test_train_eagle_cli_offline_roundtrip(tmp_path, ver):
 
 
 def test_train_eagle_cli_refuses_a_mesh():
+    """A --dp / --tp grid needs its processes (one process is a world of
+    one); tests/test_torch_parallel_cli.py runs them."""
     from hsd_tpu_torch.tools import train_eagle
     for flag in (["--dp", "2"], ["--tp", "2"]):
-        with pytest.raises(NotImplementedError, match="1.10"):
+        with pytest.raises(SystemExit, match="torchrun"):
             train_eagle.main(["--data", "x.jsonl", "--device", "cpu"] + flag)
