@@ -72,18 +72,22 @@ Phases (any failure exits nonzero, with no result line):
                run twice with one seed gives identical streams
   5g. serving  SlotEngine in the reference's serving_0p5b configuration
                (hsd, gamma 5, K 1, temperature 1.0, 48 new tokens at most; 8
-               slots, bucket 64, 4 pool blocks between admissions, 8
-               admissions a step) on phase 5's int8 0.5B draft and the
+               slots, bucket 64, macro steps of 4 pool blocks with the
+               on-device refill, 8 staged entries) on phase 5's int8 0.5B
+               draft and the
                pair's bf16 0.5B trunk, 16 of the reference's 32 requests
                (cut for time), after one warm request, with the launch
                counters zeroed before and read after (K4 must launch; K1,
                K2, K3 and K8 must not); every request's tokens in range and
-               within its budget, its accepts within [0, gamma] a block; BE
-               and tok/s printed; the run again with the same seed gives
+               within its budget, its accepts within [0, gamma] a block; BE,
+               tok/s, pool blocks, steps, refilled_total (> 0: requests took
+               slots inside a macro) and host reads a step printed; the run
+               again with the same seed gives
                identical streams; every served request must equal
                make_generate on its own generator in the 8-slot bf16
                engine whose target trunk runs one slot's rows a call
-               (make_generate's row count), and two in a 1-slot engine and
+               (make_generate's row count; its refilled_total > 0 too), and
+               two in a 1-slot engine and
                in the 8-slot engine on the pair's f32 image (f32
                activations, TF32 off); make_generate_batched on 4 prompts
                must equal per-request make_generate there; in bf16 with
@@ -91,8 +95,8 @@ Phases (any failure exits nonzero, with no result line):
                rounds differently, the agreement is printed. With --trace,
                also the run's parts
                timed apart (pool blocks, draft and target forwards, the
-               verifier, noise, prefills) and one profiled pool block
-               (device time by kernel, idle share)
+               verifier, noise, prefills, merges) and one profiled pool
+               block (device time by kernel, idle share)
   5h. uad      make_uad_generate on the 48-layer 14B int4 trunk with a
                char-level toy tokenizer pair and a context-repeat drafter,
                64 new tokens, with the launch counters zeroed before and read
@@ -127,7 +131,9 @@ Phases (any failure exits nonzero, with no result line):
                59 nodes; scale 6.0, lam 1.312), gptq_mxu_bf16 on
   8. eagle kernels  K5 (int8, fused RMSNorm) at 1 and 60 rows, K7 (bf16
                tensor-core operands) at 129 and 480 rows, each K7 case with
-               its TFLOP/s and its share of the bound, and K4 (symmetric
+               its TFLOP/s and its share of the bound, K7 with f32
+               activations (wqkv + norm and wo, 129 and 480 rows) timed
+               beside the bf16 case, and K4 (symmetric
                int8) at the prefill's shapes (wo, wdown at 64 rows, the head
                at 1 row and at 64) against their plain versions, timed as in
                phase 4; K7's pre-pass (the inverse RMS and the normed bf16
@@ -136,11 +142,13 @@ Phases (any failure exits nonzero, with no result line):
                bf16 and f32 activations) and 129 and 480 vs 1024 rows (K7)
   9. eagle serving  one 64-token prefill with the head on the last position
                against one with every position's logits: the last row must
-               agree, both timed; then EagleSlotEngine (8 slots, bucket 64, 4
-               pool blocks between admissions) on 16 requests of 32-64 prompt
-               ids and 64 new tokens, in hsd_ref and hsd, after one warm
-               request, with the launch counters zeroed before and read after
-               (K4, K5 and K7 must each launch); hsd_ref again, whose token
+               agree, both timed; then EagleSlotEngine (8 slots, bucket 64,
+               macro steps of 4 pool blocks with the on-device refill) on 16
+               requests of 32-64 prompt ids and 64 new tokens, in hsd_ref and
+               hsd, after one warm request, with the launch counters zeroed
+               before and read after (K4, K5 and K7 must each launch;
+               refilled_total > 0, printed with the pool blocks, steps and
+               host reads a step); hsd_ref again, whose token
                streams must be identical. With --trace, also a profiled pool
                step (device time by kernel, idle share)
  9f. eagle single request  make_eagle_generate (hsd_ref) on the 8B pair,
@@ -163,7 +171,9 @@ Phases (any failure exits nonzero, with no result line):
                prefill's 64 rows and the head at 1 row, against their plain
                versions, timed as in phase 4; K7i4's pre-pass (the inverse
                RMS, the normed bf16 rows and the group sums of the unrounded
-               ones) against its plain version at 129 and 480 rows; a row's
+               ones) against its plain version at 129 and 480 rows; K7i4
+               with f32 activations (wqkv + norm and wo, 129 and 480 rows)
+               timed beside the bf16 case; a row's
                bits at 129 vs 480 rows; an asymmetric int4 and int8 weight through the
                bf16 route (apply_linear) vs plain; K7 (int8) launches only
                for the int8 weight, K7i4 never at 128 rows; at 129 rows
@@ -276,9 +286,10 @@ Phases (any failure exits nonzero, with no result line):
                random trunk's hard attention flips near-ties) within 2^-4
                of the single prefill in bf16 and 2^-10 with f32
                activations, gather_cache, 16 greedy tokens, peak GiB a
-               rank; 19d the EAGLE pool (8 slots, 8 requests x 32,
-               hsd_ref) over the 8B int8 target under TP 2, K7 at the
-               shard shapes, greedy EAGLE == AR; 19e DP 2 with ZeRO: the
+               rank; 19d the EAGLE pool (8 slots, 12 requests x 32,
+               hsd_ref, macro steps of 4: refills on both ranks) over the
+               8B int8 target under TP 2, K7 at the shard shapes, greedy
+               EAGLE == AR; 19e DP 2 with ZeRO: the
                EAGLE-3 step at 8B
                width, 1 x 512 a rank, 3 steps at lr 1e-3, against the
                single-rank 2 x 512 steps (losses, the parameters' update,
@@ -505,7 +516,8 @@ def quant_case(name, label, w: QuantizedLinear, n, act, ln, eps):
     """One quantized product against its plain version (check_kernel) on
     up to four layers of a stacked weight; ln: [layers, din] norm weights,
     or None. The library call is a bf16 torch.matmul against the
-    pre-dequantized weight."""
+    pre-dequantized weight (of x rounded to bf16 beforehand, for f32
+    activations)."""
     stacked = w.qweight.dim() == 3
     n_sets = min(4, w.qweight.shape[0]) if stacked else 1
     ws = [w.layer(l) if stacked else w for l in range(n_sets)]
@@ -514,13 +526,26 @@ def quant_case(name, label, w: QuantizedLinear, n, act, ln, eps):
     kern, plain = QUANT_CALLS[name]
     lnl = (lambda l: None) if ln is None else (lambda l: ln[l])
     w_bf16 = deq_bf16(ws[0])
+    xl = x.to(w_bf16.dtype)
     check_kernel(name, label, n, lambda l: kern(x, ws[l], lnl(l), eps),
                  lambda l: plain(x, ws[l], lnl(l), eps),
-                 lambda l: torch.matmul(x, w_bf16), n_sets,
-                 qbytes(ws[0]) + x.numel() * 2 + n * dout * 2
+                 lambda l: torch.matmul(xl, w_bf16), n_sets,
+                 qbytes(ws[0]) + (x.numel() + n * dout) * x.element_size()
                  + (w.din * 4 if ln is not None else 0),
                  2 * n * w.din * dout)
-    del w_bf16
+    del w_bf16, xl
+
+
+def f32_case(name, label, w: QuantizedLinear, n, act, ln, eps):
+    """quant_case of K7 or K7i4 with f32 activations (the pre-pass rounds
+    them to bf16; the output stays f32), within the same tolerance, its
+    time printed beside the bf16 case of the same shape (run before)."""
+    quant_case(name, label + " f32", w, n, lambda n_, d: act(n_, d).float(),
+               ln, eps)
+    ms = {r["label"]: r["ms"] for r in KERNEL_ROWS
+          if r["name"] == name and r["n"] == n}
+    log(f"{name} {label} n={n}: f32 activations {ms[label + ' f32']:.4f} "
+        f"ms, bf16 {ms[label]:.4f} ms")
 
 
 ROUTE_A_ROWS = []     # one dict per (shape, rows) of the dequantize route
@@ -1067,6 +1092,17 @@ def serve(se, reqs):
     return {r.rid: r for r in done}
 
 
+def schedule_line(se, before):
+    """The scheduler's counters (bench_main.SCHED) since `before` and their
+    line: pool blocks, steps, requests admitted by the on-device refill,
+    host reads a step."""
+    d = {k: getattr(se, k) - before[k] for k in BM.SCHED}
+    return d, (f"{d['pool_blocks']} pool blocks in {d['steps']} steps, "
+               f"refilled_total {d['refilled_total']}, "
+               f"{d['host_reads'] / max(d['steps'], 1):.2f} host reads a "
+               "step")
+
+
 def trunk_slot_by_slot(cfg):
     """SlotPool's target_forward protocol with the trunk run on one slot's
     rows a call (R = 1: make_generate's row count), on views of the
@@ -1114,12 +1150,17 @@ def serving_phase(draft, target, cfg_s, trace=False):
     reqs = BM.serving_requests(cfg_s.vocab_size)[:SERVING_REQS]
     se, eng = serving_engine(draft, small, cfg_s)
     reset_launches()
+    before = {k: getattr(se, k) for k in BM.SCHED}
     t0 = time.perf_counter()
     served = serve(se, reqs)
     secs = time.perf_counter() - t0
     counts = launch_counts()
+    sched, sched_s = schedule_line(se, before)
     if sorted(served) != list(range(len(reqs))):
         raise AssertionError(f"serving: served {sorted(served)}")
+    if sched["refilled_total"] <= 0:
+        raise AssertionError("serving: no request took a slot inside a "
+                             "macro step (refilled_total 0)")
     for rid, r in served.items():
         toks = r.out_tokens
         if not (1 <= len(toks) <= reqs[rid][1] and all(
@@ -1134,7 +1175,7 @@ def serving_phase(draft, target, cfg_s, trace=False):
     be = (sum(r.accepts for r in served.values()) + blocks) / blocks
     log(f"serving ({len(reqs)} requests, {BM.SRV_SLOTS} slots): BE {be:.4f} "
         f"over {blocks} slot-blocks, {n_tok} tokens in {secs:.2f}s = "
-        f"{n_tok / secs:.2f} tok/s; launches {counts}")
+        f"{n_tok / secs:.2f} tok/s; {sched_s}; launches {counts}")
     if counts["K4"] <= 0:
         raise AssertionError("serving: K4 was not launched")
     for k in ("K1", "K2", "K3", "K8"):
@@ -1163,6 +1204,9 @@ def serving_phase(draft, target, cfg_s, trace=False):
     slotwise, _ = serving_engine(draft, small, cfg_s,
                                  target_forward=trunk_slot_by_slot(cfg_s))
     same_sw = agreeing(ref, serve(slotwise, reqs))
+    if slotwise.refilled_total <= 0:
+        raise AssertionError("serving: the slot-by-slot engine refilled no "
+                             "slot inside a macro step")
     one, _ = serving_engine(draft, small, cfg_s, n_slots=1)
     same1 = agreeing(ref, serve(one, reqs[:2]))
     cfg32 = dataclasses.replace(cfg_s, dtype=torch.float32)
@@ -1191,7 +1235,8 @@ def serving_phase(draft, target, cfg_s, trace=False):
         trace_serving(draft, small, cfg_s, reqs)
     return dict(be=be, tok_s=n_tok / secs, tokens=n_tok, blocks=blocks,
                 secs=secs, counts=counts, sha=digest, same8=same8,
-                same_slotwise=same_sw, same_batched=same_b["bf16"])
+                same_slotwise=same_sw, same_batched=same_b["bf16"],
+                **sched)
 
 
 def batched_vs_single(draft, small, cfg, reqs):
@@ -1227,9 +1272,11 @@ def trace_serving(draft, small, cfg_s, reqs):
     """Where a serving pool's time goes: the 5g run again with each part
     timed on the host clock between synchronizes (so the parts sum past
     the untimed run): pool blocks, their draft and target forwards, the
-    vmapped verifier, the noise draws, the admissions' prefills; then one
-    pool block of 8 live slots under the profiler (device time by kernel,
-    idle share, ops)."""
+    vmapped verifier, the noise draws (a request's block at a time; the
+    top-up before each macro holds them and the buffer writes), the
+    admissions' and the stock's prefills, the refill's merges; then one
+    pool block of 8 live slots (a step of one block) under the profiler
+    (device time by kernel, idle share, ops)."""
     from torch.profiler import ProfilerActivity, profile
     import hsd_tpu_torch.engine.speculative as SP
     spent, calls = {}, {}
@@ -1254,9 +1301,10 @@ def trace_serving(draft, small, cfg_s, reqs):
                 else "draft forward")
         return timed_part(part, fwd)(cfg, p, t, c, **k)
 
-    for name in ("block", "prefill", "_verify", "_draft_noise",
-                 "_verify_noise"):
+    for name in ("block", "prefill_rows", "_verify", "block_noise",
+                 "merge"):
         setattr(pool, name, timed_part(name.strip("_"), getattr(pool, name)))
+    se._begin_macro = timed_part("noise top-up", se._begin_macro)
     SP.transformer.forward = forward
     try:
         torch.cuda.synchronize()
@@ -1275,10 +1323,11 @@ def trace_serving(draft, small, cfg_s, reqs):
     for rid, (p, mn) in enumerate(reqs[:BM.SRV_SLOTS]):
         se.submit(rid, p, max_new=mn)
     se._admit()
+    se.steps_per_dispatch = 1        # a step of one pool block
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        se._pool_step()
+        se.step()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     rows = device_rows(prof)
@@ -2351,7 +2400,11 @@ def eagle_kernel_phase(target, cfg):
     for n in (129, rows):
         case("K7", "wqkv 4096x6144 +norm", big["wqkv"], n, True)
         case("K7", "wgu 4096x28672 +norm", big["wgu"], n, True)
+    case("K7", "wo 4096x4096", big["wo"], 129, False)
     case("K7", "wo 4096x4096", big["wo"], rows, False)
+    for n in (129, rows):
+        f32_case("K7", "wqkv 4096x6144 +norm", big["wqkv"], n, act, ln, eps)
+        f32_case("K7", "wo 4096x4096", big["wo"], n, act, None, eps)
     case("K7", "wdown 14336x4096", big["wdown"], rows, False)
     case("K7", "lm_head 4096x128256", target.big.lm_head, rows, False)
     for r in KERNEL_ROWS:
@@ -2419,13 +2472,18 @@ def eagle_serving(target, head, cfg, ecfg, trace,
         reset_launches()
         for rid, p in enumerate(prompts):
             se.submit(rid, p, max_new=EAGLE_NEW)
+        before = {k: getattr(se, k) for k in BM.SCHED}
         t0 = time.perf_counter()
         done = se.run_all()
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
         counts = launch_counts()
+        sched, sched_s = schedule_line(se, before)
         if sorted(r.rid for r in done) != list(range(EAGLE_REQS)):
             raise AssertionError(f"{mode}: requests lost")
+        if sched["refilled_total"] <= 0:
+            raise AssertionError(f"{mode}: no request took a slot inside a "
+                                 "macro step (refilled_total 0)")
         for r in done:
             if not 1 <= len(r.out_tokens) <= EAGLE_NEW or not all(
                     0 <= t < cfg.vocab_size for t in r.out_tokens):
@@ -2438,10 +2496,10 @@ def eagle_serving(target, head, cfg, ecfg, trace,
             streams, sort_keys=True).encode()).hexdigest()[:16]
         out = dict(mode=mode, tok_s=toks / secs, be=be, tokens=toks,
                    blocks=blocks, secs=secs, launches=counts,
-                   streams=streams, sha256=digest)
+                   streams=streams, sha256=digest, **sched)
         log(f"{label} serving {mode}: {toks} tokens in {secs:.2f}s = "
             f"{toks / secs:.2f} tok/s, BE {be:.4f} over {blocks} slot-blocks; "
-            f"streams sha256 {digest}; launches {counts}")
+            f"{sched_s}; streams sha256 {digest}; launches {counts}")
         for k in launched:
             if counts[k] <= 0:
                 raise AssertionError(f"{mode}: {k} was not launched")
@@ -2654,6 +2712,10 @@ def int4_eagle_kernel_phase(target, cfg):
         case("K7i4", "wo 4096x4096", big["wo"], n, False)
         case("K7i4", "wdown 14336x4096", big["wdown"], n, False)
         case("K7i4", "lm_head 4096x128256", target.big.lm_head, n, False)
+    for n in (129, rows):
+        f32_case("K7i4", "wqkv 4096x6144 +norm", big["wqkv"], n, act, ln,
+                 eps)
+        f32_case("K7i4", "wo 4096x4096", big["wo"], n, act, None, eps)
     for r in KERNEL_ROWS:
         if r["name"] == "K7i4":
             log(f"K7i4 {r['label']:<28} n={r['n']:<3} "

@@ -68,10 +68,12 @@
 // Layouts (ops/linear.py of the port): w [din, dout] int8 codes, or
 // [din/2, dout] uint8 split-half nibbles; scales [groups, dout] (bf16 or
 // f32); zeros [groups, dout] f32 or null; group g covers input rows
-// [g*gs, (g+1)*gs), gs a multiple of 64. x [n, din] bf16, 16-byte aligned;
-// ln [din] f32; the output [n, dout] bf16. (The bf16-operand mode is taken
-// by bf16 models only; an f32-activation variant waits for a configuration
-// that needs it.)
+// [g*gs, (g+1)*gs), gs a multiple of 64. x [n, din] bf16 or f32, 16-byte
+// aligned; ln [din] f32; the output [n, dout] in x's type. f32 rows, as the
+// Pallas mode casts them inside its kernel (gptq_pallas.py:72-76, 102-110),
+// round to bf16 in the pre-pass (after the norm, with ln), which then also
+// runs without ln; the group sums stay those of the unrounded f32 rows, and
+// the f32 output takes the accumulators unrounded.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -117,21 +119,51 @@ __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const __nv_bfloat1
 // The pre-pass, one block per row: with ln, the row's inverse RMS (lanes
 // strided over the features, a butterfly over the warp, the warps in order)
 // and its normed activations bf16((x * inv) * ln), the two products unfused
-// and rounded to nearest; with a correction, its group sums xg of the f32
-// values before that rounding, (x * inv) * ln with ln, else x (one warp a
-// group: lanes strided by 32, then the butterfly). The main kernel then
-// reads one bf16 matrix and no ln.
+// and rounded to nearest; without ln, for f32 rows, the rounded rows bf16(x)
+// (the main kernel reads bf16 operands only); with a correction, its group
+// sums xg of the f32 values before that rounding, (x * inv) * ln with ln,
+// else x (one warp a group: lanes strided by 32, then the butterfly). The
+// main kernel then reads one bf16 matrix and no ln. x is bf16 or f32
+// (kF32): a bf16 value widens to f32 exactly, so the arithmetic after the
+// load is the same for both.
 struct K7Prep {
-  const __nv_bfloat16* x;   // [n, din]
+  const void* x;            // [n, din] bf16, or f32 (kF32)
   int din;
   int groups;
   const float* ln;          // null: no norm
   float eps;
   float* inv;               // [n] or null
-  __nv_bfloat16* xn;        // [n, din] (ln only)
+  __nv_bfloat16* xn;        // [n, din] (ln, or an f32 x)
   float* xg;                // [n, groups] or null
 };
 
+template <bool kF32>
+__device__ __forceinline__ float load_x(const void* x, long long i) {
+  if (kF32) return reinterpret_cast<const float*>(x)[i];
+  return __bfloat162float(reinterpret_cast<const __nv_bfloat16*>(x)[i]);
+}
+
+// Eight consecutive values of x from element i (16-byte aligned) as f32.
+template <bool kF32>
+__device__ __forceinline__ void load_x8(const void* x, long long i, float (&v)[8]) {
+  if (kF32) {
+    const float4* p = reinterpret_cast<const float4*>(reinterpret_cast<const float*>(x) + i);
+    const float4 a = p[0], b = p[1];
+    v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
+    v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
+  } else {
+    const uint4 u = *reinterpret_cast<const uint4*>(
+        reinterpret_cast<const __nv_bfloat16*>(x) + i);
+    const uint32_t* pu = reinterpret_cast<const uint32_t*>(&u);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      v[2 * j] = __uint_as_float(pu[j] << 16);
+      v[2 * j + 1] = __uint_as_float(pu[j] & 0xffff0000u);
+    }
+  }
+}
+
+template <bool kF32>
 __global__ void __launch_bounds__(kThreads) k7_prep_kernel(const K7Prep a) {
   __shared__ float part[kWarps];
   __shared__ float rinv;
@@ -141,7 +173,7 @@ __global__ void __launch_bounds__(kThreads) k7_prep_kernel(const K7Prep a) {
   if (a.ln) {
     float s = 0.f;
     for (int f = threadIdx.x; f < a.din; f += kThreads) {
-      const float v = __bfloat162float(a.x[base + f]);
+      const float v = load_x<kF32>(a.x, base + f);
       s = fmaf(v, v, s);
     }
 #pragma unroll
@@ -156,17 +188,18 @@ __global__ void __launch_bounds__(kThreads) k7_prep_kernel(const K7Prep a) {
       if (a.inv) a.inv[blockIdx.x] = rinv;
     }
     __syncthreads();
-    const float r = rinv;
+  }
+  if (a.xn) {
+    const float r = a.ln ? rinv : 1.f;
     for (int f = 8 * threadIdx.x; f < a.din; f += 8 * kThreads) {
-      const uint4 v = *reinterpret_cast<const uint4*>(a.x + base + f);
-      const uint32_t* pv = reinterpret_cast<const uint32_t*>(&v);
+      float v[8];
+      load_x8<kF32>(a.x, base + f, v);
       uint32_t o[4];
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
-        const float x0 = __uint_as_float(pv[i] << 16);
-        const float x1 = __uint_as_float(pv[i] & 0xffff0000u);
-        o[i] = pack_bf16(__fmul_rn(__fmul_rn(x0, r), a.ln[f + 2 * i]),
-                         __fmul_rn(__fmul_rn(x1, r), a.ln[f + 2 * i + 1]));
+        o[i] = a.ln ? pack_bf16(__fmul_rn(__fmul_rn(v[2 * i], r), a.ln[f + 2 * i]),
+                                __fmul_rn(__fmul_rn(v[2 * i + 1], r), a.ln[f + 2 * i + 1]))
+                    : pack_bf16(v[2 * i], v[2 * i + 1]);
       }
       *reinterpret_cast<uint4*>(a.xn + base + f) = make_uint4(o[0], o[1], o[2], o[3]);
     }
@@ -176,7 +209,7 @@ __global__ void __launch_bounds__(kThreads) k7_prep_kernel(const K7Prep a) {
   for (int gi = warp; gi < a.groups; gi += kWarps) {
     float s = 0.f;
     for (int f = gi * gs + lane; f < (gi + 1) * gs; f += 32) {
-      float v = __bfloat162float(a.x[base + f]);
+      float v = load_x<kF32>(a.x, base + f);
       if (a.ln) v = __fmul_rn(__fmul_rn(v, rinv), a.ln[f]);
       s = __fadd_rn(s, v);
     }
@@ -232,7 +265,8 @@ struct K7Args {
   int groups;
   const float* zeros;       // [groups, dout] or null
   const float* xg;          // [n, groups] (a correction only)
-  __nv_bfloat16* out;       // [n, dout]
+  void* out;                // [n, dout] bf16, or f32 (out_f32)
+  int out_f32;
 };
 
 // BM rows a block: warp tiles of 64 rows x 32 columns, BM / 64 row warps by
@@ -501,7 +535,20 @@ __global__ void __launch_bounds__(K7Tile<BM, CW>::kThr, kZp || kPacked ? 1 : 256
       for (int h = 0; h < 2; ++h) {
         const int rr = r + 8 * h;
         if (rr >= a.n) continue;
-        __nv_bfloat16* o = a.out + (long long)rr * a.dout + c;
+        const long long oi = (long long)rr * a.dout + c;
+        if (a.out_f32) {
+          float* o = reinterpret_cast<float*>(a.out) + oi;
+          if (c + 1 < a.dout && (a.dout & 1) == 0) {
+            *reinterpret_cast<float2*>(o) = make_float2(acc[mi][ni][2 * h], acc[mi][ni][2 * h + 1]);
+          } else {
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              if (c + e < a.dout) o[e] = acc[mi][ni][2 * h + e];
+            }
+          }
+          continue;
+        }
+        __nv_bfloat16* o = reinterpret_cast<__nv_bfloat16*>(a.out) + oi;
         if (c + 1 < a.dout && (a.dout & 1) == 0) {
           *reinterpret_cast<__nv_bfloat162*>(o) =
               __floats2bfloat162_rn(acc[mi][ni][2 * h], acc[mi][ni][2 * h + 1]);
@@ -540,33 +587,41 @@ int k7_launch(const K7Args& a, cudaStream_t stream) {
 
 }  // namespace
 
-// The pre-pass alone (its check on the card): inv [n] (ln, may be null),
-// xn [n, din] (ln) and xg [n, groups] (may be null; with ln, the sums of the
-// normed rows before rounding). Returns 0, a CUDA error code, or kErrShape.
-extern "C" int hsd_k7_stage(const void* x, int n, int din, int groups,
+// The pre-pass alone (its check on the card): x [n, din] bf16 or (x_f32)
+// f32; inv [n] (ln, may be null), xn [n, din] (ln, or an f32 x: its bf16
+// operand) and xg [n, groups] (may be null; with ln, the sums of the normed
+// rows before rounding). Returns 0, a CUDA error code, or kErrShape.
+extern "C" int hsd_k7_stage(const void* x, int x_f32, int n, int din, int groups,
                             const void* ln, float eps, void* inv, void* xn,
                             void* xg, void* stream) {
   if (n <= 0 || din <= 0 || din % BK || groups <= 0 || din % groups) return kErrShape;
-  if (ln ? !xn : !xg) return kErrShape;
+  if ((ln || x_f32) ? !xn : !xg) return kErrShape;
   K7Prep p;
-  p.x = reinterpret_cast<const __nv_bfloat16*>(x); p.din = din; p.groups = groups;
+  p.x = x; p.din = din; p.groups = groups;
   p.ln = reinterpret_cast<const float*>(ln); p.eps = eps;
   p.inv = reinterpret_cast<float*>(inv);
   p.xn = reinterpret_cast<__nv_bfloat16*>(xn);
   p.xg = reinterpret_cast<float*>(xg);
-  k7_prep_kernel<<<n, kThreads, 0, reinterpret_cast<cudaStream_t>(stream)>>>(p);
+  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  if (x_f32) {
+    k7_prep_kernel<true><<<n, kThreads, 0, s>>>(p);
+  } else {
+    k7_prep_kernel<false><<<n, kThreads, 0, s>>>(p);
+  }
   return (int)cudaGetLastError();
 }
 
 // K7 and K7i4: y[n, dout] = bf16(x or (x * inv) * ln) @ bf16(code * scale),
-// f32 accumulation, less sum_g xg * (zero + off) * scale, rounded to bf16; x
-// and y bf16. packed: w holds split-half nibbles (off = 8, an even group
-// count), else int8 codes (off = 0). ln and zeros may be null, not both
-// given; with ln, xn is an [n, din] bf16 workspace; packed or with zeros, xg
-// an [n, groups] f32 one. bm: output rows per block, 128 or (no correction)
-// 256 (ops/gptq_cuda.k7_block_rows). Returns 0, a CUDA error code, or
+// f32 accumulation, less sum_g xg * (zero + off) * scale, rounded to y's
+// type; x and y bf16, or (x_f32) both f32, the product then unrounded.
+// packed: w holds split-half nibbles (off = 8, an even group count), else
+// int8 codes (off = 0). ln and zeros may be null, not both given; with ln,
+// or an f32 x, xn is an [n, din] bf16 workspace (the pre-pass writes the
+// bf16 operand there); packed or with zeros, xg an [n, groups] f32 one. bm:
+// output rows per block, 128 or (no correction) 256
+// (ops/gptq_cuda.k7_block_rows). Returns 0, a CUDA error code, or
 // kErrShape.
-extern "C" int hsd_k7(const void* x, int n, int din, const void* w, int packed,
+extern "C" int hsd_k7(const void* x, int x_f32, int n, int din, const void* w, int packed,
                       int dout, const void* scales, int s_bf16, const void* zeros,
                       int groups, const void* ln, float eps, void* xn, void* xg,
                       int bm, void* out, void* stream) {
@@ -574,26 +629,29 @@ extern "C" int hsd_k7(const void* x, int n, int din, const void* w, int packed,
   if ((din / groups) % BK) return kErrShape;
   if (packed && groups % 2) return kErrShape;      // the planes span whole groups
   const bool corr = packed || zeros;
-  if (ln && (!xn || zeros)) return kErrShape;
+  const bool staged = ln || x_f32;       // the kernel reads the pre-pass's xn
+  if (ln && zeros) return kErrShape;
+  if (staged && !xn) return kErrShape;
   if (corr && !xg) return kErrShape;
   if (bm != 128 && (bm != 256 || corr)) return kErrShape;
   const long long col_blocks = (dout + BN - 1) / BN;
   if (col_blocks > 65535) return kErrShape;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  if (ln || corr) {
-    const int err = hsd_k7_stage(x, n, din, groups, ln, eps, nullptr, xn,
-                                 corr ? xg : nullptr, stream);
+  if (staged || corr) {
+    const int err = hsd_k7_stage(x, x_f32, n, din, groups, ln, eps, nullptr,
+                                 staged ? xn : nullptr, corr ? xg : nullptr, stream);
     if (err) return err;
   }
   K7Args a;
-  a.x = reinterpret_cast<const __nv_bfloat16*>(ln ? xn : x); a.n = n; a.din = din;
+  a.x = reinterpret_cast<const __nv_bfloat16*>(staged ? xn : x); a.n = n; a.din = din;
   a.w = reinterpret_cast<const uint8_t*>(w); a.dout = dout;
   const uintptr_t wp = reinterpret_cast<uintptr_t>(w);
   a.wvec = (dout % 16 == 0 && wp % 16 == 0) ? 16 : (dout % 4 == 0 && wp % 4 == 0) ? 4 : 1;
   a.scales = scales; a.s_bf16 = s_bf16; a.groups = groups;
   a.zeros = reinterpret_cast<const float*>(zeros);
   a.xg = reinterpret_cast<const float*>(xg);
-  a.out = reinterpret_cast<__nv_bfloat16*>(out);
+  a.out = out;
+  a.out_f32 = x_f32;
   if (packed) return zeros ? k7_launch<128, 4, true, true>(a, s) : k7_launch<128, 4, false, true>(a, s);
   if (zeros) return k7_launch<128, 0, true, false>(a, s);
   return bm == 256 ? k7_launch<256, 0, false, false>(a, s) : k7_launch<128, 0, false, false>(a, s);

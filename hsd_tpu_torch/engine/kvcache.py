@@ -20,6 +20,7 @@
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import torch
 
@@ -192,13 +193,48 @@ def winning_rows(draft_index: torch.Tensor, rows: int) -> torch.Tensor:
     return (base * rows + draft_index).repeat_interleave(rows)
 
 
-def put_rows(pool: KVCache, rows: slice, cache: KVCache) -> KVCache:
+def put_masked(buf: torch.Tensor, dst: torch.Tensor, src: torch.Tensor,
+               mask: torch.Tensor, dim: int = 0) -> torch.Tensor:
+    """In place: index dst[i] of buf along `dim` takes src's i-th entry
+    there where mask[i], and keeps its own elsewhere. dst: distinct indices
+    on the device."""
+    m = mask.view([-1 if d == dim else 1 for d in range(src.dim())])
+    at = (slice(None),) * dim + (dst,)
+    buf[at] = torch.where(m, src, buf[at])
+    return buf
+
+
+def put_rows(pool: KVCache, rows, cache: KVCache,
+             mask: Optional[torch.Tensor] = None) -> KVCache:
     """Copy a request's cache (all its rows and positions, and its starts)
-    into rows `rows` of a pool's cache, in place: a slot's admission."""
-    pool.k[:, rows] = cache.k
-    pool.v[:, rows] = cache.v
-    pool.start[rows] = cache.start
+    into rows `rows` of a pool's cache, in place: a slot's admission (rows
+    a slice). With mask (the refill's merge, `merge_plan`): rows is a
+    device index tensor of distinct pool rows, one for each of cache's
+    rows, and a row whose mask is False keeps its own state."""
+    if mask is None:
+        pool.k[:, rows] = cache.k
+        pool.v[:, rows] = cache.v
+        pool.start[rows] = cache.start
+        return pool
+    put_masked(pool.k, rows, cache.k, mask, dim=1)
+    put_masked(pool.v, rows, cache.v, mask, dim=1)
+    put_masked(pool.start, rows, cache.start, mask)
     return pool
+
+
+def merge_plan(can: torch.Tensor, entry: torch.Tensor, entries: int):
+    """Where a refill puts the entries of its stock, on the device. can
+    [SLOTS] bool: the slots that take an entry now; entry [SLOTS]: which
+    one (distinct where can). Returns (dst [entries], now [entries] bool):
+    an entry taken now goes to its slot; every other entry is sent, with
+    now False, to its own slot among those that take none (there are
+    enough: entries <= SLOTS), so a masked put writes each slot once."""
+    ar = torch.arange(entries, device=can.device)
+    sel = can[None, :] & (entry[None, :] == ar[:, None])     # [entries, SLOTS]
+    now = sel.any(1)
+    idle = torch.argsort(can.long(), stable=True)   # slots taking none first
+    rank = torch.clamp(torch.cumsum((~now).long(), 0) - 1, min=0)
+    return torch.where(now, sel.long().argmax(1), idle[rank]), now
 
 
 def select_rows(cache: KVCache, src: torch.Tensor) -> KVCache:

@@ -20,9 +20,9 @@ computed by the draft, so the first draft step re-feeds two tokens.
 Many requests at once (`SlotPool`, `make_generate_batched`, and the
 continuous-batching `server.SlotEngine`): slots decode in lockstep, each on
 R cache rows of one stacked cache at its own frontier, one block for every
-slot per step with one host sync. Each request draws its noise from its own
-generator in `make_generate`'s order, so a pooled request's stream is the
-one `make_generate` gives on that generator.
+slot at a time with no host sync inside it. Each request's noise is drawn
+beforehand from its own generator in `make_generate`'s order, so a pooled
+request's stream is the one `make_generate` gives on that generator.
 """
 from __future__ import annotations
 
@@ -263,6 +263,16 @@ def make_generate(cfg_draft: ModelConfig, cfg_target: ModelConfig,
     return generate
 
 
+class Stock(NamedTuple):
+    """A slot pool's refill stock: `entries` prefilled requests staged on
+    the device (`SlotPool.stage`), each on R cache rows, entry a on rows
+    [a * R, (a + 1) * R); `SlotPool.merge` puts them into slots."""
+    tokens: torch.Tensor      # [entries, S] the bucketed prompt, zeros after
+    max_new: torch.Tensor     # [entries] token budgets
+    dcache: KVCache           # entries * R rows
+    tcache: object            # entries * R rows, the target's cache protocol
+
+
 class SlotPool:
     """Device state of `n_slots` requests decoding in lockstep, and the
     block that advances them all (the port of the JAX server's vmapped
@@ -273,9 +283,15 @@ class SlotPool:
     make_generate). Per slot: the committed tokens [S], the committed
     length (the draft rows hold length - 2 positions, the target rows
     length - 1: `kvcache.slot_frontiers`), a token budget, a live flag
-    (admitted and not done) and the accepted-token and block counters. A
-    slot that is not live computes rows that nothing reads, at an empty
-    slot's frontier, and its tokens, length and counters stay as they were.
+    (admitted and not done) and the accepted-token and block counters, all
+    device tensors. A slot that is not live computes rows that nothing
+    reads, at an empty slot's frontier, and its tokens, length and counters
+    stay as they were.
+
+    Admission: `prefill` (one request into one slot, host indices), or
+    `stage` into a `Stock` and `merge` under a device mask (the macro
+    step's refill, `server.py:286-300`), both through the cache protocol's
+    put.
 
     target_forward: optional `(params, tokens [N, T], cache, lengths,
     skip_head=False) -> (logits [N, T, V], cache)` over flattened rows, N =
@@ -287,7 +303,10 @@ class SlotPool:
     target_cache_ops: optional `(init, put, select)` for a target whose
     state is not a single KVCache:
         init(batch, max_len, start, device) -> cache   (make_generate's)
-        put(pool_cache, rows: slice, cache) -> pool_cache   (admission)
+        put(pool_cache, rows, cache, mask=None) -> pool_cache
+            (kvcache.put_rows: an admission, rows a slice; with mask, the
+            refill's merge: rows a device index tensor, one for each of
+            cache's rows, a row kept where mask is False)
         select(cache, src [N]) -> cache   (row b takes row src[b]'s state)
     There is no rollback op: the frontiers, passed to every forward, are
     the rollback.
@@ -339,11 +358,11 @@ class SlotPool:
         return verify(self.method, d, q, p, noise=noise, num_drafts=self.K,
                       striped=self.striped)
 
-    def prefill(self, s: int, params_draft, params_target,
-                prompt: torch.Tensor, prompt_len: int, max_new: int):
-        """Admit a request into slot s: prefill its R rows on their own (as
-        make_generate does, so the products see one request's rows) and
-        copy them into the slot's rows. prompt: [P] int64, left-padded."""
+    def prefill_rows(self, params_draft, params_target, prompt: torch.Tensor,
+                     prompt_len: int):
+        """One request's R draft and target cache rows, prefilled on their
+        own (as make_generate does, so the products see one request's
+        rows). prompt: [P] int64, left-padded. Returns (dcache, tcache)."""
         R, S, dev = self.R, self.S, self.dev
         P = prompt.shape[0]
         start = torch.full((R,), P - int(prompt_len), dtype=torch.int64,
@@ -355,6 +374,15 @@ class SlotPool:
                                     skip_head=True)
         _, tc = self.tfwd(params_target, pk[:, :-1], tc, None,
                           skip_head=True)
+        return dc, tc
+
+    def prefill(self, s: int, params_draft, params_target,
+                prompt: torch.Tensor, prompt_len: int, max_new: int):
+        """Admit a request into slot s: prefill its rows (`prefill_rows`)
+        and copy them into the slot's rows. prompt: [P] int64, left-padded."""
+        dc, tc = self.prefill_rows(params_draft, params_target, prompt,
+                                   prompt_len)
+        R, P = self.R, prompt.shape[0]
         rows = slice(s * R, (s + 1) * R)
         put_rows(self.dcache, rows, dc)
         self.tcache = self.t_put(self.tcache, rows, tc)
@@ -366,47 +394,94 @@ class SlotPool:
         self.acc_sum[s] = 0
         self.blk_cnt[s] = 0
 
-    def _draft_noise(self, live_host, generators, V: int) -> torch.Tensor:
-        """One draft step's Gumbel noise [slots * R, V]: each live slot's
-        [R, V] from its own generator, the draw `sample` makes there (the
-        uniforms, then `gumbel_of`, elementwise); noise of no generator
-        (near 0) for the other slots."""
-        u = torch.full((self.n_slots, self.R, V), 0.5, dtype=torch.float32,
-                       device=self.dev)
-        for s in range(self.n_slots):
-            if live_host[s]:
-                u[s] = torch.rand((self.R, V), generator=generators[s],
-                                  device=self.dev, dtype=torch.float32)
-        return gumbel_of(u).view(self.n_slots * self.R, V)
+    def new_stock(self, entries: int) -> Stock:
+        """An empty refill stock of `entries` entries (at most n_slots)."""
+        N, dev, i64 = entries * self.R, self.dev, torch.int64
+        return Stock(
+            tokens=torch.zeros((entries, self.S), dtype=i64, device=dev),
+            max_new=torch.zeros((entries,), dtype=i64, device=dev),
+            dcache=init_cache(self.cfg_d, N, self.S, dev),
+            tcache=self.t_init(N, self.S, torch.zeros((N,), dtype=i64,
+                                                      device=dev), dev))
 
-    def _verify_noise(self, live_host, generators, V: int):
-        """Each slot's verifier noise bundle, stacked over the slots: a
-        live slot's from its generator, zeros elsewhere."""
-        if self.method == "greedy":
-            return None
-        own = [verify_noise(self.method, self.K, self.gamma, V, g, self.dev)
-               if on else None for on, g in zip(live_host, generators)]
-        ref = next(b for b in own if b is not None)
-        return {k: torch.stack([ref[k].new_zeros(ref[k].shape)
-                                if b is None else b[k] for b in own])
-                for k in ref}
+    def stage(self, stock: Stock, a: int, params_draft, params_target,
+              prompt: torch.Tensor, prompt_len: int, max_new: int) -> Stock:
+        """Prefill a request into entry a of the stock (`prefill_rows`)."""
+        dc, tc = self.prefill_rows(params_draft, params_target, prompt,
+                                   prompt_len)
+        rows = slice(a * self.R, (a + 1) * self.R)
+        put_rows(stock.dcache, rows, dc)
+        stock = stock._replace(tcache=self.t_put(stock.tcache, rows, tc))
+        stock.tokens[a] = 0
+        stock.tokens[a, :prompt.shape[0]] = prompt
+        stock.max_new[a] = max_new
+        return stock
 
-    def block(self, params_draft, params_target, prompt_end: int,
-              live_host: Sequence[bool],
-              generators: Sequence[Optional[torch.Generator]]):
+    def merge(self, stock: Stock, can: torch.Tensor, entry: torch.Tensor,
+              plan, prompt_end: int):
+        """The refill under a device mask (`server.py:286-300`): slot s
+        takes stock entry entry[s] where can[s] (its tokens, its draft and
+        target cache rows, its budget; length prompt_end, the counters
+        zeroed, live), and keeps its state elsewhere. plan: `merge_plan(can,
+        entry, entries)`; the cache rows go through the protocol's put."""
+        R, dev = self.R, self.dev
+        dst, now = plan
+        rows = (dst[:, None] * R + torch.arange(R, device=dev)).view(-1)
+        mask = now.repeat_interleave(R)
+        put_rows(self.dcache, rows, stock.dcache, mask)
+        self.tcache = self.t_put(self.tcache, rows, stock.tcache, mask)
+        e = torch.clamp(entry, 0, stock.tokens.shape[0] - 1)
+        self.tokens = torch.where(can[:, None], stock.tokens[e], self.tokens)
+        self.length = torch.where(can, prompt_end, self.length)
+        self.max_new = torch.where(can, stock.max_new[e], self.max_new)
+        self.acc_sum = torch.where(can, 0, self.acc_sum)
+        self.blk_cnt = torch.where(can, 0, self.blk_cnt)
+        self.live = self.live | can
+
+    def block_noise(self, generator: Optional[torch.Generator],
+                    out: Optional[torch.Tensor] = None):
+        """One block's noise for one request, drawn from its generator in
+        make_generate's order: each draft step's uniforms ([gamma, R, V],
+        into `out` if given; the draws `sample` makes, whose Gumbel
+        transform `block` takes), then the verifier's bundle
+        (`verify_noise`; None for greedy)."""
+        V, dev = self.cfg_d.vocab_size, self.dev
+        if out is None:
+            out = torch.empty((self.gamma, self.R, V), dtype=torch.float32,
+                              device=dev)
+        for j in range(self.gamma):
+            out[j].uniform_(0, 1, generator=generator)
+        return out, verify_noise(self.method, self.K, self.gamma, V,
+                                 generator, dev)
+
+    def stack_noise(self, per_slot):
+        """Block noise for the pool from `block_noise` results, one a slot
+        (None: a slot that is not live, which gets zeros)."""
+        ref = next(n for n in per_slot if n is not None)
+        draft = torch.stack([ref[0].new_zeros(ref[0].shape) if n is None
+                             else n[0] for n in per_slot])
+        if ref[1] is None:
+            return draft, None
+        return draft, {k: torch.stack([v.new_zeros(v.shape) if n is None
+                                       else n[1][k] for n in per_slot])
+                       for k, v in ref[1].items()}
+
+    def block(self, params_draft, params_target, prompt_end: int, noise):
         """One speculative block for every slot: the draft over slots x R
         rows at each row's frontier, ONE target forward over slots x R x
-        (gamma + 1) rows, the verifier per slot under vmap on noise drawn
-        beforehand, the commit as tensor ops (no per-slot sync), the
-        per-slot rollback and row select. live_host: the host's mirror of
-        the live flags (at least one); generators[s]: live slot s's
-        generator (None: the global one).
+        (gamma + 1) rows, the verifier per slot under vmap, the commit as
+        tensor ops (no host sync), the per-slot rollback and row select.
+        noise: the block's noise drawn beforehand, (the draft's uniforms
+        [slots, gamma, R, V], the verifiers' bundles stacked over the slots
+        or None), slot s's from the request it holds (`block_noise`).
         Returns (done [slots] bool, n_matches [slots]) on the device:
         done = live and the block hit EOS or the slot's budget (the prompt
         region ends at prompt_end); a done slot stops being live."""
         SL, R, gamma, S = self.n_slots, self.R, self.gamma, self.S
         dev, temp = self.dev, self.temp
         live, length = self.live, self.length
+        nd, nv = noise
+        nd = gumbel_of(nd)            # every slot's draft steps at once
         at = live_length(length, live)
         last = self.tokens.gather(1, (at - 1)[:, None])[:, 0]
         last2 = self.tokens.gather(1, (at - 2)[:, None])[:, 0]
@@ -416,16 +491,14 @@ class SlotPool:
         draft, q, dc = draft_rows(
             self.cfg_d, params_draft, self.dcache, last2.repeat_interleave(R),
             last.repeat_interleave(R), gamma, self.K, self.striped, temp,
-            None, noise=lambda j: self._draft_noise(
-                live_host, generators, self.cfg_d.vocab_size),
+            None, noise=lambda j: nd[:, j].reshape(SL * R, -1),
             lengths=dlen, slots=SL)
         V = q.shape[-1]
         tgt_in = torch.cat([last.repeat_interleave(R)[:, None], draft], 1)
         tlogits, tc = self.tfwd(params_target, tgt_in, self.tcache, tlen)
         p = temp(tlogits)
         res = self._verify(draft.view(SL, R, gamma), q.view(SL, R, gamma, V),
-                           p.view(SL, R, gamma + 1, V),
-                           self._verify_noise(live_host, generators, V))
+                           p.view(SL, R, gamma + 1, V), nv)
         n_commit = res.n_matches + 1
         posn = torch.arange(S, device=dev)[None, :]
         src = res.tokens.gather(
@@ -480,8 +553,9 @@ def make_generate_batched(cfg_draft: ModelConfig, cfg_target: ModelConfig,
         live = [True] * B
         accepts: List[List[int]] = [[] for _ in range(B)]
         while any(live):
-            done, n = pool.block(params_draft, params_target, P, live,
-                                 generators)
+            noise = pool.stack_noise([pool.block_noise(g) if on else None
+                                      for on, g in zip(live, generators)])
+            done, n = pool.block(params_draft, params_target, P, noise)
             info = torch.cat([done.long(), n]).tolist()   # the block's sync
             for b in range(B):
                 if live[b]:

@@ -42,9 +42,9 @@ SIGNATURES = {
         "hsd_i8_error_string": (ctypes.c_char_p, [_I]),
     },
     "gptq_mma": {
-        "hsd_k7": (_I, [_P, _I, _I, _P, _I, _I, _P, _I, _P, _I, _P, _F, _P,
-                        _P, _I, _P, _P]),
-        "hsd_k7_stage": (_I, [_P, _I, _I, _I, _P, _F, _P, _P, _P, _P]),
+        "hsd_k7": (_I, [_P, _I, _I, _I, _P, _I, _I, _P, _I, _P, _I, _P, _F,
+                        _P, _P, _I, _P, _P]),
+        "hsd_k7_stage": (_I, [_P, _I, _I, _I, _I, _P, _F, _P, _P, _P, _P]),
         "hsd_mma_error_string": (ctypes.c_char_p, [_I]),
     },
     "flash_decode": {

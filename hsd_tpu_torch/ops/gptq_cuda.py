@@ -516,7 +516,7 @@ BF16_MIN_ROWS, BF16_MAX_ROWS = 129, 1024   # the JAX gate (linear.py:270-275)
 
 
 def _check_bf16_x(x, ln, zeros, din):
-    _check(x, "x", (torch.bfloat16,))
+    _check(x, "x", (torch.bfloat16, torch.float32))
     if x.data_ptr() % 16:
         raise ValueError("x: must start 16-byte aligned")
     if ln is not None:
@@ -550,14 +550,15 @@ def _k7(x, qweight, scales, zeros, ln, eps, block_rows=None):
     groups = scales.shape[0]
     bm = block_rows or k7_block_rows(n, dout, _sm_count(dev.index or 0),
                                      zeros is not None, packed)
+    x_f32 = x.dtype == torch.float32
     out = torch.empty((n, dout), dtype=x.dtype, device=dev)
     xn = (torch.empty((n, din), dtype=torch.bfloat16, device=dev)
-          if ln is not None else None)
+          if ln is not None or x_f32 else None)
     xg = (torch.empty((n, groups), dtype=torch.float32, device=dev)
           if zeros is not None or packed else None)
     lib = _build.lib("gptq_mma")
     err = lib.hsd_k7(
-        _ptr(x), n, din, _ptr(qweight), int(packed), dout, _ptr(scales),
+        _ptr(x), int(x_f32), n, din, _ptr(qweight), int(packed), dout, _ptr(scales),
         _bf16(scales), _ptr(zeros), groups, _ptr(ln), float(eps), _ptr(xn),
         _ptr(xg), bm, _ptr(out), torch.cuda.current_stream(dev).cuda_stream)
     if err:
@@ -583,7 +584,8 @@ def k7_stage(x: torch.Tensor, ln: torch.Tensor, eps: float,
     xg = (torch.empty((n, groups), dtype=torch.float32, device=x.device)
           if groups is not None else None)
     lib = _build.lib("gptq_mma")
-    err = lib.hsd_k7_stage(_ptr(x), n, din, groups or 1, _ptr(ln),
+    err = lib.hsd_k7_stage(_ptr(x), int(x.dtype == torch.float32), n, din,
+                           groups or 1, _ptr(ln),
                            float(eps), _ptr(inv), _ptr(xn), _ptr(xg),
                            torch.cuda.current_stream(x.device).cuda_stream)
     if err:
@@ -600,9 +602,9 @@ def int8_matmul_bf16(x: torch.Tensor, qweight: torch.Tensor,
                      eps: float = 0.0) -> torch.Tensor:
     """K7: y[n, dout] = bf16(x or rmsnorm(x, ln)) @ bf16(code * scale) with
     f32 accumulation, less the zero-point correction: int8 codes, bf16
-    tensor-core operands. ln takes symmetric weights only. The kernel takes
-    bf16 activations only (the mode's one configuration is a bf16 model);
-    the plain version also takes f32."""
+    tensor-core operands. ln takes symmetric weights only. Activations bf16
+    or f32 (rounded to bf16 after the norm, as the Pallas mode casts them);
+    the output in x's type, an f32 one unrounded."""
     if not x.is_cuda:
         if ln is None:
             return int8_matmul_plain(x, qweight, scales, zeros,
@@ -624,8 +626,8 @@ def int4_matmul_bf16(x: torch.Tensor, qweight: torch.Tensor,
     """K7i4: y[n, dout] = bf16(x or rmsnorm(x, ln)) @ bf16(nibble * scale)
     with f32 accumulation, less the f32 correction sum_g xg * (zero + 8) *
     scale: packed int4 (split-half, unsigned nibbles), bf16 tensor-core
-    operands. ln takes symmetric weights only. bf16 activations only on the
-    card; the plain version also takes f32."""
+    operands. ln takes symmetric weights only. Activations bf16 or f32, the
+    output in x's type, as for K7."""
     if not x.is_cuda:
         if ln is None:
             return int4_matmul_plain(x, qweight, scales, zeros,

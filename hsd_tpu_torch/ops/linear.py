@@ -311,8 +311,8 @@ def apply_linear(w, x: torch.Tensor, b: Optional[torch.Tensor] = None,
     the tensor-core template, K7 (int8) or K7i4 (packed int4), with the
     zero-point / -8 correction in f32; the norm fuses for symmetric weights
     only (an asymmetric one norms first and rounds to the activation
-    dtype). The kernels take bf16 activations only: an f32 model with the
-    flag raises on the card.
+    dtype). The kernels take bf16 or f32 activations (f32 rows round to
+    bf16 inside the kernel, after the norm, and the output stays f32).
     slots: x's rows are that many slots of equal rows; the routes are
     decided on one slot's rows (`route_rows`).
     """

@@ -10,7 +10,8 @@ logit_scale=S)`), gamma 10, 256 new tokens, temperature 1.0, the one
     python hsd_tpu_torch/tools/bench_main.py --scale 1.467 --rows k11
     python hsd_tpu_torch/tools/bench_main.py --scale 1.467 --rows serving
     python hsd_tpu_torch/tools/bench_main.py --rows gsm8k_parity
-    python hsd_tpu_torch/tools/bench_main.py --rows eagle_serving
+    python hsd_tpu_torch/tools/bench_main.py --rows eagle_serving \
+        [--eagle-grid 1:4,1:1,2:4,2:1]
     python hsd_tpu_torch/tools/bench_main.py --rows realistic
     python hsd_tpu_torch/tools/bench_main.py --rows realistic_eagle
 
@@ -25,8 +26,8 @@ Rows (`--rows`, comma-separated):
        at `:583`; run last, after the 14B part is freed): the int8 0.5B
        draft against the pair's own bf16 0.5B trunk (`target.small`), hsd,
        gamma 5, K 1, temperature 1.0, 48 new tokens at most; `SlotEngine`
-       with 8 slots, bucket 64, 4 pool blocks between admissions, 8
-       admissions a step; 32 requests drawn with numpy's default_rng(0) as
+       with 8 slots, bucket 64, macro steps of 4 pool blocks with the
+       on-device refill (8 staged entries); 32 requests drawn with numpy's default_rng(0) as
        bench.py draws them (32-63 prompt ids in [1, vocab - 2), a budget in
        [12, 48]); each engine serves one warm request (8 tokens) first.
        Continuous: all 32 submitted, then run_all; lockstep: waves of 8,
@@ -34,8 +35,9 @@ Rows (`--rows`, comma-separated):
        rep of the median ratio, every ratio, BE over the continuous run's
        requests (mean over blocks of accepts + 1, the warm request
        excluded), tok/s = committed tokens over the run_all wall seconds,
-       the pool blocks each schedule ran (every slot's rows a block) and
-       the launch counts of each run.
+       the pool blocks each schedule ran (every slot's rows a block), its
+       steps, requests admitted by the refill (refilled_total) and host
+       reads, and the launch counts of each run.
 The rows that build no 14B pair (they need no --scale; each builds its
 own models after the 14B rows have freed theirs):
   gsm8k_parity  `bench.py:405-475`: the 2-layer byte-vocab pair (vocab 256,
@@ -47,10 +49,17 @@ own models after the 14B rows have freed theirs):
   eagle_serving  `bench.py:345-402`, uncut: `llama3_8b()` with
        `gptq_mxu_bf16`, the symmetric-int8 trunk and the v1 head as the
        bigram oracle (scale 6.0, lam 1.312), EagleSlotEngine with 8 slots,
-       bucket 64, 4 pool steps a dispatch, hsd_ref; a warm request, then 24
-       requests x 96 tokens drawn with numpy's default_rng(0) as bench.py
-       draws them; BE (the reference's: stats(), the warm request
-       included) beside 3.978, and tok/s (`eagle_serving_row`);
+       bucket 64, macro steps of 4 pool blocks with the on-device refill,
+       hsd_ref; a warm request, then 24 requests x 96 tokens drawn with
+       numpy's default_rng(0) as bench.py draws them; BE (the reference's:
+       stats(), the warm request included) beside 3.978, its standard
+       error over requests, tok/s, pool blocks, steps, refilled_total and
+       host reads (`eagle_serving_row`); `--eagle-grid 1:4,1:1,2:4:greedy`
+       runs it for each engine seed : pool blocks a macro [: mode, hsd_ref
+       by default; greedy at temperature 0] on the one pair, each run
+       with the sha256 of its
+       requests' tokens, accepts and blocks (the first entry is the row's;
+       every run listed under `grid`);
   realistic  `bench.py:206-336`: the reference's mixed-entropy language
        (its numpy seed), a 4L/256H target trained 1800 steps and a 2L/128H
        draft distilled 1800 steps at vocab 2048 in f32 (the port's own
@@ -95,6 +104,7 @@ from __future__ import annotations
 import argparse
 import collections
 import dataclasses
+import hashlib
 import json
 import math
 import re
@@ -104,7 +114,7 @@ import sys
 import tempfile
 import time
 from pathlib import Path
-from typing import Callable, List, Optional, Tuple
+from typing import Callable, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -136,6 +146,8 @@ BANDS = {"hsd_k1": (7.517, 0.52), "tokenwise_k1": (6.149, 0.405),
 # reps and BE (BENCH_r05.json; its tok/s were a TPU's and are not shown)
 SRV_SLOTS, SRV_REQS, SRV_NEW, SRV_GAMMA, SRV_REPS = 8, 32, 48, 5, 3
 SRV_BUCKET, SRV_MACRO, SRV_WARM_NEW, SRV_WARM_RID = 64, 4, 8, 10_000
+# the slot scheduler's counters a serving row reports, over its timed run
+SCHED = ("steps", "pool_blocks", "host_reads", "refilled_total")
 SRV_REF = {"ratio": 1.256, "ratios": [1.245, 1.256, 1.261], "be": 4.66}
 T0 = time.time()
 
@@ -409,12 +421,13 @@ def serving_row(draft, small, cfg_s: ModelConfig, device,
         cover the run only, as bench.py times it."""
         eng = build()
         reset_launches()
-        blocks0 = eng.pool_blocks
+        before = {k: getattr(eng, k) for k in SCHED}
         t0 = time.perf_counter()
         done = run(eng)
         sync(device)
         secs = time.perf_counter() - t0
-        return done, secs, launch_counts(), eng.pool_blocks - blocks0
+        return (done, secs, launch_counts(),
+                {k: getattr(eng, k) - v for k, v in before.items()})
 
     def continuous(eng):
         for rid, (p, mn) in enumerate(ps):
@@ -440,8 +453,9 @@ def serving_row(draft, small, cfg_s: ModelConfig, device,
 
     rows = []
     for i in range(reps):
-        c_done, c_secs, c_launch, c_pool = timed(continuous)
-        l_done, l_secs, l_launch, l_pool = timed(lockstep)
+        c_done, c_secs, c_launch, c_sched = timed(continuous)
+        l_done, l_secs, l_launch, l_sched = timed(lockstep)
+        c_pool, l_pool = c_sched["pool_blocks"], l_sched["pool_blocks"]
         c_toks, l_toks = check(c_done), check(l_done)
         c_n = sum(len(t) for t in c_toks.values())
         l_n = sum(len(t) for t in l_toks.values())
@@ -452,13 +466,21 @@ def serving_row(draft, small, cfg_s: ModelConfig, device,
                    cont_tokens=c_n, lock_tokens=l_n, cont_s=c_secs,
                    lock_s=l_secs, blocks=blocks, pool_blocks_cont=c_pool,
                    pool_blocks_lock=l_pool, same_streams=c_toks == l_toks,
+                   refilled_cont=c_sched["refilled_total"],
+                   refilled_lock=l_sched["refilled_total"],
+                   steps_cont=c_sched["steps"], steps_lock=l_sched["steps"],
+                   host_reads_cont=c_sched["host_reads"],
+                   host_reads_lock=l_sched["host_reads"],
                    launches_cont=c_launch, launches_lock=l_launch)
         rows.append(row)
         log(f"serving rep {i}: continuous {cont} tok/s ({c_n} tokens in "
             f"{c_secs}s), lockstep {lock} tok/s ({l_n} in {l_secs}s), "
             f"ratio {cont / lock}, BE {be} over {blocks} slot-blocks, pool "
-            f"blocks {c_pool} / {l_pool}, the two schedules' streams "
-            f"identical: {row['same_streams']}; "
+            f"blocks {c_pool} / {l_pool} in {c_sched['steps']} / "
+            f"{l_sched['steps']} steps, refilled_total "
+            f"{c_sched['refilled_total']} / {l_sched['refilled_total']}, "
+            f"host reads {c_sched['host_reads']} / {l_sched['host_reads']}, "
+            f"the two schedules' streams identical: {row['same_streams']}; "
             f"launches continuous {c_launch}, lockstep {l_launch}")
     med = sorted(rows, key=lambda r: r["ratio"])[len(rows) // 2]
     return dict(med, ratios=[r["ratio"] for r in rows], reps=rows,
@@ -626,17 +648,33 @@ def eagle_configs():
     return cfg, ecfg
 
 
+def ratio_se(acc: List[int], blocks: List[int]) -> float:
+    """The standard error of BE = 1 + sum(acc) / sum(blocks) over
+    requests (the ratio estimator's delta method)."""
+    n, m = len(acc), sum(acc) / sum(blocks)
+    if n < 2:
+        return 0.0
+    mean_b = sum(blocks) / n
+    var = sum((a - m * b) ** 2 for a, b in zip(acc, blocks)) / (n - 1)
+    return (var / n) ** 0.5 / mean_b
+
+
 def eagle_serving_row(device, cfg=None, ecfg=None, n_slots: int = EAGLE_SLOTS,
                       reqs: int = EAGLE_REQS, max_new: int = EAGLE_NEW,
-                      bucket: int = EAGLE_BUCKET) -> dict:
+                      bucket: int = EAGLE_BUCKET,
+                      grid: Sequence[tuple] = ((1, EAGLE_MACRO, "hsd_ref"),)
+                      ) -> dict:
     """bench.py's `_eagle_serving_row` on the port, uncut: the int8 pair
     (`build_coupled_eagle_pair(0, ..., scale=6.0, lam=1.312,
     big_bits=8)`), EagleSlotEngine with `n_slots` slots, the bucket,
     4 pool steps a dispatch, hsd_ref, seed 1; a warm request (4 tokens),
     then `reqs` requests of `max_new` tokens. BE as the reference reads it
     (`stats()`, the warm request included) and over the timed requests
-    alone; tok/s = their committed tokens over run_all's wall seconds;
-    the launches of the timed run."""
+    alone, with its standard error over requests; tok/s = their committed
+    tokens over run_all's wall seconds; the launches of the timed run.
+    grid: (engine seed, pool blocks a macro, mode) triples, each a run on
+    the one pair, with the sha256 of its requests' (tokens, accepts,
+    blocks); the first is the row, every one is listed under `grid`."""
     from hsd_tpu_torch.engine.eagle_server import EagleSlotEngine
     from hsd_tpu_torch.eval.synthetic import (build_coupled_eagle_pair,
                                               make_coupled_eagle_target)
@@ -650,43 +688,65 @@ def eagle_serving_row(device, cfg=None, ecfg=None, n_slots: int = EAGLE_SLOTS,
     sync(device)
     build_s = time.time() - t0
     log(f"eagle_serving: pair built in {build_s:.1f}s")
-    se = EagleSlotEngine(
-        cfg, ecfg, EngineConfig(max_new_tokens=max_new, temperature=1.0),
-        n_slots=n_slots, bucket=bucket, params_t=target, params_e=head,
-        mode="hsd_ref", seed=1,
-        target_forward=make_coupled_eagle_target(cfg, (-1,)),
-        steps_per_dispatch=EAGLE_MACRO, admit_batch=n_slots, device=device)
     warm, prompts = eagle_serving_requests(reqs, bucket)
-    se.submit(EAGLE_WARM_RID, warm, max_new=4)
-    se.run_all()                                   # warm every path
-    sync(device)
-    reset_launches()
-    for rid, p in enumerate(prompts):
-        se.submit(rid, p, max_new=max_new)
-    t0 = time.perf_counter()
-    done = se.run_all()
-    sync(device)
-    secs = time.perf_counter() - t0
-    if sorted(r.rid for r in done) != list(range(reqs)):
-        raise AssertionError("eagle_serving: a request was lost")
-    for r in done:
-        if not (1 <= len(r.out_tokens) <= max_new and all(
-                0 <= t < cfg.vocab_size for t in r.out_tokens)):
-            raise AssertionError(f"eagle_serving: request {r.rid}'s tokens")
-    toks = sum(len(r.out_tokens) for r in done)
-    blocks = sum(r.blocks for r in done)
-    out = dict(be=se.stats()["block_efficiency"],
-               be_requests=(sum(r.accepts for r in done) + blocks) / blocks,
-               tok_s=toks / secs, tokens=toks, seconds=secs, blocks=blocks,
-               build_s=build_s, slots=n_slots, reqs=reqs, max_new=max_new,
-               mode="hsd_ref", launches=launch_counts(),
-               reference_be=EAGLE_REF_BE)
-    log(f"eagle_serving ({reqs} x {max_new}, {n_slots} slots): BE "
-        f"{out['be']} (the timed requests alone {out['be_requests']}; the "
-        f"reference {EAGLE_REF_BE}), {toks} tokens in {secs}s = "
-        f"{out['tok_s']} tok/s, {blocks} slot-blocks, launches "
-        f"{out['launches']}")
-    del head, target, se
+    runs = []
+    for seed, macro, mode in grid:
+        se = EagleSlotEngine(
+            cfg, ecfg, EngineConfig(max_new_tokens=max_new,
+                                    temperature=0.0 if mode == "greedy"
+                                    else 1.0),
+            n_slots=n_slots, bucket=bucket, params_t=target, params_e=head,
+            mode=mode, seed=seed,
+            target_forward=make_coupled_eagle_target(cfg, (-1,)),
+            steps_per_dispatch=macro, admit_batch=n_slots, device=device)
+        se.submit(EAGLE_WARM_RID, warm, max_new=4)
+        se.run_all()                               # warm every path
+        sync(device)
+        reset_launches()
+        for rid, p in enumerate(prompts):
+            se.submit(rid, p, max_new=max_new)
+        before = {k: getattr(se, k) for k in SCHED}
+        t0 = time.perf_counter()
+        done = se.run_all()
+        sync(device)
+        secs = time.perf_counter() - t0
+        sched = {k: getattr(se, k) - v for k, v in before.items()}
+        if sorted(r.rid for r in done) != list(range(reqs)):
+            raise AssertionError("eagle_serving: a request was lost")
+        for r in done:
+            if not (1 <= len(r.out_tokens) <= max_new and all(
+                    0 <= t < cfg.vocab_size for t in r.out_tokens)):
+                raise AssertionError(
+                    f"eagle_serving: request {r.rid}'s tokens")
+        toks = sum(len(r.out_tokens) for r in done)
+        blocks = sum(r.blocks for r in done)
+        digest = hashlib.sha256(json.dumps(sorted(
+            (r.rid, r.out_tokens, r.accepts, r.blocks) for r in done)
+        ).encode()).hexdigest()[:16]
+        run = dict(seed=seed, macro=macro, mode=mode, sha256=digest,
+                   be=se.stats()["block_efficiency"],
+                   be_requests=(sum(r.accepts for r in done) + blocks)
+                   / blocks,
+                   be_se=ratio_se([r.accepts for r in done],
+                                  [r.blocks for r in done]),
+                   tok_s=toks / secs, tokens=toks, seconds=secs,
+                   blocks=blocks, launches=launch_counts(), **sched)
+        runs.append(run)
+        log(f"eagle_serving {mode} seed {seed}, {macro} pool blocks a macro "
+            f"({reqs} x {max_new}, {n_slots} slots): BE {run['be']} (the timed "
+            f"requests alone {run['be_requests']} +- {run['be_se']} SE; the "
+            f"reference {EAGLE_REF_BE}), {toks} tokens in {secs}s = "
+            f"{run['tok_s']} tok/s, {blocks} slot-blocks, "
+            f"{sched['pool_blocks']} pool blocks in {sched['steps']} steps, "
+            f"refilled_total {sched['refilled_total']}, host reads "
+            f"{sched['host_reads']}, sha256 {digest}, launches "
+            f"{run['launches']}")
+        del se
+    out = dict(runs[0], build_s=build_s, slots=n_slots, reqs=reqs,
+               max_new=max_new, reference_be=EAGLE_REF_BE)
+    if len(runs) > 1:
+        out["grid"] = runs
+    del head, target
     free(device)
     return out
 
@@ -1014,6 +1074,9 @@ def main(argv=None):
                     help="comma-separated rows: k1, k11, ar, serving, "
                          "gsm8k_parity, eagle_serving, realistic, "
                          "realistic_eagle")
+    ap.add_argument("--eagle-grid", default=f"1:{EAGLE_MACRO}",
+                    help="eagle_serving's runs: comma-separated engine "
+                         "seed:pool blocks a macro[:mode] entries")
     args = ap.parse_args(argv)
     rows = [r for r in args.rows.split(",") if r]
     bad = set(rows) - set(PAIR_ROWS) - set(EXTRA_ROWS)
@@ -1054,7 +1117,12 @@ def main(argv=None):
     for name in rows:
         if name in EXTRA_ROWS:
             t0 = time.time()
-            result["rows"][name] = EXTRA_ROWS[name](device)
+            kw = {}
+            if name == "eagle_serving":
+                kw["grid"] = [
+                    (int(e[0]), int(e[1]), e[2] if len(e) > 2 else "hsd_ref")
+                    for e in (x.split(":") for x in args.eagle_grid.split(","))]
+            result["rows"][name] = EXTRA_ROWS[name](device, **kw)
             log(f"row {name} done in {time.time() - t0:.1f}s")
     for name, row in result["rows"].items():
         band = against_band(name, row)

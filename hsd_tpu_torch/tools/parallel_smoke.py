@@ -10,7 +10,9 @@ processes on one card share its SMs, so no time here is a speed-up.
   19a TP 2: the 14B-geometry packed-int4 target (unfused) on its Megatron
       shards; one 11-row verify after a 64-token prefill against rank 0's
       single-card forward of the same weights; greedy spec == greedy AR;
-      hsd on 3 prompts; SlotEngine over the TP server forward.
+      hsd on 3 prompts; SlotEngine over the TP server forward, 4 pool
+      blocks a macro step (the on-device refill through the shards'
+      cache ops).
   19b PP 2: the same target in its fused layout, 24 layers a rank: the
       verify's logits and each stage's cache against the single-card
       forward bit for bit; hsd tokens == the single-card run's.
@@ -18,7 +20,9 @@ processes on one card share its SMs, so no time here is a speed-up.
       against the single-card prefill; the gathered cache, 16 greedy
       tokens; peak GiB a rank.
   19d the EAGLE pool over the 8B int8 target (unfused) under TP 2:
-      EagleSlotEngine (hsd_ref); greedy EAGLE == greedy AR.
+      EagleSlotEngine (hsd_ref), 12 requests through 8 slots in macro
+      steps of 4 (the refill's merge on the kv-head shards); greedy EAGLE
+      == greedy AR.
   19e DP 2 with ZeRO: the EAGLE-3 step at the published 8B width over the
       frozen int8 trunk, 1 x 512 a rank, against the single-rank 2 x 512
       steps: the losses and the parameters' update; moment bytes a rank.
@@ -53,9 +57,10 @@ BUCKET, VERIFY, GAMMA = 64, 11, 10
 TP_NEW, TP_PROMPTS = 32, 3               # 19a hsd (cut from 64 for time)
 GREEDY_NEW, GREEDY_GAMMA = 64, 4         # 19a / 19d greedy spec vs AR
 SERVE_SLOTS, SERVE_REQS, SERVE_NEW = 4, 8, 32
+SERVE_MACRO = 4           # pool blocks a step: the macro's on-device refill
 PP_NEW = 8                               # 19b hsd
 SP_T, SP_GREEDY = 4096, 16               # 19c
-EAGLE_SLOTS, EAGLE_REQS, EAGLE_NEW = 8, 8, 32
+EAGLE_SLOTS, EAGLE_REQS, EAGLE_NEW = 8, 12, 32   # more requests: refills
 DP_B, DP_T, DP_STEPS = 2, 512, 3         # 19e: one 1 x 512 row a rank
 # no warmup: every step moves the parameters by about lr an element
 DP_TC = dict(steps=7, lr=1e-3, warmup_steps=0, total_steps=100)
@@ -190,14 +195,16 @@ def tp_phase(dev, spec, total):
                     target_forward=TP.make_tp_server_forward(cfg_b, local,
                                                              mesh),
                     target_cache_ops=TP.tp_pool_cache_ops(cfg_b, mesh),
-                    device=dev)
+                    steps_per_dispatch=SERVE_MACRO, device=dev)
     for rid, p in enumerate(_prompts(SERVE_REQS, 5)):
         se.submit(rid, p[:40 + 3 * rid].tolist())
     t0 = time.perf_counter()
     done = _counted(total, se.run_all)
     out["serving"] = dict(
         streams={r.rid: list(r.out_tokens) for r in done},
-        secs=time.perf_counter() - t0, be=se.stats()["block_efficiency"])
+        secs=time.perf_counter() - t0, be=se.stats()["block_efficiency"],
+        refilled=se.refilled_total, pool_blocks=se.pool_blocks,
+        steps=se.steps)
     del se, local, draft
     _empty()
     return out
@@ -380,6 +387,7 @@ def eagle_phase(dev, spec, total):
     secs = time.perf_counter() - t0
     out = dict(streams={r.rid: list(r.out_tokens) for r in done}, secs=secs,
                be=se.stats()["block_efficiency"],
+               refilled=se.refilled_total,
                launches={k: total[k] - before.get(k, 0) for k in total})
     eng0 = EngineConfig(max_new_tokens=EAGLE_NEW, temperature=0.0)
     prompt = _prompts(1, 3)[0].to(dev)
@@ -666,14 +674,20 @@ def check2(r2, log):
         L = x["hsd"]["launches"]
         if L["K3"] <= 0 or L["K4"] <= 0 or L["K1"] or L["K2"]:
             raise AssertionError(f"19a: launches {L}")
-    _same("19a serving", [x["serving"]["streams"] for x in a])
+    _same("19a serving", [(x["serving"]["streams"], x["serving"]["refilled"])
+                          for x in a])
     sv = a[0]["serving"]
     if sorted(sv["streams"]) != list(range(SERVE_REQS)):
         raise AssertionError("19a: serving lost a request")
+    if sv["refilled"] <= 0:
+        raise AssertionError("19a: no request took a slot inside a macro")
     log(f"19a SlotEngine over the TP server forward ({SERVE_SLOTS} slots, "
-        f"{SERVE_REQS} requests x {SERVE_NEW}): every rank served the same "
-        f"streams, {sum(map(len, sv['streams'].values()))} tokens in "
-        f"{sv['secs']:.2f}s")
+        f"{SERVE_REQS} requests x {SERVE_NEW}, {SERVE_MACRO} pool blocks a "
+        f"macro step): every rank served the same streams, "
+        f"{sum(map(len, sv['streams'].values()))} tokens in "
+        f"{sv['secs']:.2f}s, {sv['pool_blocks']} pool blocks in "
+        f"{sv['steps']} steps; refilled_total a rank "
+        f"{[x['serving']['refilled'] for x in a]}")
 
     # 19b / 19c
     b = [o["pp"] for o in r2]
@@ -711,13 +725,19 @@ def check2(r2, log):
 
     # 19d
     d = [o["eagle"] for o in r2]
-    _same("19d serving", [x["streams"] for x in d])
+    _same("19d serving", [(x["streams"], x["refilled"]) for x in d])
     _same("19d greedy", [(x["greedy"], x["ar"]) for x in d])
     log(f"19d EagleSlotEngine over TP 2 ({EAGLE_SLOTS} slots, {EAGLE_REQS} "
         f"requests x {EAGLE_NEW}, hsd_ref): every rank the same streams, "
-        f"{d[0]['secs']:.2f}s, launches a rank {d[0]['launches']}; greedy "
+        f"{d[0]['secs']:.2f}s, refilled_total a rank "
+        f"{[x['refilled'] for x in d]}, launches a rank "
+        f"{d[0]['launches']}; greedy "
         f"EAGLE vs AR under TP: {_prefix(d[0]['greedy'], d[0]['ar'])} of "
         f"{min(len(d[0]['greedy']), len(d[0]['ar']))} agree")
+    if sorted(d[0]["streams"]) != list(range(EAGLE_REQS)):
+        raise AssertionError("19d: serving lost a request")
+    if d[0]["refilled"] <= 0:
+        raise AssertionError("19d: no request took a slot inside a macro")
     if d[0]["launches"]["K7"] <= 0:
         raise AssertionError("19d: K7 never launched")
     if d[0]["greedy"] != d[0]["ar"]:

@@ -248,34 +248,44 @@ def test_dequant_route_above_128_rows(dev, dtype):
             _close(got, plain(xs, qw.qweight, qw.scales, qw.zeros), dtype)
 
 
-@pytest.mark.parametrize("n", [129, 200, 480])
+# K7's rows: bf16 activations at 129, 200 and 480 rows; f32 ones (rounded
+# to bf16 in the pre-pass, the output f32) at 129 and 480
+K7_ROWS = [(129, torch.bfloat16), (200, torch.bfloat16),
+           (480, torch.bfloat16), (129, torch.float32), (480, torch.float32)]
+
+
+@pytest.mark.parametrize("n,dtype", K7_ROWS)
 @pytest.mark.parametrize("dout", [256, 300, 1000])
-def test_k7_matches_plain(dev, n, dout):
-    """K7 (bf16 tensor-core operands, bf16 activations) against its plain
-    version, with and without the fused norm, ragged rows and columns
-    included."""
+def test_k7_matches_plain(dev, n, dtype, dout):
+    """K7 (bf16 tensor-core operands; bf16 or f32 activations) against its
+    plain version, with and without the fused norm, ragged rows and columns
+    included, within K7's tolerance (two bf16 roundings) in both types."""
     g = torch.Generator(device=dev).manual_seed(n + dout)
-    x = torch.randn((n, 512), generator=g, device=dev).to(torch.bfloat16)
+    x = torch.randn((n, 512), generator=g, device=dev).to(dtype)
     ln = torch.rand(512, generator=g, device=dev) + 0.5
     w8 = torch.empty((512, dout), dtype=torch.int8, device=dev)
     w8.random_(-127, 128, generator=g)
     s8 = (torch.rand((4, dout), generator=g, device=dev) * 1e-2
           + 1e-3).to(torch.bfloat16)
-    _close(G.int8_matmul_bf16(x, w8, s8),
-           G.int8_matmul_plain(x, w8, s8, bf16_operands=True), torch.bfloat16)
+    before = G.int8_matmul_bf16.launches
+    got = G.int8_matmul_bf16(x, w8, s8)
+    assert got.dtype == dtype
+    _close(got, G.int8_matmul_plain(x, w8, s8, bf16_operands=True),
+           torch.bfloat16)
     _close(G.int8_matmul_bf16(x, w8, s8, ln=ln, eps=1e-6),
            G.int8_ln_matmul_plain(x, w8, s8, ln, 1e-6, bf16_operands=True),
            torch.bfloat16)
+    assert G.int8_matmul_bf16.launches == before + 2
 
 
-@pytest.mark.parametrize("n", [129, 200, 480])
+@pytest.mark.parametrize("n,dtype", K7_ROWS)
 @pytest.mark.parametrize("dout", [256, 300, 1000])
-def test_k7i4_matches_plain(dev, n, dout):
-    """K7i4 (packed int4, bf16 tensor-core operands, bf16 activations)
-    against its plain version: plain, with the fused norm, and with zero
-    points; ragged rows and columns included."""
+def test_k7i4_matches_plain(dev, n, dtype, dout):
+    """K7i4 (packed int4, bf16 tensor-core operands; bf16 or f32
+    activations) against its plain version: plain, with the fused norm, and
+    with zero points; ragged rows and columns included."""
     g = torch.Generator(device=dev).manual_seed(7 * n + dout)
-    x = torch.randn((n, 512), generator=g, device=dev).to(torch.bfloat16)
+    x = torch.randn((n, 512), generator=g, device=dev).to(dtype)
     ln = torch.rand(512, generator=g, device=dev) + 0.5
     w, s = _q4(g, dev, 512, dout)
     z = torch.randn((4, dout), generator=g, device=dev)
@@ -534,10 +544,12 @@ def test_wrappers_raise_on_bad_input(dev):
     with pytest.raises(RuntimeError, match="shape not supported"):
         G.int4_matmul(torch.randn((2, 192), device=dev), odd, so)
     w8 = torch.zeros((512, 256), dtype=torch.int8, device=dev)
-    with pytest.raises(ValueError):          # K7 takes bf16 activations only
-        G.int8_matmul_bf16(torch.randn((129, 512), device=dev), w8, s)
-    with pytest.raises(ValueError):          # and so does K7i4
-        G.int4_matmul_bf16(torch.randn((129, 512), device=dev), w, s)
+    with pytest.raises(ValueError):          # K7: bf16 or f32 activations
+        G.int8_matmul_bf16(torch.randn((129, 512), device=dev).to(
+            torch.float16), w8, s)
+    with pytest.raises(ValueError):          # and so K7i4
+        G.int4_matmul_bf16(torch.randn((129, 512), device=dev).to(
+            torch.float16), w, s)
     with pytest.raises(ValueError, match="symmetric"):
         G.int4_matmul_bf16(torch.randn((129, 512), device=dev).to(
             torch.bfloat16), w, s, torch.zeros((4, 256), device=dev),

@@ -6,7 +6,8 @@ built by the JAX package and carried across by the bridge.
 * make_eagle_generate at temperature 0 gives the JAX package's token
   stream, and the target's own greedy AR stream.
 * EagleSlotEngine in greedy mode gives every request its AR stream, with
-  one and with four pool blocks between admissions.
+  one and with four pool blocks a step (the macro's refill); a
+  single-request target_forward is refused at construction.
 * One slot-batched pool block equals the single-slot block per slot.
 * The prefill's last-position head equals the full forward's last row.
 * The sampled modes (single request: typical, hsd, hsd_ref; server: hsd,
@@ -144,6 +145,20 @@ def test_server_greedy_matches_ar(pair, steps):
         assert r.out_tokens[:n] == want[:n], r.rid
         assert len(r.out_tokens) <= budgets[r.rid]
     assert se.stats()["block_efficiency"] > 1.0
+
+
+def test_server_guards(pair):
+    """The JAX engine's signature guard: the pool needs a target_forward
+    that takes lengths= and staging_at= (or **kwargs); a single-request
+    one is refused at construction, not inside the first block."""
+    _, _, head, target = pair
+    kw = dict(n_slots=2, bucket=16, params_t=target, params_e=head,
+              mode="greedy", device="cpu")
+    with pytest.raises(ValueError, match="staging_at"):
+        EagleSlotEngine(CFG, ECFG, _greedy(8),
+                        target_forward=lambda p, t, c, ab, pos: None, **kw)
+    EagleSlotEngine(CFG, ECFG, _greedy(8),
+                    target_forward=lambda p, t, c, ab, pos, **k: None, **kw)
 
 
 def test_pool_block_equals_single_slot_block(pair):

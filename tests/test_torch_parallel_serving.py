@@ -8,6 +8,11 @@ ranks on the CPU, f32.
   file's pinned, tie-free seeds); every rank serves the same streams.
 * EagleSlotEngine over `make_tp_eagle_pool_forward` (the staged tree
   append and the compaction on the kv-head shard) == the plain pool.
+* Every case runs macro steps of 3 pool blocks with more requests than
+  slots, so freed slots take staged requests inside a macro (the refill's
+  merge through `tp_pool_cache_ops` / `pp_pool_cache_ops` on the shards):
+  refilled_total > 0 on every rank and in the plain run, the same
+  number.
 """
 import dataclasses
 
@@ -32,7 +37,11 @@ torch.set_num_threads(2)
 DCFG = tcfg(JCfg.tiny(vocab_size=64))
 ENG = EngineConfig(verifier=VerifierConfig(method="hsd", gamma=3),
                    max_new_tokens=6)
-PROMPTS = [list(range(1, 9)), list(range(2, 11))]
+# (prompt, budget): more requests than the 2 slots, budgets apart
+PROMPTS = [(list(range(1, 9)), 6), (list(range(2, 11)), 2),
+           (list(range(5, 12)), 4), (list(range(3, 13)), 6),
+           (list(range(7, 14)), 3)]
+STEPS = 3
 
 
 def _slot_case(jcfg, layout):
@@ -42,12 +51,14 @@ def _slot_case(jcfg, layout):
     pd = bridge.params_from_jax(j_init_params(JCfg.tiny(vocab_size=64),
                                               jax.random.PRNGKey(0)))
     se = SlotEngine(DCFG, cfg_t, ENG, n_slots=2, bucket=16, params_d=pd,
-                    params_t=pt, seed=7, device="cpu")
-    for rid, p in enumerate(PROMPTS):
-        se.submit(rid, p)
-    base = {r.rid: list(r.out_tokens) for r in se.run_all()}
+                    params_t=pt, seed=7, device="cpu",
+                    steps_per_dispatch=STEPS)
+    for rid, (p, mn) in enumerate(PROMPTS):
+        se.submit(rid, p, max_new=mn)
+    base = ({r.rid: list(r.out_tokens) for r in se.run_all()},
+            se.refilled_total)
     return base, ("tp_slot_engine", (DCFG, cfg_t, pd, pt, ENG, 2, 16,
-                                     PROMPTS, 7, layout))
+                                     PROMPTS, 7, layout, STEPS))
 
 
 def _eagle_case():
@@ -67,14 +78,17 @@ def _eagle_case():
     pe = bridge.eagle_params_from_jax(
         jeagle.init_eagle_params(jecfg, jax.random.PRNGKey(2)))
     eng = EngineConfig(max_new_tokens=8, temperature=1.0)
-    prompts = [list(range(3 + i, 11 + i)) for i in range(4)]
+    prompts = [(list(range(3 + i, 11 + i)), mn)
+               for i, mn in enumerate((8, 3, 5, 8, 4))]
     se = EagleSlotEngine(cfg_t, ecfg, eng, n_slots=2, bucket=16, params_t=pt,
-                         params_e=pe, mode="hsd", seed=5, device="cpu")
-    for rid, p in enumerate(prompts):
-        se.submit(rid, p, max_new=8)
-    base = {r.rid: list(r.out_tokens) for r in se.run_all()}
+                         params_e=pe, mode="hsd", seed=5, device="cpu",
+                         steps_per_dispatch=STEPS)
+    for rid, (p, mn) in enumerate(prompts):
+        se.submit(rid, p, max_new=mn)
+    base = ({r.rid: list(r.out_tokens) for r in se.run_all()},
+            se.refilled_total)
     return base, ("tp_eagle_server", (cfg_t, ecfg, pt, pe, eng, 2, 16,
-                                      prompts, "hsd", 5))
+                                      prompts, "hsd", 5, STEPS))
 
 
 @pytest.fixture(scope="module")
@@ -89,19 +103,20 @@ def served():
 
 
 def _same(case, n):
-    base, ranks = case
+    (base, refilled), ranks = case
     assert sorted(base) == list(range(n))
+    assert refilled > 0
     for out in ranks:
-        assert out == base, (out, base)
+        assert out == (base, refilled), (out, base)
 
 
 def test_server_tp_token_parity(served):
-    _same(served[0], 2)
+    _same(served[0], 5)
 
 
 def test_server_pp_token_parity(served):
-    _same(served[1], 2)
+    _same(served[1], 5)
 
 
 def test_eagle_server_batched_tp_token_parity(served):
-    _same(served[2], 4)
+    _same(served[2], 5)

@@ -2,20 +2,20 @@
 on the CPU.
 
 * The cases of tests/test_server.py, less the tensor- and pipeline-parallel
-  parity ones (they wait for the port's parallel slice): more requests than
+  parity ones (tests/test_torch_parallel_serving.py): more requests than
   slots, incremental admission, K = 2 parallel and striped slots with
   telemetry, many admissions, last-slot admission, a per-request budget
-  freeing its slot early, and several pool blocks between admissions
-  (steps_per_dispatch > 1) with budgets and completion. Where the port's
-  scheduler differs (admissions are capped at admit_batch a step and refill
-  stays on the host), the case says so.
+  freeing its slot early, and the macro step (steps_per_dispatch > 1)
+  with its on-device refill, budgets and completion. The macro's schedule
+  against the JAX engine's: tests/test_torch_refill.py.
 * Against the JAX package: at temperature 0, every served request's stream
   equals the JAX SlotEngine's, token for token, on a bridged tiny dense
   pair (float32) at K = 1, K = 2 parallel and K = 2 striped, with
   heterogeneous budgets.
 * Sampled: every served request equals make_generate on that request's
   generator (hsd, tokenwise, blockwise; K = 1, K = 2 parallel and
-  striped); a seeded run repeats exactly. The pool's products see more rows
+  striped), at M = 3 through the on-device refill too; a seeded run
+  repeats exactly. The pool's products see more rows
   than make_generate's; on the CPU the float32 roundings that may differ
   are ~1e-7, and the pinned seeds have no decision that near a tie.
 * The pool: a slot frozen at its budget, its length at S - 2, keeps every
@@ -117,16 +117,14 @@ def test_striped_slots_and_telemetry():
 
 
 def test_admissions_over_several_steps():
-    """More pending requests than admit_batch: the port admits admit_batch
-    a step (the JAX package fills every free slot, in scatters of
-    admit_batch); occupancy is host state, and every request completes
-    with its output region."""
+    """More pending requests than admit_batch: one admission fills every
+    free slot, as the JAX package's (in its scatters of admit_batch);
+    occupancy is host state, and every request completes with its output
+    region."""
     eng = SlotEngine(CFG, CFG, _eng_cfg(max_new=6), n_slots=4, bucket=16,
                      params_d=PD, params_t=PT, admit_batch=2, device="cpu")
     for rid in range(6):
         eng.submit(rid, list(range(1, 8 + rid)))
-    eng._admit()
-    assert sum(r >= 0 for r in eng.slot_rid) == 2 and len(eng.queue) == 4
     eng._admit()
     assert sum(r >= 0 for r in eng.slot_rid) == 4 and len(eng.queue) == 2
     done = eng.run_all()
@@ -176,35 +174,26 @@ def test_per_request_budget_frees_slot_early():
 
 
 def test_several_blocks_between_admissions():
-    """steps_per_dispatch = 3: every request completes, the budgets hold,
-    the telemetry adds up, and the block loop ends early when a slot frees
-    while requests wait (the port keeps the refill on the host: the JAX
-    macro step's on-device refill is not ported)."""
+    """steps_per_dispatch = 3, the JAX macro step: every request completes,
+    the budgets hold, the telemetry adds up, a step runs up to 3 pool
+    blocks, and freed slots take staged requests inside the macro (the
+    on-device refill: refilled_total > 0, tests/test_server.py's
+    test_macro_steps_budgets_and_completion); the host reads once a block
+    at most, plus once a macro."""
     eng = SlotEngine(CFG, CFG, _eng_cfg(max_new=8), n_slots=2, bucket=16,
                      params_d=PD, params_t=PT, steps_per_dispatch=3,
                      device="cpu")
     budgets = [8, 2, 5, 8, 3]
     for rid, mn in enumerate(budgets):
         eng.submit(rid, list(range(1, 9 + rid)), max_new=mn)
-    blocks = []
-    real = eng._pool_step
-
-    def counted():
-        blocks.append(len(eng.queue))
-        return real()
-    eng._pool_step = counted
-    done = []
-    steps = 0
+    done, steps = [], 0
     while eng.queue or eng.running:
-        n0 = len(blocks)
-        finished = eng.step()
-        done.extend(finished)
+        blocks0, reads0 = eng.pool_blocks, eng.host_reads
+        done.extend(eng.step())
         steps += 1
-        ran = len(blocks) - n0
+        ran = eng.pool_blocks - blocks0
         assert 1 <= ran <= 3
-        if ran < 3 and (eng.queue or eng.running):
-            # ended early: a slot freed while requests waited
-            assert finished and blocks[-1] > 0
+        assert eng.host_reads - reads0 <= ran + 1
     assert sorted(r.rid for r in done) == list(range(5))
     for r in done:
         assert 1 <= len(r.out_tokens) <= budgets[r.rid]
@@ -212,7 +201,8 @@ def test_several_blocks_between_admissions():
     st = eng.stats()
     assert st["committed"] == sum(len(r.out_tokens) for r in done)
     assert st["blocks"] == sum(r.blocks for r in done)
-    assert steps < len(blocks)            # several blocks a step
+    assert steps < eng.pool_blocks        # several blocks a step
+    assert eng.refilled_total > 0 and st["refilled"] == eng.refilled_total
 
 
 # ---------------------------------------------------------------------------
@@ -259,13 +249,22 @@ def test_greedy_streams_equal_jax_server(K, parallel, method):
 # ---------------------------------------------------------------------------
 # sampled: each request is make_generate on its own generator
 
-@pytest.mark.parametrize("method,K,parallel", [
-    ("hsd", 1, True), ("tokenwise", 1, True), ("blockwise", 1, True),
-    ("hsd", 2, True), ("hsd", 2, False), ("tokenwise", 2, False)])
-def test_sampled_request_equals_make_generate(method, K, parallel):
+SAMPLED = [("hsd", 1, True), ("tokenwise", 1, True), ("blockwise", 1, True),
+           ("hsd", 2, True), ("hsd", 2, False), ("tokenwise", 2, False)]
+
+
+@pytest.mark.parametrize("method,K,parallel,steps", [
+    pytest.param(*c, 2, id="-".join(map(str, c))) for c in SAMPLED] + [
+    pytest.param(*c, 3, id="-".join(map(str, c)) + "-M3")
+    for c in (("hsd", 1, True), ("blockwise", 1, True), ("hsd", 2, False))])
+def test_sampled_request_equals_make_generate(method, K, parallel, steps):
+    """Each served request is make_generate on its own generator, through
+    macro steps of 2 or 3 pool blocks; at 3, requests pass through the
+    on-device refill (drawn ahead, their generators set back to the blocks
+    they ran)."""
     eng = _eng_cfg(10, K, parallel, method)
     se = SlotEngine(CFG, CFG, eng, n_slots=2, bucket=16, params_d=PD,
-                    params_t=PT, seed=5, steps_per_dispatch=2,
+                    params_t=PT, seed=5, steps_per_dispatch=steps,
                     device="cpu")
     gens = {}
     for rid, (p, mn) in enumerate(zip(_prompts(), BUDGETS)):
@@ -284,6 +283,8 @@ def test_sampled_request_equals_make_generate(method, K, parallel):
         acc = res.accepts[:res.blocks].tolist()
         assert 1 <= r.blocks <= res.blocks
         assert r.accepts == sum(acc[:r.blocks])
+    if steps == 3:
+        assert se.refilled_total > 0
 
 
 def test_seeded_run_repeats():
@@ -317,7 +318,8 @@ def test_frozen_slot_writes_stay_inside_the_cache():
     frozen = pool.tokens[0].clone()
     g = torch.Generator().manual_seed(0)
     for _ in range(2):
-        done, _ = pool.block(PD, PT, P, [False, True], [None, g])
+        noise = pool.stack_noise([None, pool.block_noise(g)])
+        done, _ = pool.block(PD, PT, P, noise)
         assert not bool(done[0])
     assert int(pool.length[0]) == S - 2
     assert torch.equal(pool.tokens[0], frozen)

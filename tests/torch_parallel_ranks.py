@@ -132,8 +132,9 @@ def tp_eagle_generate(dev, cfg_t, ecfg, params_t, params_e, eng, prompt, n,
 
 
 def tp_slot_engine(dev, cfg_d, cfg_t, params_d, params_t, eng, n_slots,
-                   bucket, prompts, seed, layout):
-    """SlotEngine over a plain, TP or PP target on a world-wide grid."""
+                   bucket, prompts, seed, layout, steps=1):
+    """SlotEngine over a plain, TP or PP target on a world-wide grid, steps
+    pool blocks a macro: ({rid: tokens}, refilled_total)."""
     from hsd_tpu_torch.engine.server import SlotEngine
     world = torch.distributed.get_world_size()
     if layout == "tp":
@@ -148,15 +149,18 @@ def tp_slot_engine(dev, cfg_d, cfg_t, params_d, params_t, eng, n_slots,
         ops = PP.pp_pool_cache_ops(cfg_t, mesh)
     se = SlotEngine(cfg_d, cfg_t, eng, n_slots=n_slots, bucket=bucket,
                     params_d=params_d, params_t=local, seed=seed,
-                    target_forward=fwd, target_cache_ops=ops, device=dev)
-    for rid, p in enumerate(prompts):
-        se.submit(rid, p)
+                    target_forward=fwd, target_cache_ops=ops, device=dev,
+                    steps_per_dispatch=steps)
+    for rid, (p, mn) in enumerate(prompts):
+        se.submit(rid, p, max_new=mn)
     done = se.run_all()
-    return {r.rid: list(r.out_tokens) for r in done}
+    return {r.rid: list(r.out_tokens) for r in done}, se.refilled_total
 
 
 def tp_eagle_server(dev, cfg_t, ecfg, params_t, params_e, eng, n_slots,
-                    bucket, prompts, mode, seed):
+                    bucket, prompts, mode, seed, steps=1):
+    """EagleSlotEngine over the TP pool forward, steps pool blocks a macro:
+    ({rid: tokens}, refilled_total)."""
     from hsd_tpu_torch.engine.eagle_engine import default_feature_layers
     from hsd_tpu_torch.engine.eagle_server import EagleSlotEngine
     world = torch.distributed.get_world_size()
@@ -167,11 +171,12 @@ def tp_eagle_server(dev, cfg_t, ecfg, params_t, params_e, eng, n_slots,
         params_e=params_e, mode=mode, seed=seed, device=dev,
         target_forward=TP.make_tp_eagle_pool_forward(
             cfg_t, params_t, default_feature_layers(cfg_t), mesh),
-        target_cache_init=TP.tp_cache_init(cfg_t, mesh))
-    for rid, p in enumerate(prompts):
-        se.submit(rid, p, max_new=eng.max_new_tokens)
+        target_cache_init=TP.tp_cache_init(cfg_t, mesh),
+        steps_per_dispatch=steps)
+    for rid, (p, mn) in enumerate(prompts):
+        se.submit(rid, p, max_new=mn)
     done = se.run_all()
-    return {r.rid: list(r.out_tokens) for r in done}
+    return {r.rid: list(r.out_tokens) for r in done}, se.refilled_total
 
 
 # ---------------------------------------------------------------------------
