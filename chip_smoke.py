@@ -93,10 +93,9 @@ Phases (any failure exits nonzero, with no result line):
                must equal per-request make_generate there; in bf16 with
                the trunk over all 8 slots' rows a call, which cuBLAS
                rounds differently, the agreement is printed. With --trace,
-               also the run's parts
-               timed apart (pool blocks, draft and target forwards, the
-               verifier, noise, prefills, merges) and one profiled pool
-               block (device time by kernel, idle share)
+               also the run again under `utils.profiling.trace`: the port's
+               spans and counters (calls, host and self ms, the device
+               spans' stream ms), device time by kernel, idle share
   5h. uad      make_uad_generate on the 48-layer 14B int4 trunk with a
                char-level toy tokenizer pair and a context-repeat drafter,
                64 new tokens, with the launch counters zeroed before and read
@@ -150,7 +149,8 @@ Phases (any failure exits nonzero, with no result line):
                refilled_total > 0, printed with the pool blocks, steps and
                host reads a step); hsd_ref again, whose token
                streams must be identical. With --trace, also a profiled pool
-               step (device time by kernel, idle share)
+               step (device time by kernel, idle share) and one more under
+               `utils.profiling.trace`, read through the port's spans
  9f. eagle single request  make_eagle_generate (hsd_ref) on the 8B pair,
                one 64-token prompt and 64 new tokens, FLASH_DECODE =
                "always": the tree forward runs K8 with its bias
@@ -359,6 +359,7 @@ from hsd_tpu_torch.ops.linear import (QuantizedLinear, apply_linear,
                                       apply_mlp, dequantize, quantize,
                                       rms_norm)
 from hsd_tpu_torch.tools import bench_main as BM
+from hsd_tpu_torch.utils import profiling
 
 DEV = torch.device("cuda")
 HBM_BYTES_S = 3.35e12       # H100 SXM device memory rate
@@ -1269,75 +1270,43 @@ def batched_vs_single(draft, small, cfg, reqs):
 
 
 def trace_serving(draft, small, cfg_s, reqs):
-    """Where a serving pool's time goes: the 5g run again with each part
-    timed on the host clock between synchronizes (so the parts sum past
-    the untimed run): pool blocks, their draft and target forwards, the
-    vmapped verifier, the noise draws (a request's block at a time; the
-    top-up before each macro holds them and the buffer writes), the
-    admissions' and the stock's prefills, the refill's merges; then one
-    pool block of 8 live slots (a step of one block) under the profiler
-    (device time by kernel, idle share, ops)."""
-    from torch.profiler import ProfilerActivity, profile
-    import hsd_tpu_torch.engine.speculative as SP
-    spent, calls = {}, {}
-
-    def timed_part(name, fn):
-        def run(*a, **k):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            out = fn(*a, **k)
-            torch.cuda.synchronize()
-            spent[name] = spent.get(name, 0.0) + (time.perf_counter() - t0)
-            calls[name] = calls.get(name, 0) + 1
-            return out
-        return run
-
+    """Where a serving pool's time goes: the 5g run again under
+    `utils.profiling.trace` (its trace.json and spans.json in a temporary
+    directory), read through the port's recorder (`span_lines`), then the
+    window's device time by kernel and idle share."""
     se, _ = serving_engine(draft, small, cfg_s)
-    pool, fwd = se.pool, SP.transformer.forward
-
-    def forward(cfg, p, t, c, **k):
-        part = ("prefill forward" if k.get("lengths") is None else
-                "target forward" if t.shape[1] == BM.SRV_GAMMA + 1
-                else "draft forward")
-        return timed_part(part, fwd)(cfg, p, t, c, **k)
-
-    for name in ("block", "prefill_rows", "_verify", "block_noise",
-                 "merge"):
-        setattr(pool, name, timed_part(name.strip("_"), getattr(pool, name)))
-    se._begin_macro = timed_part("noise top-up", se._begin_macro)
-    SP.transformer.forward = forward
-    try:
-        torch.cuda.synchronize()
+    logdir = tempfile.mkdtemp(prefix="trace_serving_")
+    torch.cuda.synchronize()
+    with profiling.trace(logdir) as prof:
         t0 = time.perf_counter()
         blocks0 = se.pool_blocks
         serve(se, reqs)
-        wall = time.perf_counter() - t0
-    finally:
-        SP.transformer.forward = fwd
-    log(f"trace serving ({len(reqs)} requests, parts timed apart): wall "
-        f"{wall * 1e3:.1f} ms, {se.pool_blocks - blocks0} pool blocks; "
-        + "; ".join(f"{n} {spent[n] * 1e3:.1f} ms over {calls[n]} "
-                    f"({spent[n] * 1e3 / calls[n]:.2f} each)"
-                    for n in sorted(spent)))
-    se, _ = serving_engine(draft, small, cfg_s)
-    for rid, (p, mn) in enumerate(reqs[:BM.SRV_SLOTS]):
-        se.submit(rid, p, max_new=mn)
-    se._admit()
-    se.steps_per_dispatch = 1        # a step of one pool block
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        se.step()
-        torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     rows = device_rows(prof)
     busy = sum(r[0] for r in rows)
-    log(f"trace serving (one pool block, {BM.SRV_SLOTS} live slots, under "
-        f"the profiler): wall {wall_us / 1e3:.1f} ms, device busy "
-        f"{busy / 1e3:.2f} ms, idle share {1 - busy / wall_us:.3f}, "
-        f"{sum(r[1] for r in rows)} device ops")
+    log(f"trace serving ({len(reqs)} requests, {se.pool_blocks - blocks0} "
+        f"pool blocks, under the profiler; {logdir}): wall "
+        f"{wall_us / 1e3:.1f} ms, device busy {busy / 1e3:.2f} ms, idle "
+        f"share {1 - busy / wall_us:.3f}, {sum(r[1] for r in rows)} device "
+        "ops")
+    span_lines(profiling.snapshot())
     for dev_us, count, key in rows[:8]:
         log(f"  {dev_us / 1e3:9.3f} ms  x{count:<6} {key[:90]}")
+
+
+def span_lines(snap):
+    """Log the recorder's spans, longest host time first (calls, host and
+    self ms, and the device spans' stream ms), and its counters."""
+    spans = sorted(snap["spans"].items(), key=lambda kv: -kv[1]["host_s"])
+    for name, s in spans:
+        dev = (f", stream {s['device_s'] * 1e3:.1f} ms"
+               if "device_s" in s else "")
+        log(f"  span {name}: {s['calls']} calls, host "
+            f"{s['host_s'] * 1e3:.1f} ms, self {s['self_s'] * 1e3:.1f} ms"
+            f"{dev}")
+    if snap["counters"]:
+        log("  counters " + ", ".join(f"{k} {v}" for k, v in
+                                      sorted(snap["counters"].items())))
 
 
 class CharTok:
@@ -2062,10 +2031,13 @@ def summary_entry(name, label, n, source, replaces, launches):
 
 
 def device_rows(prof):
-    """(device us, launches, kernel name) per kernel name, largest first."""
+    """(device us, launches, kernel name) per kernel name, largest first.
+    The device-side images of record_function ranges (the port's spans)
+    are left out: they are ranges over kernels, not kernels."""
     rows = []
     for ev in prof.key_averages():
-        if ev.device_type != torch.autograd.DeviceType.CUDA:
+        if (ev.device_type != torch.autograd.DeviceType.CUDA
+                or getattr(ev, "is_user_annotation", False)):
             continue
         dev_us = getattr(ev, "self_device_time_total", None)
         if dev_us is None:
@@ -2548,47 +2520,20 @@ def trace_pool(se, prompts):
 
 
 def phase_times(se):
-    """Host-clock milliseconds of each phase of one pool step, run one
-    phase at a time (a synchronize before and after each), so the sum
-    exceeds the overlapped step: trie drafting, the target tree forward,
-    trie verification, the staged KV compaction, and the rest (commit,
-    sampling, the server's bookkeeping)."""
-    import hsd_tpu_torch.engine.eagle_engine as EE
-    spent = {}
-
-    def timed_phase(name, fn):
-        def run(*a, **k):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            out = fn(*a, **k)
-            torch.cuda.synchronize()
-            spent[name] = spent.get(name, 0.0) + (time.perf_counter() - t0) * 1e3
-            return out
-        return run
-
-    saved = {n: getattr(EE, n) for n in ("build_trie", "verify_trie_hsd",
-                                          "compact_path_staged")}
-    pool = se._pool_block
-    try:
-        for n, f in saved.items():
-            setattr(EE, n, timed_phase(n, f))
-        se._pool_block = EE.make_eagle_pool(
-            se.cfg_t, se.ecfg, se.engine, mode="hsd_ref",
-            target_forward=timed_phase("target_forward",
-                                       make_coupled_eagle_target(
-                                           se.cfg_t, (-1,))))
-        torch.cuda.synchronize()
+    """One pool step under `utils.profiling.trace`, read through the
+    port's recorder: the EAGLE pool block's spans (trie drafting, the
+    target tree forward, the target law, trie verification with its
+    commit, the staged KV compaction), each with its stream ms."""
+    logdir = tempfile.mkdtemp(prefix="phase_times_")
+    torch.cuda.synchronize()
+    with profiling.trace(logdir):
         t0 = time.perf_counter()
         se.step()
         torch.cuda.synchronize()
         total = (time.perf_counter() - t0) * 1e3
-    finally:
-        for n, f in saved.items():
-            setattr(EE, n, f)
-        se._pool_block = pool
-    spent["rest"] = total - sum(spent.values())
-    log(f"phases of one pool step, serialized ({total:.1f} ms): " + ", ".join(
-        f"{k} {v:.1f} ms" for k, v in spent.items()))
+    log(f"spans of one pool step ({total:.1f} ms under the profiler; "
+        f"{logdir}):")
+    span_lines(profiling.snapshot())
 
 
 def eagle_greedy_small():

@@ -30,6 +30,7 @@ from ..models.choices import StaticTree, build_static_trie
 from ..models.eagle import (EagleConfig, EagleParams, absorb, build_trie,
                             gather_rows, init_eagle_kv)
 from ..ops.sampling import processor, sample
+from ..utils.profiling import span
 from ..verify.trie import (verify_trie_greedy, verify_trie_hsd,
                            verify_trie_typical)
 from .kvcache import compact_path, compact_path_staged, init_cache
@@ -284,7 +285,11 @@ def make_eagle_pool(cfg_t: ModelConfig, ecfg: EagleConfig,
     tcache (batch-B KVCache, max_len S + N+1), ekv (batch B), feat_buf
     [B, S, Dt], generator) -> (tokens, lengths', acc_len [B], path_len [B],
     hit_eos [B], tcache, ekv, feat_buf)`, with the single-slot block's
-    per-slot math (shared `absorb_window` / `commit`)."""
+    per-slot math (shared `absorb_window` / `commit`). Spans as
+    `SlotPool.block`'s: pool.block around it; model.draft (the head's
+    window and trie), model.target_verify (the tree forward),
+    pool.target_law, pool.verify (the trie verifier and its commit) and
+    pool.commit (the accepted path's KV compaction) inside."""
     N = ecfg.total_tokens
     _, _, absorb_window, commit = make_eagle_block(
         cfg_t, ecfg, engine, mode=mode, target_forward=target_forward,
@@ -300,20 +305,26 @@ def make_eagle_pool(cfg_t: ModelConfig, ecfg: EagleConfig,
                 f"pool cache (max_len={tcache.max_len}) must extend the "
                 f"token buffer (S={tokens.shape[1]}) by the staging region "
                 f"(N+1={N + 1})")
-        trie, ekv = absorb_window(params_e, ekv, feat_buf, tokens,
-                                  lengths - 1)
-        bias = torch.where(trie.tree_mask, 0.0, -1e30)
-        base = lengths - 1     # the cache holds length-1 committed keys
-        pos = trie.position_ids + (base - tcache.start)[:, None]
-        tlogits, tcache, tfeats = tfwd(params_t, trie.draft_tokens, tcache,
-                                       bias, pos, lengths=base,
-                                       staging_at=staging_at)
-        probs = temp(tlogits)                            # [B, N+1, V]
-        (tokens, new_lengths, acc_len, plen, hit_eos, sel, ncommit,
-         feat_buf) = commit(trie, probs, tfeats, tokens, lengths, feat_buf,
-                            generator)
-        tcache = compact_path_staged(tcache, sel, ncommit, base,
-                                     src_base=staging_at)
+        with span("pool.block"):
+            with span("model.draft", device=True):
+                trie, ekv = absorb_window(params_e, ekv, feat_buf, tokens,
+                                          lengths - 1)
+            bias = torch.where(trie.tree_mask, 0.0, -1e30)
+            base = lengths - 1     # the cache holds length-1 committed keys
+            pos = trie.position_ids + (base - tcache.start)[:, None]
+            with span("model.target_verify", device=True):
+                tlogits, tcache, tfeats = tfwd(
+                    params_t, trie.draft_tokens, tcache, bias, pos,
+                    lengths=base, staging_at=staging_at)
+            with span("pool.target_law", device=True):
+                probs = temp(tlogits)                    # [B, N+1, V]
+            with span("pool.verify", device=True):
+                (tokens, new_lengths, acc_len, plen, hit_eos, sel, ncommit,
+                 feat_buf) = commit(trie, probs, tfeats, tokens, lengths,
+                                    feat_buf, generator)
+            with span("pool.commit", device=True):
+                tcache = compact_path_staged(tcache, sel, ncommit, base,
+                                             src_base=staging_at)
         return (tokens, new_lengths, acc_len, plen, hit_eos, tcache, ekv,
                 feat_buf)
 

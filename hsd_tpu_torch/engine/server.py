@@ -43,7 +43,11 @@ reconcile, harvest and stats) is shared with the EAGLE server
 Telemetry: per-slot accepted-token and block counters ride in the pool;
 `stats()` reports aggregate block efficiency and throughput, the requests
 admitted by the refill and the host reads, and each harvested Request
-carries its own accepts and blocks.
+carries its own accepts and blocks and its submission time. While a
+profiler window is open (`utils.profiling`), a step records the spans
+server.step, server.noise, server.host_read, server.refill and
+server.harvest, each admission the admission counters and the request's
+submission and prefill times, each harvest the request's harvest time.
 """
 from __future__ import annotations
 
@@ -56,6 +60,7 @@ import torch
 
 from ..config import EngineConfig, ModelConfig
 from ..models.transformer import resolve_device
+from ..utils.profiling import admitted, harvested, span
 from .kvcache import merge_plan
 from .speculative import SlotPool
 
@@ -70,6 +75,7 @@ class Request:
     out_tokens: Optional[List[int]] = None
     accepts: int = 0     # accepted drafted tokens (telemetry)
     blocks: int = 0      # speculative blocks consumed
+    submitted: float = 0.0   # host clock (perf_counter) at submit
 
 
 class SlotScheduler:
@@ -119,7 +125,8 @@ class SlotScheduler:
         ids = list(prompt_ids)[-self.bucket:]
         padded = [0] * (self.bucket - len(ids)) + ids
         self.queue.append(Request(rid, padded, len(ids),
-                                  max_new or self.max_new))
+                                  max_new or self.max_new,
+                                  submitted=time.perf_counter()))
 
     def _prompt(self, req: Request) -> torch.Tensor:
         return torch.tensor(req.prompt, dtype=torch.int64, device=self.dev)
@@ -136,6 +143,7 @@ class SlotScheduler:
             if not self.queue:
                 break
             req = self.queue.popleft()
+            admitted(req.rid, req.submitted, req.prompt, req.prompt_len)
             self._prefill_slot(s, req, self._prompt(req))
             self.slot_rid[s] = req.rid
             self.running[req.rid] = req
@@ -153,6 +161,7 @@ class SlotScheduler:
             batch.append(self.queue.popleft())
         for a, req in enumerate(batch):
             self.running[req.rid] = req
+            admitted(req.rid, req.submitted, req.prompt, req.prompt_len)
             self._stage_entry(a, req, self._prompt(req))
         self._staged_rids = [r.rid for r in batch]
         self._staged_n, self._staged_consumed = len(batch), 0
@@ -166,15 +175,16 @@ class SlotScheduler:
         free = self._free()
         if c0 >= n or not free:
             return
-        can, entry = [False] * self.n_slots, [0] * self.n_slots
-        for a, s in zip(range(c0, n), free):
-            can[s], entry[s] = True, a
-            self.slot_rid[s] = self._staged_rids[a]
-            self._staged_consumed = a + 1
-        can_t = torch.tensor(can, device=self.dev)
-        entry_t = torch.tensor(entry, device=self.dev)
-        self._merge(can_t, entry_t,
-                    merge_plan(can_t, entry_t, self.admit_batch))
+        with span("server.refill"):
+            can, entry = [False] * self.n_slots, [0] * self.n_slots
+            for a, s in zip(range(c0, n), free):
+                can[s], entry[s] = True, a
+                self.slot_rid[s] = self._staged_rids[a]
+                self._staged_consumed = a + 1
+            can_t = torch.tensor(can, device=self.dev)
+            entry_t = torch.tensor(entry, device=self.dev)
+            self._merge(can_t, entry_t,
+                        merge_plan(can_t, entry_t, self.admit_batch))
 
     def _macro(self) -> List[Request]:
         """Up to steps_per_dispatch pool blocks with the on-device refill
@@ -208,21 +218,23 @@ class SlotScheduler:
                 go = (self._live() | can).any()
                 if stop_on_free:
                     go = go & ~((done_now & ~can).any() & (after >= n_st))
-                go, take = torch.stack([go, can.any()]).tolist()
+                with span("server.host_read"):
+                    go, take = torch.stack([go, can.any()]).tolist()
                 self.host_reads += 1
             if stock and (last or take):
-                plan = merge_plan(can, entry, A)
-                dst, now = plan
-                acc, blk, length, tokens = self._counters()
-                snap = torch.cat([dst[:, None], length[dst, None],
-                                  acc[dst, None], blk[dst, None],
-                                  tokens[dst]], 1)
-                if harvest is None:
-                    harvest = torch.zeros_like(snap)
-                harvest = torch.where(now[:, None], snap, harvest)
-                self._merge(can, entry, plan)
-                done_now = done_now & ~can
-                consumed = after
+                with span("server.refill"):
+                    plan = merge_plan(can, entry, A)
+                    dst, now = plan
+                    acc, blk, length, tokens = self._counters()
+                    snap = torch.cat([dst[:, None], length[dst, None],
+                                      acc[dst, None], blk[dst, None],
+                                      tokens[dst]], 1)
+                    if harvest is None:
+                        harvest = torch.zeros_like(snap)
+                    harvest = torch.where(now[:, None], snap, harvest)
+                    self._merge(can, entry, plan)
+                    done_now = done_now & ~can
+                    consumed = after
             if not last and not go:
                 break
         return self._finish_macro(consumed, done_now, harvest)
@@ -238,7 +250,8 @@ class SlotScheduler:
                  tokens.reshape(-1), tail]
         if harvest is not None:
             parts.append(harvest.reshape(-1))
-        vals = torch.cat(parts).tolist()
+        with span("server.host_read"):
+            vals = torch.cat(parts).tolist()
         self.host_reads += 1
         c1, o = vals[0], 1
         done, acc, blk, length = (vals[o + k * SL:o + (k + 1) * SL]
@@ -248,13 +261,14 @@ class SlotScheduler:
         o += SL * S
         self._end_macro(vals[o:o + tail.numel()])
         o += tail.numel()
-        out = self._reconcile(c1, vals[o:], 4 + S)
-        for s in range(SL):
-            if done[s] and self.slot_rid[s] >= 0:
-                req = self.running.pop(self.slot_rid[s])
-                out.append(self._finish(req, length[s], acc[s], blk[s],
-                                        rows[s]))
-                self.slot_rid[s] = -1
+        with span("server.harvest"):
+            out = self._reconcile(c1, vals[o:], 4 + S)
+            for s in range(SL):
+                if done[s] and self.slot_rid[s] >= 0:
+                    req = self.running.pop(self.slot_rid[s])
+                    out.append(self._finish(req, length[s], acc[s], blk[s],
+                                            rows[s]))
+                    self.slot_rid[s] = -1
         return out
 
     def _reconcile(self, consumed: int, harvest: List[int],
@@ -286,6 +300,7 @@ class SlotScheduler:
         req.accepts, req.blocks = acc, blk
         self._done_acc += acc
         self._done_blk += blk
+        harvested(req.rid, req.submitted)
         return req
 
     def _begin_macro(self):
@@ -304,12 +319,13 @@ class SlotScheduler:
         with the on-device refill, the finished requests harvested."""
         t0 = time.perf_counter()
         self.steps += 1
-        self._admit_staged_to_free()
-        self._admit()
-        out: List[Request] = []
-        if any(r >= 0 for r in self.slot_rid):
-            self._stage()
-            out = self._macro()
+        with span("server.step"):
+            self._admit_staged_to_free()
+            self._admit()
+            out: List[Request] = []
+            if any(r >= 0 for r in self.slot_rid):
+                self._stage()
+                out = self._macro()
         self.step_time += time.perf_counter() - t0
         self.total_committed += sum(len(r.out_tokens) for r in out)
         return out
@@ -440,28 +456,29 @@ class SlotEngine(SlotScheduler):
         blocks that row has run (`_row_used`). The draft's uniforms go
         straight into the ring; `SlotPool.block` takes their Gumbel
         transform for all slots at once."""
-        M, pool = self.steps_per_dispatch, self.pool
-        if self._noise is None:
-            self._noise = (torch.zeros(
-                (len(self._head_host), M, pool.gamma, pool.R,
-                 self.cfg_d.vocab_size), dtype=torch.float32,
-                device=self.dev), None)
-        draft, bundle = self._noise
-        for rid, row in self._row_of.items():
-            req = self.running[rid]
-            for j in range(len(self._states[row]) - 1, M):
-                at = (self._head_host[row] + j) % M
-                _, nv = pool.block_noise(req.generator, out=draft[row, at])
-                self._states[row].append(req.generator.get_state())
-                if nv is None:
-                    continue
-                if bundle is None:
-                    bundle = {k: v.new_zeros((draft.shape[0], M) + v.shape)
-                              for k, v in nv.items()}
-                    self._noise = (draft, bundle)
-                for k, v in nv.items():
-                    bundle[k][row, at] = v
-        self._row_used.zero_()
+        with span("server.noise"):
+            M, pool = self.steps_per_dispatch, self.pool
+            if self._noise is None:
+                self._noise = (torch.zeros(
+                    (len(self._head_host), M, pool.gamma, pool.R,
+                     self.cfg_d.vocab_size), dtype=torch.float32,
+                    device=self.dev), None)
+            draft, bundle = self._noise
+            for rid, row in self._row_of.items():
+                req = self.running[rid]
+                for j in range(len(self._states[row]) - 1, M):
+                    at = (self._head_host[row] + j) % M
+                    _, nv = pool.block_noise(req.generator, out=draft[row, at])
+                    self._states[row].append(req.generator.get_state())
+                    if nv is None:
+                        continue
+                    if bundle is None:
+                        bundle = {k: v.new_zeros((draft.shape[0], M) + v.shape)
+                                  for k, v in nv.items()}
+                        self._noise = (draft, bundle)
+                    for k, v in nv.items():
+                        bundle[k][row, at] = v
+            self._row_used.zero_()
 
     def _block(self) -> torch.Tensor:
         draft, bundle = self._noise

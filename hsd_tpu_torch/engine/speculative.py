@@ -34,6 +34,7 @@ from torch.func import vmap
 from ..config import EngineConfig, ModelConfig, VerifierConfig
 from ..models import transformer
 from ..ops.sampling import gumbel_of, processor, sample
+from ..utils.profiling import count, span
 from ..verify import verify
 from ..verify.dispatch import TELEMETRY_METHODS, verify_noise
 from .kvcache import (EMPTY_LENGTH, KVCache, init_cache, live_length,
@@ -87,29 +88,30 @@ def draft_rows(cfg: ModelConfig, params, cache: KVCache, last2, last1,
     cache frontiers (the slot pool's ragged rows), else the cache's own
     length; slots routes every product on one request's rows.
     Returns (draft_tokens [N, gamma], q [N, gamma, V], cache advanced)."""
-    N = cache.batch
-    act = activation_steps(gamma, num_drafts, last1.device) if striped \
-        else None
+    with span("model.draft", device=True):
+        N = cache.batch
+        act = activation_steps(gamma, num_drafts, last1.device) if striped \
+            else None
 
-    def step(tokens, j, cache):
-        at = None if lengths is None else lengths + (j + 1 if j else 0)
-        logits, cache = transformer.forward(cfg, params, tokens, cache,
-                                            lengths=at, slots=slots)
-        probs = proc(logits[:, -1])
-        tok = sample(probs, generator, None if noise is None else noise(j))
-        if striped:
-            tok = tok.view(slots, -1)
-            tok = torch.where(act > j, tok[:, :1], tok).view(-1)
-        return tok, probs, cache
+        def step(tokens, j, cache):
+            at = None if lengths is None else lengths + (j + 1 if j else 0)
+            logits, cache = transformer.forward(cfg, params, tokens, cache,
+                                                lengths=at, slots=slots)
+            probs = proc(logits[:, -1])
+            tok = sample(probs, generator, None if noise is None else noise(j))
+            if striped:
+                tok = tok.view(slots, -1)
+                tok = torch.where(act > j, tok[:, :1], tok).view(-1)
+            return tok, probs, cache
 
-    tok, probs, cache = step(
-        torch.stack([last2.expand(N), last1.expand(N)], dim=1), 0, cache)
-    toks, qs = [tok], [probs]
-    for j in range(1, gamma):
-        tok, probs, cache = step(tok[:, None], j, cache)
-        toks.append(tok)
-        qs.append(probs)
-    return torch.stack(toks, dim=1), torch.stack(qs, dim=1), cache
+        tok, probs, cache = step(
+            torch.stack([last2.expand(N), last1.expand(N)], dim=1), 0, cache)
+        toks, qs = [tok], [probs]
+        for j in range(1, gamma):
+            tok, probs, cache = step(tok[:, None], j, cache)
+            toks.append(tok)
+            qs.append(probs)
+        return torch.stack(toks, dim=1), torch.stack(qs, dim=1), cache
 
 
 def draft_layout(v: VerifierConfig) -> Tuple[bool, int]:
@@ -310,6 +312,12 @@ class SlotPool:
         select(cache, src [N]) -> cache   (row b takes row src[b]'s state)
     There is no rollback op: the frontiers, passed to every forward, are
     the rollback.
+
+    Spans (`utils.profiling`, while a profiler window is open): server.admit
+    (`prefill`, `stage`) over model.draft_prefill, model.target_prefill and
+    pool.cache_put, with the prefill row counters; pool.block (`block`) over
+    model.draft, model.target_verify, pool.target_law, pool.verify and
+    pool.commit.
     """
 
     def __init__(self, cfg_draft: ModelConfig, cfg_target: ModelConfig,
@@ -365,34 +373,43 @@ class SlotPool:
         rows). prompt: [P] int64, left-padded. Returns (dcache, tcache)."""
         R, S, dev = self.R, self.S, self.dev
         P = prompt.shape[0]
-        start = torch.full((R,), P - int(prompt_len), dtype=torch.int64,
-                           device=dev)
-        dc = init_cache(self.cfg_d, R, S, dev).replace(start=start.clone())
-        tc = self.t_init(R, S, start.clone(), dev)
+        pad = P - int(prompt_len)
+        count("server.prefill_rows", R * ((P - 1) + (P - 2)))
+        count("server.prefill_pad_rows",
+              R * (min(pad, P - 1) + min(pad, P - 2)))
+        start = torch.full((R,), pad, dtype=torch.int64, device=dev)
+        with span("pool.cache_put"):
+            dc = init_cache(self.cfg_d, R, S, dev).replace(
+                start=start.clone())
+            tc = self.t_init(R, S, start.clone(), dev)
         pk = prompt[None, :].expand(R, P)
-        _, dc = transformer.forward(self.cfg_d, params_draft, pk[:, :-2], dc,
-                                    skip_head=True)
-        _, tc = self.tfwd(params_target, pk[:, :-1], tc, None,
-                          skip_head=True)
+        with span("model.draft_prefill", device=True):
+            _, dc = transformer.forward(self.cfg_d, params_draft, pk[:, :-2],
+                                        dc, skip_head=True)
+        with span("model.target_prefill"):
+            _, tc = self.tfwd(params_target, pk[:, :-1], tc, None,
+                              skip_head=True)
         return dc, tc
 
     def prefill(self, s: int, params_draft, params_target,
                 prompt: torch.Tensor, prompt_len: int, max_new: int):
         """Admit a request into slot s: prefill its rows (`prefill_rows`)
         and copy them into the slot's rows. prompt: [P] int64, left-padded."""
-        dc, tc = self.prefill_rows(params_draft, params_target, prompt,
-                                   prompt_len)
-        R, P = self.R, prompt.shape[0]
-        rows = slice(s * R, (s + 1) * R)
-        put_rows(self.dcache, rows, dc)
-        self.tcache = self.t_put(self.tcache, rows, tc)
-        self.tokens[s] = 0
-        self.tokens[s, :P] = prompt
-        self.length[s] = P
-        self.max_new[s] = max_new
-        self.live[s] = True
-        self.acc_sum[s] = 0
-        self.blk_cnt[s] = 0
+        with span("server.admit"):
+            dc, tc = self.prefill_rows(params_draft, params_target, prompt,
+                                       prompt_len)
+            R, P = self.R, prompt.shape[0]
+            rows = slice(s * R, (s + 1) * R)
+            with span("pool.cache_put"):
+                put_rows(self.dcache, rows, dc)
+                self.tcache = self.t_put(self.tcache, rows, tc)
+            self.tokens[s] = 0
+            self.tokens[s, :P] = prompt
+            self.length[s] = P
+            self.max_new[s] = max_new
+            self.live[s] = True
+            self.acc_sum[s] = 0
+            self.blk_cnt[s] = 0
 
     def new_stock(self, entries: int) -> Stock:
         """An empty refill stock of `entries` entries (at most n_slots)."""
@@ -407,15 +424,18 @@ class SlotPool:
     def stage(self, stock: Stock, a: int, params_draft, params_target,
               prompt: torch.Tensor, prompt_len: int, max_new: int) -> Stock:
         """Prefill a request into entry a of the stock (`prefill_rows`)."""
-        dc, tc = self.prefill_rows(params_draft, params_target, prompt,
-                                   prompt_len)
-        rows = slice(a * self.R, (a + 1) * self.R)
-        put_rows(stock.dcache, rows, dc)
-        stock = stock._replace(tcache=self.t_put(stock.tcache, rows, tc))
-        stock.tokens[a] = 0
-        stock.tokens[a, :prompt.shape[0]] = prompt
-        stock.max_new[a] = max_new
-        return stock
+        with span("server.admit"):
+            dc, tc = self.prefill_rows(params_draft, params_target, prompt,
+                                       prompt_len)
+            rows = slice(a * self.R, (a + 1) * self.R)
+            with span("pool.cache_put"):
+                put_rows(stock.dcache, rows, dc)
+                stock = stock._replace(tcache=self.t_put(stock.tcache, rows,
+                                                         tc))
+            stock.tokens[a] = 0
+            stock.tokens[a, :prompt.shape[0]] = prompt
+            stock.max_new[a] = max_new
+            return stock
 
     def merge(self, stock: Stock, can: torch.Tensor, entry: torch.Tensor,
               plan, prompt_end: int):
@@ -477,48 +497,58 @@ class SlotPool:
         Returns (done [slots] bool, n_matches [slots]) on the device:
         done = live and the block hit EOS or the slot's budget (the prompt
         region ends at prompt_end); a done slot stops being live."""
-        SL, R, gamma, S = self.n_slots, self.R, self.gamma, self.S
-        dev, temp = self.dev, self.temp
-        live, length = self.live, self.length
-        nd, nv = noise
-        nd = gumbel_of(nd)            # every slot's draft steps at once
-        at = live_length(length, live)
-        last = self.tokens.gather(1, (at - 1)[:, None])[:, 0]
-        last2 = self.tokens.gather(1, (at - 2)[:, None])[:, 0]
-        dlen = slot_frontiers(at, 2, R)
-        tlen = slot_frontiers(at, 1, R)
+        with span("pool.block"):
+            SL, R, gamma, S = self.n_slots, self.R, self.gamma, self.S
+            dev, temp = self.dev, self.temp
+            live, length = self.live, self.length
+            nd, nv = noise
+            nd = gumbel_of(nd)            # every slot's draft steps at once
+            at = live_length(length, live)
+            last = self.tokens.gather(1, (at - 1)[:, None])[:, 0]
+            last2 = self.tokens.gather(1, (at - 2)[:, None])[:, 0]
+            dlen = slot_frontiers(at, 2, R)
+            tlen = slot_frontiers(at, 1, R)
 
-        draft, q, dc = draft_rows(
-            self.cfg_d, params_draft, self.dcache, last2.repeat_interleave(R),
-            last.repeat_interleave(R), gamma, self.K, self.striped, temp,
-            None, noise=lambda j: nd[:, j].reshape(SL * R, -1),
-            lengths=dlen, slots=SL)
-        V = q.shape[-1]
-        tgt_in = torch.cat([last.repeat_interleave(R)[:, None], draft], 1)
-        tlogits, tc = self.tfwd(params_target, tgt_in, self.tcache, tlen)
-        p = temp(tlogits)
-        res = self._verify(draft.view(SL, R, gamma), q.view(SL, R, gamma, V),
-                           p.view(SL, R, gamma + 1, V), nv)
-        n_commit = res.n_matches + 1
-        posn = torch.arange(S, device=dev)[None, :]
-        src = res.tokens.gather(
-            1, torch.clamp(posn - length[:, None], 0, gamma))
-        write = (live[:, None] & (posn >= length[:, None])
-                 & (posn < (length + n_commit)[:, None]))
-        self.tokens = torch.where(write, src, self.tokens)
-        new_length = torch.where(live, length + n_commit, length)
-        if R > 1:
-            src_rows = winning_rows(res.draft_index, R)
-            select_rows(dc, src_rows)
-            tc = self.t_select(tc, src_rows)
-        self.dcache, self.tcache = dc, tc
-        hit_eos = (write & (self.tokens == self.eos)).any(1)
-        done = live & (hit_eos | (new_length - prompt_end >= self.max_new))
-        self.length = new_length
-        self.acc_sum = self.acc_sum + torch.where(live, res.n_matches, 0)
-        self.blk_cnt = self.blk_cnt + live.long()
-        self.live = live & ~done
-        return done, res.n_matches
+            draft, q, dc = draft_rows(
+                self.cfg_d, params_draft, self.dcache,
+                last2.repeat_interleave(R), last.repeat_interleave(R), gamma,
+                self.K, self.striped, temp, None,
+                noise=lambda j: nd[:, j].reshape(SL * R, -1), lengths=dlen,
+                slots=SL)
+            V = q.shape[-1]
+            tgt_in = torch.cat([last.repeat_interleave(R)[:, None], draft], 1)
+            with span("model.target_verify", device=True):
+                tlogits, tc = self.tfwd(params_target, tgt_in, self.tcache,
+                                        tlen)
+            with span("pool.target_law", device=True):
+                p = temp(tlogits)
+            with span("pool.verify", device=True):
+                res = self._verify(draft.view(SL, R, gamma),
+                                   q.view(SL, R, gamma, V),
+                                   p.view(SL, R, gamma + 1, V), nv)
+            with span("pool.commit", device=True):
+                n_commit = res.n_matches + 1
+                posn = torch.arange(S, device=dev)[None, :]
+                src = res.tokens.gather(
+                    1, torch.clamp(posn - length[:, None], 0, gamma))
+                write = (live[:, None] & (posn >= length[:, None])
+                         & (posn < (length + n_commit)[:, None]))
+                self.tokens = torch.where(write, src, self.tokens)
+                new_length = torch.where(live, length + n_commit, length)
+                if R > 1:
+                    src_rows = winning_rows(res.draft_index, R)
+                    select_rows(dc, src_rows)
+                    tc = self.t_select(tc, src_rows)
+                self.dcache, self.tcache = dc, tc
+                hit_eos = (write & (self.tokens == self.eos)).any(1)
+                done = live & (hit_eos
+                               | (new_length - prompt_end >= self.max_new))
+                self.length = new_length
+                self.acc_sum = self.acc_sum + torch.where(live, res.n_matches,
+                                                          0)
+                self.blk_cnt = self.blk_cnt + live.long()
+                self.live = live & ~done
+            return done, res.n_matches
 
 
 def make_generate_batched(cfg_draft: ModelConfig, cfg_target: ModelConfig,

@@ -17,6 +17,7 @@ from typing import NamedTuple, Optional
 import torch
 import torch.nn.functional as F
 
+from ..utils.profiling import span
 from . import gptq_cuda
 
 
@@ -230,11 +231,16 @@ def dequant_matmul(x: torch.Tensor, w: QuantizedLinear) -> torch.Tensor:
     f32. XLA code in the reference, so plain PyTorch here, not a kernel: no
     launch counter. cuBLAS picks its algorithm by shape, so a row's bits
     may depend on the row count, as the reference's do. An f32 product runs
-    in f32: TF32 must be off (checked here, not set)."""
-    if x.dtype == torch.float32 and torch.backends.cuda.matmul.allow_tf32:
-        raise RuntimeError("dequant_matmul: an f32 product needs "
-                           "torch.backends.cuda.matmul.allow_tf32 = False")
-    return torch.matmul(x, dequantize(w, x.dtype))
+    in f32: TF32 must be off (checked here, not set). Spans: linear.route_a,
+    and linear.dequant for the dequantize."""
+    with span("linear.route_a"):
+        if x.dtype == torch.float32 and torch.backends.cuda.matmul.allow_tf32:
+            raise RuntimeError("dequant_matmul: an f32 product needs "
+                               "torch.backends.cuda.matmul.allow_tf32 = "
+                               "False")
+        with span("linear.dequant", device=True):
+            wd = dequantize(w, x.dtype)
+        return torch.matmul(x, wd)
 
 
 XLA_PARTIAL_MAX_ROWS = 64  # _gptq_matmul_xla's grouped-partials regime
