@@ -25,8 +25,13 @@ Phases (any failure exits nonzero, with no result line):
                at 1, 7 and 11 vs 32 rows (K2);
                route A, the dequantize-then-dot route of apply_linear above
                128 rows, at 200 and 693 rows on the 14B wqkv with the norm
-               and wdown: no kernel launches, within 2^-7 of the f32 plain
-               version, timed, with the memory it allocates
+               and wdown: one dequantize launch a product and no other
+               kernel, within 2^-7 of the f32 plain version, timed, with
+               the memory it allocates; route A's dequantize kernel
+               (csrc/dequant.cu) on the 14B wgu and wqkv (packed int4) and
+               the draft's wgu (int8) to bf16: bit for bit its plain
+               version, one launch a call, timed beside its bytes bound
+               and the plain version
   4a. attention K8 (flash-decode) at the shapes of the paths below (14B
                verify, 0.5B draft, 8B EAGLE tree with its bias and prefill
                with a zero bias, long-context decode), with q rotated
@@ -178,7 +183,7 @@ Phases (any failure exits nonzero, with no result line):
                bf16 route (apply_linear) vs plain; K7 (int8) launches only
                for the int8 weight, K7i4 never at 128 rows; at 129 rows
                without mxu_bf16, route A on wqkv and wgu with the norm and
-               the head: no kernel launches
+               the head: the dequantize kernel alone, once a product
  12. int4 eagle serving  phase 9's serving run on the int4 pair (hsd_ref,
                hsd, hsd_ref again with identical streams): K7i4, K1 and K3
                must launch, K4, K5, K7 and K8 must not; the int8 run's BE
@@ -247,11 +252,12 @@ Phases (any failure exits nonzero, with no result line):
                lr 1e-3, warmup 2, total 100) on one repeated 2 x 512 batch:
                every loss finite, step 0 (lr 0) leaves the weights, the last
                loss below step 1's, embed / d2t / t2d bit-equal; launches: K7
-               and no other kernel (wdown declines the bf16 route); the
+               and route A's int8 dequantize for wdown (which declines the
+               bf16 route), no other kernel; the
                step's peak GiB and tokens/s, then one more step with each
                part timed alone (target forward, head forward, backward,
-               clip, AdamW); one 1 x 2048 step (every product on route A: no
-               launch), its time and peak GiB; dump_features of the batch
+               clip, AdamW); one 1 x 2048 step (every product on route A:
+               the dequantize kernel alone), its time and peak GiB; dump_features of the batch
                (its f16 shard's non-finite share: the trunk's layer inputs
                reach ~1e6), then on the same codes with each layer's scales
                over sqrt(in) and a head over the full vocabulary: 3 online
@@ -260,7 +266,7 @@ Phases (any failure exits nonzero, with no result line):
                offline step-0 loss within 1e-4 of the online loss on the
                f16-rounded inputs; 3
                train.eagle1 steps with phase 9's v1 head geometry (finite,
-               K7 alone); make_kacc_probe on the batch (5 values in [0, 1]);
+               K7 and wdown's route-A dequantize alone); make_kacc_probe on the batch (5 values in [0, 1]);
                a checkpoint round trip at full width (params and Adam
                moments bit-equal; seconds and bytes; the directory deleted)
  19. parallel  the parallel layer (hsd_tpu_torch/parallel/, run by
@@ -441,9 +447,10 @@ def qbytes(w: QuantizedLinear):
 
 
 def deq_bf16(w: QuantizedLinear):
-    if w.packed_int4:
-        return G.dequantize_int4(w.qweight, w.scales, w.zeros).to(torch.bfloat16)
-    return G.dequantize_int8(w.qweight, w.scales, w.zeros).to(torch.bfloat16)
+    """The library yardstick's weight (the plain version: no launch)."""
+    plain = (G.dequantize_int4_plain if w.packed_int4
+             else G.dequantize_int8_plain)
+    return plain(w.qweight, w.scales, w.zeros).to(torch.bfloat16)
 
 
 KERNEL_ROWS = []      # one dict per (kernel, shape)
@@ -550,16 +557,21 @@ def f32_case(name, label, w: QuantizedLinear, n, act, ln, eps):
 
 
 ROUTE_A_ROWS = []     # one dict per (shape, rows) of the dequantize route
+# route A's dequantize counters, by packed_int4
+DEQUANT_KEY = {True: "dequantize_int4", False: "dequantize_int8"}
+DEQUANT_REPLACES = ("none: XLA code in the reference (hsd_tpu/ops/linear.py:"
+                    "124-143, 168-170)")
 
 
 def route_a_case(label, w: QuantizedLinear, rows, act, ln, eps,
                  mxu_bf16=False):
     """apply_linear on up to four layers of a stacked weight at each row
     count of `rows`, all above 128 and outside the bf16 route: the
-    reference's dequantize-then-dot route, which must launch no kernel and
-    agree with the f32 plain version within TOL (the route rounds the
-    normed x and the weight to bf16). Timed as check_kernel times a
-    kernel, with the device memory it allocates beyond its output."""
+    reference's dequantize-then-dot route, which must launch its
+    dequantize kernel once and no other kernel, and agree with the f32
+    plain version within TOL (the route rounds the normed x and the weight
+    to bf16). Timed as check_kernel times a kernel, with the device memory
+    it allocates beyond its output."""
     stacked = w.qweight.dim() == 3
     n_sets = min(4, w.qweight.shape[0]) if stacked else 1
     ws = [w.layer(l) if stacked else w for l in range(n_sets)]
@@ -578,7 +590,7 @@ def route_a_case(label, w: QuantizedLinear, rows, act, ln, eps,
                  - got.numel() * got.element_size())
         used = {k: v - before[k] for k, v in launch_counts().items()
                 if v != before[k]}
-        if used:
+        if used != {DEQUANT_KEY[w.packed_int4]: 1}:
             raise AssertionError(f"route A {label} n={n} launched {used}")
         xs = G._rms_f32(x, ln[0], eps) if ln is not None else x
         plain = (G.int4_matmul_plain if w.packed_int4
@@ -589,11 +601,56 @@ def route_a_case(label, w: QuantizedLinear, rows, act, ln, eps,
         ms = timed(run, n_sets)
         ROUTE_A_ROWS.append(dict(label=label, n=n, ms=ms, alloc_gib=extra
                                  / 2**30, max_abs_err=err))
-        log(f"route A {label:<28} n={n:<3} no kernel launches, err={err:.3e}"
+        log(f"route A {label:<28} n={n:<3} launches {used}, err={err:.3e}"
             f" (rel {err / scale:.2e}, tol {TOL:.2e}) {ms:.4f}ms, "
             f"{extra / 2**30:.3f} GiB allocated beside the output")
         if not (math.isfinite(err) and err <= TOL * scale):
             raise AssertionError(f"route A {label} n={n}: error {err}")
+
+
+def dequant_case(label, w: QuantizedLinear):
+    """Route A's dequantize (`linear.dequantize` to bf16, csrc/dequant.cu)
+    on up to four layers of a stacked weight: bit for bit its plain
+    version, one launch a call on its own counter, timed as check_kernel
+    times a kernel (cold L2) beside its bound (codes, scales and zero
+    points read once, the bf16 weight written once) and the plain
+    version. No one PyTorch call computes it (library: null)."""
+    stacked = w.qweight.dim() == 3
+    n_sets = min(4, w.qweight.shape[0]) if stacked else 1
+    ws = [w.layer(l) if stacked else w for l in range(n_sets)]
+    key = DEQUANT_KEY[w.packed_int4]
+    plain_fn = (G.dequantize_int4_plain if w.packed_int4
+                else G.dequantize_int8_plain)
+
+    def run(l):
+        return dequantize(ws[l], torch.bfloat16)
+
+    def plain(l):
+        return plain_fn(ws[l].qweight, ws[l].scales,
+                        ws[l].zeros).to(torch.bfloat16)
+
+    before = launch_counts()
+    got = run(0)
+    torch.cuda.synchronize()
+    used = {k: v - before[k] for k, v in launch_counts().items()
+            if v != before[k]}
+    if used != {key: 1}:
+        raise AssertionError(f"{key} {label}: launches {used}")
+    if not torch.equal(got, plain(0)):
+        raise AssertionError(f"{key} {label}: bits differ from the plain "
+                             "version")
+    nbytes = qbytes(ws[0]) + got.numel() * got.element_size()
+    del got
+    ms = timed(run, n_sets)
+    plain_ms = timed(plain, 1, repeats=3)
+    b_ms, b_by = bound(nbytes, 0)
+    KERNEL_ROWS.append(dict(name=key, label=label, n=None, max_abs_err=0.0,
+                            rel_err=0.0, ms=ms, flops=0, plain_ms=plain_ms,
+                            library_ms=None, bound_ms=b_ms, bound_by=b_by))
+    log(f"{key} {label:<28} bits equal to the plain version, 1 launch a "
+        f"call; kernel={ms:.4f}ms plain={plain_ms:.4f}ms library=n/a "
+        f"bound={b_ms:.4f}ms ({b_by}, {nbytes / 1e6:.1f} MB): "
+        f"{b_ms / ms:.3f} of the bound, {nbytes / ms / 1e9:.3f} TB/s")
 
 
 def kernel_phase(draft, target, cfg_b):
@@ -648,6 +705,10 @@ def kernel_phase(draft, target, cfg_b):
                  act, ln, eps)
     route_a_case("target wdown 13824x5120", big["wdown"], (200, 693), act,
                  None, eps)
+    log("kernels: route A's dequantize (codes to bf16 in one pass)")
+    dequant_case("target wgu 5120x27648", big["wgu"])
+    dequant_case("target wqkv 5120x7168", big["wqkv"])
+    dequant_case("draft wgu 896x9728", draft.layers["wgu"])
 
     log("kernels: K4 (int8, zero points)")
     for nm in ("wqkv", "wo", "wgu", "wdown"):
@@ -1515,8 +1576,11 @@ def train_conversations(n, user, reply, seed):
 
 
 def expect_only_k7(label, counts):
-    """K7 launched, every other kernel not."""
-    bad = {k: v for k, v in counts.items() if (v > 0) != (k == "K7")}
+    """K7 launched; besides it only route A's int8 dequantize (wdown, whose
+    rows the bf16 route declines); every other kernel not."""
+    bad = {k: v for k, v in counts.items()
+           if (k == "K7" and not v)
+           or (v and k not in ("K7", DEQUANT_KEY[False]))}
     if bad:
         raise AssertionError(f"{label}: launches {counts}")
 
@@ -1697,7 +1761,9 @@ def train_phase(trunk, cfg):
     log(f"train: one 1 x {TRAIN_LONG} step {out['long_ms']:.2f} ms, loss "
         f"{long_loss:.4f}, peak {out['long_peak_gib']:.2f} GiB, launches "
         f"{long_counts}")
-    if not math.isfinite(long_loss) or any(long_counts.values()):
+    launched = {k for k, v in long_counts.items() if v}
+    if not (math.isfinite(long_loss) and launched
+            and launched <= set(DEQUANT_KEY.values())):
         raise AssertionError("train: the 2048-row step")
 
     # offline features. The trunk's layer inputs outgrow f16 (random int8
@@ -2712,7 +2778,8 @@ def int4_eagle_kernel_phase(target, cfg):
         "asymmetric int8 weight only")
     if after["K7"] != 1:
         raise AssertionError(f"K7 launches over phase 11: {after['K7']}")
-    # at 129 rows without mxu_bf16: the dequantize-then-dot route, no kernel
+    # at 129 rows without mxu_bf16: the dequantize-then-dot route, its
+    # dequantize kernel alone
     route_a_case("wqkv 4096x6144 +norm", big["wqkv"], (129,), act, ln, eps)
     route_a_case("wgu 4096x28672 +norm", big["wgu"], (129,), act, ln, eps)
     route_a_case("lm_head 4096x128256", target.big.lm_head, (129,), act,
@@ -3534,7 +3601,12 @@ def main():
                            "hsd_tpu/ops/gptq_pallas.py:176",
                            serving4["hsd_ref"]["launches"]["K7i4"]),
              also_replaces="hsd_tpu/ops/gptq_pallas.py:117"),
-    ]
+    ] + [dict(summary_entry(DEQUANT_KEY[packed], label, None,
+                            "hsd_tpu_torch/csrc/dequant.cu", DEQUANT_REPLACES,
+                            counts[DEQUANT_KEY[packed]]),
+              shape=f"{label}, to bf16")
+         for packed, label in ((True, "target wgu 5120x27648"),
+                               (False, "draft wgu 896x9728"))]
     log(f"main path: hsd BE {results['hsd']['be']:.4f} "
         f"{results['hsd']['tok_s']:.2f} tok/s, tokenwise BE "
         f"{results['tokenwise']['be']:.4f} "

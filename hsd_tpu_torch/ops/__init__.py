@@ -1,8 +1,9 @@
 """Compute ops: linear/quantized matmul, the CUDA kernels, sampling.
 
 Every kernel wrapper counts its launches (`<wrapper>.launches`);
-`launch_counts()` reads them all by kernel name (K1-K8, K7i4) and
-`reset_launches()` zeroes them."""
+`launch_counts()` reads them all by kernel name (K1-K8, K7i4, and route
+A's `dequantize_int4` / `dequantize_int8`) and `reset_launches()` zeroes
+them."""
 from . import flash_decode, gptq_cuda
 from .linear import QuantizedLinear, apply_linear, dequantize, quantize
 

@@ -47,6 +47,11 @@ SIGNATURES = {
         "hsd_k7_stage": (_I, [_P, _I, _I, _I, _I, _P, _F, _P, _P, _P, _P]),
         "hsd_mma_error_string": (ctypes.c_char_p, [_I]),
     },
+    "dequant": {
+        "hsd_dequant": (_I, [_P, _I, _LL, _I, _I, _P, _I, _LL, _I, _P, _LL,
+                             _P, _I, _P]),
+        "hsd_dequant_error_string": (ctypes.c_char_p, [_I]),
+    },
     "flash_decode": {
         "hsd_flash_decode": (_I, [_P, _LL, _P, _P, _I, _P, _P, _I, _P, _P, _P,
                                   _I, _I, _I, _I, _I, _I, _F, _P, _P, _P]),

@@ -2,7 +2,9 @@
 `hsd_tpu/ops/gptq_pallas.py`.
 
 One wrapper for each Pallas kernel that the port's paths reach (K1-K7,
-K7i4). Each has:
+K7i4), and two for route A's dequantize (`dequantize_int4`,
+`dequantize_int8`: `csrc/dequant.cu`, which replaces no Pallas kernel; the
+JAX package dequantizes in XLA code there). Each has:
   * a plain PyTorch version beside it (`*_plain`), which the wrapper runs
     only for tensors on the CPU; on a CUDA tensor the wrapper launches the
     kernel or raises, never the plain version;
@@ -45,15 +47,17 @@ TAIL_MAX_ROWS = 32
 # --------------------------------------------------------------------------
 # plain versions (reference arithmetic; f32 throughout, one rounding at the end)
 
-def dequantize_int4(qweight: torch.Tensor, scales: torch.Tensor,
-                    zeros: Optional[torch.Tensor] = None) -> torch.Tensor:
+def dequantize_int4_plain(qweight: torch.Tensor, scales: torch.Tensor,
+                          zeros: Optional[torch.Tensor] = None
+                          ) -> torch.Tensor:
     """Packed int4 [din/2, dout] -> f32 [din, dout] weight
     (nibble - 8 - zero) * scale, split-half rows."""
     return _apply_groups(_nibbles(qweight).sub_(8), scales, zeros)
 
 
-def dequantize_int8(qweight: torch.Tensor, scales: torch.Tensor,
-                    zeros: Optional[torch.Tensor] = None) -> torch.Tensor:
+def dequantize_int8_plain(qweight: torch.Tensor, scales: torch.Tensor,
+                          zeros: Optional[torch.Tensor] = None
+                          ) -> torch.Tensor:
     """int8 codes [din, dout] -> f32 [din, dout] weight (code - zero) * scale."""
     return _apply_groups(qweight.float(), scales, zeros)
 
@@ -141,7 +145,8 @@ def int4_matmul_plain(x, qweight, scales, zeros=None, bf16_operands=False,
     the main kernel those of the unrounded normed rows with xn)."""
     xf = x.float()
     if not bf16_operands:
-        return (xf @ dequantize_int4(qweight, scales, zeros)).to(x.dtype)
+        w = dequantize_int4_plain(qweight, scales, zeros)
+        return (xf @ w).to(x.dtype)
     y = (_bf16_round(xf) @ _bf16_weight(_nibbles(qweight), scales)
          - _correction(xf, scales, zeros, 8.0, xg))
     return y.to(x.dtype)
@@ -154,7 +159,8 @@ def int8_matmul_plain(x, qweight, scales, zeros=None, bf16_operands=False):
     sum_g xg * zero * scale on the unrounded x."""
     xf = x.float()
     if not bf16_operands:
-        return (xf @ dequantize_int8(qweight, scales, zeros)).to(x.dtype)
+        w = dequantize_int8_plain(qweight, scales, zeros)
+        return (xf @ w).to(x.dtype)
     y = _bf16_round(xf) @ _bf16_weight(qweight.float(), scales)
     if zeros is not None:
         y = y - _correction(xf, scales, zeros, 0.0)
@@ -186,18 +192,19 @@ def k7_stage_plain(x, ln, eps, groups=None):
 
 
 def attn_mlp_int4_plain(att, resid, wo, so, wgu, sg, wdown, sd, ln, eps):
-    xp = resid.float() + att.float() @ dequantize_int4(wo, so)   # x' kept f32
-    gu = _rms_f32(xp, ln, eps) @ dequantize_int4(wgu, sg)
+    # x' kept f32
+    xp = resid.float() + att.float() @ dequantize_int4_plain(wo, so)
+    gu = _rms_f32(xp, ln, eps) @ dequantize_int4_plain(wgu, sg)
     f = gu.shape[-1] // 2
     ff = F.silu(gu[:, :f]) * gu[:, f:]
-    return (xp + ff @ dequantize_int4(wdown, sd)).to(resid.dtype)
+    return (xp + ff @ dequantize_int4_plain(wdown, sd)).to(resid.dtype)
 
 
 def mlp_int4_plain(x, wgu, sg, wdown, sd, ln, eps):
-    gu = _rms_f32(x, ln, eps) @ dequantize_int4(wgu, sg)
+    gu = _rms_f32(x, ln, eps) @ dequantize_int4_plain(wgu, sg)
     f = gu.shape[-1] // 2
     ff = F.silu(gu[:, :f]) * gu[:, f:]
-    return (ff @ dequantize_int4(wdown, sd)).to(x.dtype)
+    return (ff @ dequantize_int4_plain(wdown, sd)).to(x.dtype)
 
 
 # --------------------------------------------------------------------------
@@ -641,8 +648,100 @@ def int4_matmul_bf16(x: torch.Tensor, qweight: torch.Tensor,
     return out
 
 
+# --------------------------------------------------------------------------
+# Route A's dequantize (`linear.dequant_matmul`, every quantized product of
+# more than 128 rows a slot outside the bf16-operand mode): the weight
+# dequantized to the activation dtype in one pass, then one torch.matmul.
+# Replaces no Pallas kernel: the JAX package dequantizes in XLA code there
+# (`dequantize` and `_gptq_matmul_xla`'s `n_rows > 64` branch,
+# hsd_tpu/ops/linear.py:124-143, 168-170). csrc/dequant.cu computes the
+# plain version's f32 (code - zero) * scale, each step rounded once, and
+# rounds once to bf16 or f32: the bits of `dequantize_*_plain(...).to(dtype)`.
+# Bound: bytes (packed int4 half a byte in and two out a weight at bf16;
+# target wgu 5120 x 27648: 356 MB, 0.106 ms at 3.35 TB/s); a thread owns 8
+# columns of 4 code rows, loads their codes first, a group's scales once,
+# and stores each output row's 8 values at once (see the source's header).
+_DEQUANT_DTYPES = (torch.bfloat16, torch.float32)
+
+
+def _check_rows(t: torch.Tensor, name: str, dtypes, shape, device):
+    """A 2-D CUDA tensor on `device` whose output dimension (the last) is
+    contiguous; its rows may lie apart (a view of a stacked weight)."""
+    if t.device != device:
+        raise ValueError(f"{name}: on {t.device}, expected {device}")
+    if t.dtype not in dtypes:
+        raise ValueError(f"{name}: dtype {t.dtype} not in {dtypes}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: shape {tuple(t.shape)} != {tuple(shape)}")
+    if t.stride(1) != 1:
+        raise ValueError(f"{name}: the output dimension must be contiguous "
+                         f"(strides {t.stride()})")
+
+
+def _dequant(qweight, scales, zeros, dtype, packed: bool) -> torch.Tensor:
+    """The C call behind both dequantize wrappers."""
+    if dtype not in _DEQUANT_DTYPES:
+        raise ValueError(f"dequantize: output dtype {dtype} not in "
+                         f"{_DEQUANT_DTYPES}")
+    dev = qweight.device
+    if qweight.dim() != 2 or scales.dim() != 2:
+        raise ValueError(f"dequantize: 2-D qweight and scales, got "
+                         f"{tuple(qweight.shape)}, {tuple(scales.shape)}")
+    rows, dout = qweight.shape
+    groups = scales.shape[0]
+    _check_rows(qweight, "qweight", (torch.uint8,) if packed
+                else (torch.int8,), (rows, dout), dev)
+    _check_rows(scales, "scales", _ACT, (groups, dout), dev)
+    if zeros is not None:
+        _check_rows(zeros, "zeros", (torch.float32,), (groups, dout), dev)
+    din = 2 * rows if packed else rows
+    if din % groups:
+        raise ValueError(f"dequantize: {din} input rows in {groups} groups")
+    out = torch.empty((din, dout), dtype=dtype, device=dev)
+    lib = _build.lib("dequant")
+    err = lib.hsd_dequant(
+        _ptr(qweight), int(packed), qweight.stride(0), rows, dout,
+        _ptr(scales), _bf16(scales), scales.stride(0), groups, _ptr(zeros),
+        0 if zeros is None else zeros.stride(0), _ptr(out),
+        int(dtype == torch.bfloat16),
+        torch.cuda.current_stream(dev).cuda_stream)
+    if err:
+        raise RuntimeError(f"{'int4' if packed else 'int8'} dequantize "
+                           f"(din={din}, dout={dout}, groups={groups}, "
+                           f"zeros={zeros is not None}): "
+                           f"{lib.hsd_dequant_error_string(err).decode()}")
+    return out
+
+
+def dequantize_int4(qweight: torch.Tensor, scales: torch.Tensor,
+                    zeros: Optional[torch.Tensor] = None,
+                    dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Packed int4 [din/2, dout] -> [din, dout] weight in `dtype` (bf16 or
+    f32 on the card): (nibble - 8 - zero) * scale in f32, rounded once to
+    dtype; split-half rows."""
+    if not qweight.is_cuda:
+        return dequantize_int4_plain(qweight, scales, zeros).to(dtype)
+    out = _dequant(qweight, scales, zeros, dtype, packed=True)
+    dequantize_int4.launches += 1
+    return out
+
+
+def dequantize_int8(qweight: torch.Tensor, scales: torch.Tensor,
+                    zeros: Optional[torch.Tensor] = None,
+                    dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """int8 codes [din, dout] -> [din, dout] weight in `dtype` (bf16 or f32
+    on the card): (code - zero) * scale in f32, rounded once to dtype."""
+    if not qweight.is_cuda:
+        return dequantize_int8_plain(qweight, scales, zeros).to(dtype)
+    out = _dequant(qweight, scales, zeros, dtype, packed=False)
+    dequantize_int8.launches += 1
+    return out
+
+
 WRAPPERS = {"K1": int4_ln_matmul, "K2": attn_mlp_int4, "K3": int4_matmul,
             "K4": int8_matmul, "K5": int8_ln_matmul, "K6": mlp_int4,
-            "K7": int8_matmul_bf16, "K7i4": int4_matmul_bf16}
+            "K7": int8_matmul_bf16, "K7i4": int4_matmul_bf16,
+            "dequantize_int4": dequantize_int4,
+            "dequantize_int8": dequantize_int8}
 for _w in WRAPPERS.values():
     _w.launches = 0

@@ -6,9 +6,10 @@ optional zero points; it drops into the same `apply_linear` call sites as a
 dense tensor. A quantized matmul takes a hand-written kernel
 (`ops/gptq_cuda.py`; on a CPU tensor the kernel's plain version) where the
 JAX package takes its Pallas kernel on its device (`kernel_route`), and
-every other product the reference's XLA route in plain PyTorch
-(`xla_matmul`: grouped f32 partial sums up to 64 rows, dequantize-then-dot
-above).
+every other product the reference's XLA route (`xla_matmul`: grouped f32
+partial sums up to 64 rows in plain PyTorch; above, route A,
+`dequant_matmul`: the weight dequantized by one hand-written kernel,
+`gptq_cuda.dequantize_int4` / `dequantize_int8`, then one torch.matmul).
 """
 from __future__ import annotations
 
@@ -114,15 +115,18 @@ def quantize(w: torch.Tensor, bits: int = 8, group_size: int = 128,
 
 
 def dequantize(qw: QuantizedLinear, dtype=torch.bfloat16) -> torch.Tensor:
-    """w[i, o] = (code - zero[g(i), o]) * scale; for a desc_act weight the
-    rows come back in ORIGINAL input order."""
+    """w[i, o] = (code - zero[g(i), o]) * scale in f32, rounded once to
+    dtype; for a desc_act weight the rows come back in ORIGINAL input order
+    (whole rows moved after the rounding, which is exact). A CUDA weight
+    takes the dequantize kernel (bf16 or f32), a CPU one its plain
+    version."""
     if qw.packed_int4:
-        w = gptq_cuda.dequantize_int4(qw.qweight, qw.scales, qw.zeros)
+        w = gptq_cuda.dequantize_int4(qw.qweight, qw.scales, qw.zeros, dtype)
     else:
-        w = gptq_cuda.dequantize_int8(qw.qweight, qw.scales, qw.zeros)
+        w = gptq_cuda.dequantize_int8(qw.qweight, qw.scales, qw.zeros, dtype)
     if qw.perm is not None:
         w = torch.zeros_like(w).index_copy_(0, qw.perm.long(), w)
-    return w.to(dtype)
+    return w
 
 
 def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
@@ -228,8 +232,11 @@ def dequant_matmul(x: torch.Tensor, w: QuantizedLinear) -> torch.Tensor:
     (the `n_rows > 64` branch of `_gptq_matmul_xla`, linear.py:124-143,
     168-170; `xla_matmul` below): the weight rounds to the activation dtype, as
     bf16((code - zero) * scale) in a bf16 model, and the dot accumulates in
-    f32. XLA code in the reference, so plain PyTorch here, not a kernel: no
-    launch counter. cuBLAS picks its algorithm by shape, so a row's bits
+    f32. The dequantize is XLA code in the reference; here it is one
+    hand-written pass on the card (`gptq_cuda.dequantize_int4` /
+    `dequantize_int8`, one launch a product, counted) with the plain
+    version's bits, and the dot one torch.matmul, as the reference leaves
+    it to XLA. cuBLAS picks its algorithm by shape, so a row's bits
     may depend on the row count, as the reference's do. An f32 product runs
     in f32: TF32 must be off (checked here, not set). Spans: linear.route_a,
     and linear.dequant for the dequantize."""
@@ -255,7 +262,8 @@ def xla_matmul(x: torch.Tensor, w: QuantizedLinear) -> torch.Tensor:
     accumulated in f32; times the f32 scales, less xsum_g * zero * scale
     with zero points, summed over the groups and rounded once to x's dtype.
     XLA code in the reference, so plain PyTorch here, not a kernel: no
-    launch counter. The f32 dot needs TF32 off (checked, not set)."""
+    launch counter (above 64 rows, route A's dequantize launch). The f32
+    dot needs TF32 off (checked, not set)."""
     n = x.shape[0]
     if n > XLA_PARTIAL_MAX_ROWS:
         return dequant_matmul(x, w)

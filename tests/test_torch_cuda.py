@@ -4,10 +4,13 @@ tensor-core kernel; K2 and K6, its products in one call, at 1-32 rows,
 split and unsplit, with a ragged width; K7's pre-pass, and K7 at ragged
 widths, both block heights and 1-4 k-slices a group; K7i4's pre-pass
 with its group sums, and K7i4 at ragged widths and 1-4 k-slices a group),
-a row's bits independent of the row count, the
-dequantize-then-dot route above 128 rows and the XLA route on shapes no
-kernel takes (no kernel, near the plain result), and greedy spec == AR
-through the kernels. Marked `cuda`; each test skips when no card is present
+a row's bits independent of the row count, route A's dequantize kernel
+bit for bit its plain version (int4 and int8, zero points, bf16 and f32
+scales and outputs, ragged widths, odd group counts, layer and column
+views, a perm), the dequantize-then-dot route above 128 rows and the XLA
+route on shapes no kernel takes (one dequantize launch above 64 rows and
+no other kernel, near the plain result), and greedy spec == AR through
+the kernels. Marked `cuda`; each test skips when no card is present
 (decided in a fixture, never at import). Run on the card with
 `python -m pytest tests/test_torch_cuda.py -q -m cuda`.
 
@@ -25,7 +28,8 @@ from hsd_tpu_torch.models.transformer import (fuse_params, init_params,
 from hsd_tpu_torch.ops import flash_decode as FD
 from hsd_tpu_torch.ops import gptq_cuda as G
 from hsd_tpu_torch.ops import launch_counts, reset_launches
-from hsd_tpu_torch.ops.linear import QuantizedLinear, apply_linear, apply_mlp
+from hsd_tpu_torch.ops.linear import (QuantizedLinear, apply_linear,
+                                      apply_mlp, dequantize)
 
 pytestmark = pytest.mark.cuda
 
@@ -223,12 +227,22 @@ def test_int4_row_bits_independent_of_row_count(dev, dtype):
         assert torch.equal(call(x)[:128], full)
 
 
+def _dequant_launches(qw):
+    """The launches one route-A product must make: its dequantize alone."""
+    return {"dequantize_int4" if qw.packed_int4 else "dequantize_int8": 1}
+
+
+def _launched():
+    return {k: v for k, v in launch_counts().items() if v}
+
+
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_dequant_route_above_128_rows(dev, dtype):
     """apply_linear at 129 and 693 rows without mxu_bf16 takes the
-    dequantize-then-dot route: no kernel launches, and the result within
-    the tolerance of the f32 plain version (bf16: the route rounds the
-    normed x and the weight to bf16, as the reference does)."""
+    dequantize-then-dot route: each product launches exactly one
+    dequantize kernel (int4 or int8) and nothing else, and the result
+    lies within the tolerance of the f32 plain version (bf16: the route
+    rounds the normed x and the weight to bf16, as the reference does)."""
     g, w, s, z, ln = _i4_case(dev, 21, 1024, 640, True)
     w8 = torch.empty((1024, 384), dtype=torch.int8, device=dev)
     w8.random_(-127, 128, generator=g)
@@ -243,9 +257,129 @@ def test_dequant_route_above_128_rows(dev, dtype):
                      else G.int8_matmul_plain)
             reset_launches()
             got = apply_linear(qw, x, norm=(ln, 1e-6) if norm else None)
-            assert not any(launch_counts().values()), launch_counts()
+            assert _launched() == _dequant_launches(qw), launch_counts()
             xs = G._rms_f32(x, ln, 1e-6) if norm else x
             _close(got, plain(xs, qw.qweight, qw.scales, qw.zeros), dtype)
+
+
+def _deq_weight(g, dev, din, dout, groups, packed, zeros, f32_scales,
+                lead=()):
+    """Random codes over their whole range, scales, and zero points."""
+    rows = din // 2 if packed else din
+    q = torch.empty(lead + (rows, dout), dtype=torch.uint8, device=dev)
+    q.random_(0, 256, generator=g)
+    if not packed:
+        q = q.view(torch.int8)
+    s = torch.rand(lead + (groups, dout), generator=g, device=dev) * 1e-2
+    s = s + 1e-3
+    z = (torch.randn(lead + (groups, dout), generator=g, device=dev) * 4
+         if zeros else None)
+    return q, (s if f32_scales else s.to(torch.bfloat16)), z
+
+
+def _deq_pair(q, s, z, dtype):
+    """(the kernel's output, its plain version's) for a 2-D weight."""
+    packed = q.dtype == torch.uint8
+    kern = G.dequantize_int4 if packed else G.dequantize_int8
+    plain = G.dequantize_int4_plain if packed else G.dequantize_int8_plain
+    got = kern(q, s, z, dtype)
+    want = plain(q, s, z).to(dtype)
+    torch.cuda.synchronize()
+    return got, want
+
+
+# (din, dout, groups): an out width of 128s, one of 8s but not 16s, one not
+# of 8 (the element-wise path), and groups that end inside a packed half
+# (384 rows in 3 groups: the high nibbles of byte row 64 start group 1
+# mid-way) or of 64 rows
+DEQ_SHAPES = [(1024, 640, 8), (1024, 200, 8), (512, 300, 4), (384, 256, 3),
+              (512, 136, 8)]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("f32_scales", [False, True])
+@pytest.mark.parametrize("zeros", [False, True])
+@pytest.mark.parametrize("packed", [True, False])
+@pytest.mark.parametrize("shape", DEQ_SHAPES)
+def test_dequant_kernel_bits_equal_plain(dev, shape, packed, zeros,
+                                         f32_scales, dtype):
+    """Route A's dequantize kernel gives its plain version's bits:
+    (code - zero) * scale in f32, each step rounded once, rounded once to
+    the output dtype; one launch a call, on its own counter."""
+    din, dout, groups = shape
+    g = torch.Generator(device=dev).manual_seed(din + dout + groups)
+    q, s, z = _deq_weight(g, dev, din, dout, groups, packed, zeros,
+                          f32_scales)
+    reset_launches()
+    got, want = _deq_pair(q, s, z, dtype)
+    assert got.dtype == dtype and got.shape == (din, dout)
+    assert torch.equal(got, want)
+    assert _launched() == {"dequantize_int4" if packed
+                           else "dequantize_int8": 1}
+
+
+@pytest.mark.parametrize("packed", [True, False])
+def test_dequant_kernel_on_views(dev, packed):
+    """A layer view of a stacked [L, ...] weight (rows contiguous), a
+    column slice (rows apart: the kernel reads the row stride) and one
+    that starts off alignment (the element-wise path) give the plain
+    version's bits of the same tensors made contiguous; so does
+    `dequantize()` with a perm, and each call counts one launch."""
+    g = torch.Generator(device=dev).manual_seed(11)
+    q, s, z = _deq_weight(g, dev, 1024, 640, 8, packed, True, False,
+                          lead=(3,))
+    qw = QuantizedLinear(q, s, z)
+    counter = G.dequantize_int4 if packed else G.dequantize_int8
+    views = [(q[1], s[1], z[1]),
+             (q[2, :, 128:512], s[2, :, 128:512], z[2, :, 128:512]),
+             (q[0, :, 3:203], s[0, :, 3:203], z[0, :, 3:203])]
+    for qv, sv, zv in views:
+        assert qv.stride(-1) == 1
+        before = counter.launches
+        got, _ = _deq_pair(qv, sv, zv, torch.bfloat16)
+        assert counter.launches == before + 1
+        _, want = _deq_pair(qv.contiguous(), sv.contiguous(),
+                            zv.contiguous(), torch.bfloat16)
+        assert torch.equal(got, want)
+    lw = qw.layer(1)
+    assert lw.qweight.data_ptr() == q[1].data_ptr()
+    perm = torch.randperm(1024, generator=g, device=dev)
+    for dtype in (torch.bfloat16, torch.float32):
+        for w in (lw, lw._replace(perm=perm)):
+            reset_launches()
+            got = dequantize(w, dtype)
+            assert _launched() == _dequant_launches(w)
+            plain = (G.dequantize_int4_plain if packed
+                     else G.dequantize_int8_plain)
+            want = plain(w.qweight, w.scales, w.zeros)
+            if w.perm is not None:
+                want = torch.zeros_like(want).index_copy_(0, perm, want)
+            assert torch.equal(got, want.to(dtype))
+
+
+def test_dequant_kernel_raises_on_bad_input(dev):
+    """A non-contiguous output dimension, another output dtype, a wrong
+    code dtype or scale shape, or a tensor off the weight's device raise
+    before any launch."""
+    g = torch.Generator(device=dev).manual_seed(12)
+    q, s, z = _deq_weight(g, dev, 512, 256, 4, True, True, False)
+    reset_launches()
+    with pytest.raises(ValueError, match="contiguous"):
+        G.dequantize_int4(q[:, ::2], s[:, ::2], None, torch.bfloat16)
+    with pytest.raises(ValueError, match="contiguous"):
+        G.dequantize_int4(q, s, z.t().contiguous().t(), torch.bfloat16)
+    with pytest.raises(ValueError, match="dtype"):
+        G.dequantize_int4(q, s, z, torch.float16)
+    with pytest.raises(ValueError, match="dtype"):
+        G.dequantize_int8(q, s, z, torch.bfloat16)
+    with pytest.raises(ValueError, match="shape"):
+        G.dequantize_int4(q, s[:, :128], None, torch.bfloat16)
+    with pytest.raises(ValueError, match="expected"):
+        G.dequantize_int4(q, s.cpu(), None, torch.bfloat16)
+    with pytest.raises(ValueError, match="groups"):
+        G.dequantize_int4(q, torch.ones((3, 256), device=dev), None,
+                          torch.bfloat16)
+    assert not _launched()
 
 
 # K7's rows: bf16 activations at 129, 200 and 480 rows; f32 ones (rounded
@@ -487,8 +621,9 @@ def test_xla_route_on_unsupported_shapes(dev):
     """apply_linear at most 128 rows on shapes no kernel takes (int8 groups
     of 64 rows, a packed weight of out width 192) takes the reference's XLA
     route (grouped f32 partials up to 64 rows, dequantize-then-dot above):
-    no kernel launches, and the result within the tolerance of the f32
-    plain version."""
+    no kernel launch up to 64 rows, above it the dequantize kernel alone,
+    once a product, and the result within the tolerance of the f32 plain
+    version."""
     g = torch.Generator(device=dev).manual_seed(41)
     w8 = torch.empty((512, 256), dtype=torch.int8, device=dev)
     w8.random_(-127, 128, generator=g)
@@ -507,7 +642,8 @@ def test_xla_route_on_unsupported_shapes(dev):
                 for norm in (None, (ln, 1e-6)):
                     reset_launches()
                     got = apply_linear(qw, x, norm=norm, mxu_bf16=True)
-                    assert not any(launch_counts().values()), launch_counts()
+                    want = _dequant_launches(qw) if n > 64 else {}
+                    assert _launched() == want, launch_counts()
                     xs = G._rms_f32(x, ln, 1e-6) if norm else x
                     _close(got, plain(xs, qw.qweight, qw.scales, qw.zeros),
                            dtype)

@@ -16,7 +16,9 @@ weight to that dtype and runs one einsum (`:124-143, 168-170`). The port's
   `_rms_xla` then `_gptq_matmul_xla`): within 1e-6 of sum |x * w| per
   output (f32 summation order only);
 * the bf16 roundings bit for bit: `dequantize(w, bf16)` against
-  `jlin.dequantize`, `rms_norm` against `_rms_xla`'s ops given the same
+  `jlin.dequantize` (a CPU weight takes the dequantize kernel's plain
+  version and counts no launch; the kernel is held to that version on the
+  card), `rms_norm` against `_rms_xla`'s ops given the same
   inverse RMS (XLA's CPU rsqrt is not correctly rounded); XLA's CPU
   backend has no bf16 dot, so the dot in bf16 is held to a model: the
   rounded operands in f32, rounded once;
@@ -34,6 +36,7 @@ import torch
 from hsd_tpu.ops import linear as jlin
 from hsd_tpu_torch import bridge
 from hsd_tpu_torch.ops import gptq_cuda as G
+from hsd_tpu_torch.ops import launch_counts, reset_launches
 from hsd_tpu_torch.ops import linear as tlin
 
 torch.set_num_threads(2)
@@ -146,6 +149,52 @@ def test_dequantize_bits_match_reference(kind, scale_dtype):
     want = np.asarray(jlin.dequantize(jq._replace(perm=jnp.asarray(perm))))
     np.testing.assert_array_equal(got.view(torch.int16).numpy(),
                                   want.view(np.int16))
+
+
+@pytest.mark.parametrize("perm", [False, True])
+@pytest.mark.parametrize("kind", ["int8 sym", "int8 asym", "int4 sym",
+                                  "int4 asym"])
+def test_dequantize_on_cpu_takes_plain_version(kind, perm):
+    """A CPU weight takes the plain version (the kernel's yardstick on the
+    card): the same bits as `dequantize_*_plain(...).to(dtype)` and as the
+    reference, with and without a perm, and no launch counted."""
+    jq, tq = _weight(kind, seed=7)
+    if perm:
+        p = np.random.default_rng(8).permutation(tq.din).astype(np.int32)
+        jq = jq._replace(perm=jnp.asarray(p))
+        tq = tq._replace(perm=torch.from_numpy(p).long())
+    plain = (G.dequantize_int4_plain if tq.packed_int4
+             else G.dequantize_int8_plain)
+    reset_launches()
+    for dtype, jdtype, bits in ((torch.bfloat16, jnp.bfloat16, np.int16),
+                                (torch.float32, jnp.float32, np.int32)):
+        got = tlin.dequantize(tq, dtype)
+        want = plain(tq.qweight, tq.scales, tq.zeros)
+        if perm:
+            want = torch.zeros_like(want).index_copy_(0, tq.perm, want)
+        assert got.dtype == dtype and torch.equal(got, want.to(dtype))
+        np.testing.assert_array_equal(
+            got.numpy().view(bits) if dtype == torch.float32
+            else got.view(torch.int16).numpy(),
+            np.asarray(jlin.dequantize(jq, jdtype)).view(bits))
+    counts = launch_counts()
+    assert counts["dequantize_int4"] == counts["dequantize_int8"] == 0
+
+
+def test_dequantize_counters_in_launch_counts():
+    """Both dequantize wrappers count their launches where launch_counts()
+    reads every kernel's, and reset_launches() zeroes them."""
+    counts = launch_counts()
+    assert {"dequantize_int4", "dequantize_int8"} <= set(counts)
+    G.dequantize_int4.launches = 3
+    G.dequantize_int8.launches = 2
+    try:
+        counts = launch_counts()
+        assert (counts["dequantize_int4"], counts["dequantize_int8"]) == (3, 2)
+    finally:
+        reset_launches()
+    assert launch_counts()["dequantize_int4"] == 0
+    assert launch_counts()["dequantize_int8"] == 0
 
 
 @pytest.mark.parametrize("scale", [1.0, 40.0])
