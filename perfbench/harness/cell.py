@@ -322,27 +322,40 @@ def end_to_end(c0, c1, window_s, in_window, setup_s) -> Dict[str, float]:
             "setup_s": setup_s}
 
 
+def work_of(served) -> Dict[str, Callable]:
+    """{trunk: work(seqs, head) -> (ops, bytes)}: the configuration's own
+    where it gives one (`coupled.Served.work`), else `costs.forward` over
+    `costs.trunk` of the trunk's shapes and storage."""
+    own = served.work or {}
+
+    def default(m):
+        tr = costs.trunk(served.shapes[m], served.quant[m])
+        return lambda seqs, head: costs.forward(tr, seqs, head=head)
+    return {m: own[m] if m in own else default(m)
+            for m in ("draft", "small", "big")}
+
+
 def context(served, e, pool_state, reduced, slice_s, peaks):
     """What the per-layer readers read: the traced slice's spans, device
-    times, and the work of every forward in it (`costs`)."""
+    times (by harness or program span, and by kernel name), and the work
+    of every forward in it (`work_of`)."""
     gamma = e["gamma"]
-    tr = {m: costs.trunk(served.shapes[m], served.quant[m])
-          for m in ("draft", "small", "big")}
+    fwd = work_of(served)
     work = {"verify": [], "draft": [], "prefill": []}
     for b in pool_state["blocks"]:
         live = [s for s, on in enumerate(b["live"]) if on]
         ctxs = [b["length"][s] - b["start"][s] for s in live]
         seqs = [(gamma + 1, c - 1) for c in ctxs]
-        o1, b1 = costs.forward(tr["big"], seqs, head=True)
-        o2, b2 = costs.forward(tr["small"], seqs, head=True)
+        o1, b1 = fwd["big"](seqs, True)
+        o2, b2 = fwd["small"](seqs, True)
         work["verify"].append((o1 + o2, b1 + b2))
         for j in range(gamma):
             steps = [(2, c - 2) if j == 0 else (1, c - 1 + j) for c in ctxs]
-            work["draft"].append(costs.forward(tr["draft"], steps, head=True))
+            work["draft"].append(fwd["draft"](steps, True))
     for n in pool_state["admissions"]:
-        o1, b1 = costs.forward(tr["big"], [(n - 1, 0)], head=False)
-        o2, b2 = costs.forward(tr["small"], [(n - 1, 0)], head=False)
-        o3, b3 = costs.forward(tr["draft"], [(n - 2, 0)], head=False)
+        o1, b1 = fwd["big"]([(n - 1, 0)], False)
+        o2, b2 = fwd["small"]([(n - 1, 0)], False)
+        o3, b3 = fwd["draft"]([(n - 2, 0)], False)
         work["prefill"].append((o1 + o2 + o3, b1 + b2 + b3))
     return SimpleNamespace(slice_s=slice_s, spans=pool_state["totals"],
                            trace=reduced, work=work, peaks=peaks,

@@ -3,7 +3,8 @@ after the window closed (`Instrument` capture), for slots drawn from the
 seed.
 
 For each captured (slot, block), the plain reference (`reference/model.py`,
-float32, from the raw codes and scales) runs the slot's committed tokens
+or the configuration's own where it gives one; float32, from the raw codes
+and scales) runs the slot's committed tokens
 (the unpadded prompt and everything served so far) and the block's gamma
 draft tokens through the draft, the small trunk and the big trunk, and
 reads the logits at the block's gamma + 1 positions. The numbers:
@@ -33,7 +34,8 @@ control alike read ~20 in big_logit_err), the percentile does not
 (`PERF.md` section 2).
 
 `control` runs the same with the reference in float8 in the program's
-place (every product's operands rounded to e4m3).
+place (every product's operands rounded to e4m3; a configuration's own
+reference is called with precision "fp8").
 """
 from __future__ import annotations
 
@@ -64,10 +66,14 @@ def _sequences(records):
 
 
 def reference_logits(served, records, device, precision="f32"):
-    """{model: [per record: logits [gamma + 1, V]]} for draft, small, big."""
+    """{model: [per record: logits [gamma + 1, V]]} for draft, small, big:
+    the configuration's own reference of a trunk where it gives one
+    (`coupled.Served.reference`), else `reference/model.logits`."""
     seqs, wanted = _sequences(records)
-    return {m: ref.logits(served.shapes[m], served.raw[m], seqs, wanted,
-                          precision=precision, device=device)
+    own = served.reference or {}
+    return {m: own.get(m, ref.logits)(served.shapes[m], served.raw[m], seqs,
+                                      wanted, precision=precision,
+                                      device=device)
             for m in ("draft", "small", "big")}
 
 

@@ -31,12 +31,19 @@ def _matrix_bytes(din: int, dout: int, bits: int, zeros: bool) -> float:
     return w + groups * scale * (2 if zeros else 1)
 
 
+def head_dim(shape: dict) -> int:
+    """The configuration's `head_dim` where it states one, else hidden_size
+    over the heads."""
+    return shape.get("head_dim") or \
+        shape["hidden_size"] // shape["num_attention_heads"]
+
+
 def trunk(shape: dict, quant: str) -> dict:
     """Per-layer product shapes and weight bytes of a trunk. quant: 'int4'
     (symmetric, packed), 'int8sym', 'int8asym' or 'bf16'."""
     D, F = shape["hidden_size"], shape["intermediate_size"]
     H, Hkv = shape["num_attention_heads"], shape["num_key_value_heads"]
-    hd = D // H
+    hd = head_dim(shape)
     E = shape.get("num_local_experts", 0)
     k = shape.get("num_experts_per_tok", 0)
     V = shape["vocab_size"]

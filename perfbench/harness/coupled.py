@@ -39,7 +39,18 @@ class CoupledParams(NamedTuple):
 
 
 class Served(NamedTuple):
-    """What the harness serves and what the reference reads."""
+    """What the harness serves and what the reference reads.
+
+    A configuration whose block `reference/model.py` or `costs.py` does not
+    compute gives its own per trunk ("draft", "small", "big"; a trunk left
+    out keeps the default), e.g. `build(...)._replace(reference=...)`:
+      reference  {trunk: logits(shape, model, seqs, wanted, precision,
+                 device)}, the signature of `reference/model.logits`
+                 (precision "f32", or "fp8" for the control); plain
+                 float32 torch in a file of its own under `reference/`
+      work       {trunk: work(seqs, head) -> (ops, bytes)}, seqs [(t new,
+                 c cached)] as in `costs.forward`
+    """
     cfg_draft: ModelConfig
     cfg_target: ModelConfig
     params_draft: ModelParams
@@ -51,6 +62,8 @@ class Served(NamedTuple):
     quant: dict            # {"draft", "small", "big"}: how each is stored
     lam: float
     target: "CoupledTarget"
+    reference: Optional[dict] = None
+    work: Optional[dict] = None
 
 
 def port_config(shape: dict, eos: int) -> ModelConfig:
@@ -61,6 +74,7 @@ def port_config(shape: dict, eos: int) -> ModelConfig:
         num_layers=shape["num_hidden_layers"],
         num_heads=shape["num_attention_heads"],
         num_kv_heads=shape["num_key_value_heads"],
+        head_dim=shape.get("head_dim"),
         rope_theta=float(shape["rope_theta"]),
         rms_norm_eps=float(shape["rms_norm_eps"]),
         tie_word_embeddings=bool(shape.get("tie_word_embeddings", False)),
@@ -130,7 +144,8 @@ class CoupledTarget:
 def build(spec: dict, seed: int, device, rows_per_slot: int) -> Served:
     """The pair of a configuration file `spec`: the top level holds the
     target trunk's sizes, "draft" the draft's (the small trunk's too),
-    "coupling" logit_scale and lam."""
+    "coupling" logit_scale and lam. Either trunk may state `head_dim`; the
+    draft may state `tie_word_embeddings: false` (its own bf16 head)."""
     dev = torch.device(device)
     shape_big = dict(spec)
     shape_small = dict(spec["draft"])

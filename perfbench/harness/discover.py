@@ -2,12 +2,26 @@
 configuration, traffic mix, cell or per-layer metric is a new file and
 never an edit:
 
-  configs/<config>.json       the sizes, as run (BENCHMARK.json's `file`)
+  configs/<config>.json       the sizes, as run (BENCHMARK.json's `file`);
+                              either trunk may state `head_dim`, and the
+                              draft `tie_word_embeddings: false` (a head
+                              of its own)
   configs/<config>.py         `build(spec, seed, device, rows_per_slot)`
+                              -> `coupled.Served`; where the block is not
+                              one that `reference/model.py` and
+                              `costs.py` compute, it also gives its own
+                              per-trunk `reference` and `work`
+                              (`coupled.Served`)
+  reference/<name>.py         a configuration's own plain reference,
+                              `logits(shape, model, seqs, wanted,
+                              precision, device)`, loaded by its `.py`
+                              with `reference(__file__, name)`
   traffic/<traffic>.json      the mix (`harness/traffic.py`)
   workloads/<cell>.json       the engine's settings, the check's sample
                               and the limits of `correct`
   metrics/<metric>.py         `read(ctx)` of one per-layer metric
+                              (`cell.context`: spans, device time by
+                              span and by kernel name, work)
 """
 from __future__ import annotations
 
@@ -27,6 +41,14 @@ def _load(path: Path, name: str):
 
 def _ident(name: str) -> str:
     return "".join(c if c.isalnum() else "_" for c in name)
+
+
+def reference(config_py: str, name: str):
+    """The module `reference/<name>.py` of the benchmark that holds the
+    configuration file `config_py` (a configuration's `.py` passes its
+    `__file__`)."""
+    path = Path(config_py).resolve().parents[1] / "reference" / f"{name}.py"
+    return _load(path, "perfbench_reference_" + _ident(name))
 
 
 class Bench:

@@ -6,7 +6,8 @@ plain-torch copy of the synthetic coupled pair's construction
     p = softmax(small(x) + lam * standardize(big(x)))
 
 `small` is the bf16 0.5B trunk, its embedding (tied to its head) scaled by
-`logit_scale`; `draft` its int8 image (round to nearest, one scale a group
+`logit_scale` (or, where the draft's head is untied, its own bf16 head
+scaled instead); `draft` its int8 image (round to nearest, one scale a group
 of 128 input rows, as GPTQ stores them: symmetric where the draft's
 `quantization_config` says `sym`, else with a zero point a group too);
 `big` a packed-int4 trunk with uniform codes and bf16 scales |N(0, 1)| *
@@ -16,13 +17,17 @@ unfused expert stacks.
 
 A raw model is a dict: "embed" (a dense tensor, or {"codes", "scale"}),
 "layers" ({name: stacked tensor or {"codes", "scales", "zeros", "bits"}}),
-"final_norm", "lm_head" (None when tied). Every tensor is drawn in one
-call per stack, in the type it is served in. Both the program
+"final_norm", "lm_head" (None when tied; a dense [D, V] tensor or a
+quantized one). Attention is `head_dim` wide a head where the
+configuration states it, else hidden_size over the heads. Every tensor is
+drawn in one call per stack, in the type it is served in. Both the program
 (`to_port`) and the reference read these same tensors.
 """
 from __future__ import annotations
 
 import torch
+
+from . import costs
 
 GROUP = 128
 
@@ -47,7 +52,7 @@ def big_trunk(shape: dict, seed: int, dev) -> dict:
     D, Fi = shape["hidden_size"], shape["intermediate_size"]
     L, V = shape["num_hidden_layers"], shape["vocab_size"]
     H, Hkv = shape["num_attention_heads"], shape["num_key_value_heads"]
-    hd = D // H
+    hd = costs.head_dim(shape)
     layers = {"ln1": torch.ones((L, D), device=dev),
               "ln2": torch.ones((L, D), device=dev),
               "wqkv": _int4(gen, dev, (L,), D, (H + 2 * Hkv) * hd),
@@ -76,12 +81,16 @@ def big_trunk(shape: dict, seed: int, dev) -> dict:
 def small_trunk(shape: dict, seed: int, logit_scale: float, dev) -> dict:
     """The bf16 small trunk: N(0, 1) * L**-0.5 layer stacks (the synthetic
     init's scale), q|k|v and gate|up fused, zero qkv bias, an N(0, 1) *
-    0.02 embedding, rounded to bf16, then times logit_scale, tied head."""
+    0.02 embedding, rounded to bf16, then times logit_scale, tied head.
+    Where the configuration states `tie_word_embeddings: false`, the head
+    is its own: an N(0, 1) * 0.02 [D, V] matrix drawn after the embedding,
+    rounded to bf16, then times logit_scale, and the embedding stays
+    unscaled."""
     gen = _gen(seed, 1, dev)
     D, Fi = shape["hidden_size"], shape["intermediate_size"]
     L, V = shape["num_hidden_layers"], shape["vocab_size"]
     H, Hkv = shape["num_attention_heads"], shape["num_key_value_heads"]
-    hd = D // H
+    hd = costs.head_dim(shape)
     bf = torch.bfloat16
 
     def dense(*s):
@@ -97,9 +106,14 @@ def small_trunk(shape: dict, seed: int, logit_scale: float, dev) -> dict:
         layers["bqkv"] = torch.zeros((L, (H + 2 * Hkv) * hd), dtype=bf,
                                      device=dev)
     embed = (torch.randn((V, D), generator=gen, device=dev) * 0.02).to(bf)
-    embed = (embed.float() * logit_scale).to(bf)
+    head = None
+    if shape.get("tie_word_embeddings", True):
+        embed = (embed.float() * logit_scale).to(bf)
+    else:
+        head = (torch.randn((D, V), generator=gen, device=dev) * 0.02).to(bf)
+        head = (head.float() * logit_scale).to(bf)
     return {"embed": embed, "layers": layers,
-            "final_norm": torch.ones((D,), device=dev), "lm_head": None}
+            "final_norm": torch.ones((D,), device=dev), "lm_head": head}
 
 
 def quantize_asym8(w: torch.Tensor) -> dict:
@@ -133,7 +147,8 @@ def quantize_sym8(w: torch.Tensor) -> dict:
 
 def draft_of(small: dict, sym: bool) -> dict:
     """The draft: the small trunk's products in int8 (symmetric or
-    asymmetric), its embedding (and tied head), norms and bias shared."""
+    asymmetric), its embedding, head (tied or its own), norms and bias
+    shared."""
     quantize = quantize_sym8 if sym else quantize_asym8
     layers = dict(small["layers"])
     for name in ("wqkv", "wo", "wgu", "wdown"):

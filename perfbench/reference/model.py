@@ -5,8 +5,10 @@ and no batching trick.
 
 A model is a dict of raw tensors (see `harness/weights.py`); its shapes are
 a dict of the configuration's sizes (`hidden_size`, `num_hidden_layers`,
-`num_attention_heads`, `num_key_value_heads`, `rope_theta`,
-`rms_norm_eps`, `num_local_experts` / `num_experts_per_tok` for MoE).
+`num_attention_heads`, `num_key_value_heads`, `head_dim` where it is not
+hidden_size over the heads, `rope_theta`, `rms_norm_eps`,
+`num_local_experts` / `num_experts_per_tok` for MoE). The head is tied to
+the embedding, packed int4, or a dense [D, V] matrix of its own.
 Packed int4 is split-half (the low nibble of byte row i is input row i,
 the high nibble row i + in/2, each stored as code + 8); int8 codes are
 signed; a weight is (code - zero) * scale per group of input rows.
@@ -20,6 +22,10 @@ so the float32 copy of a 14B or Mixtral layer is the largest buffer.
 float8 e4m3 (activations with a scale a row, weights a scale an output
 column) before a float32 product; attention, norms and softmax stay
 float32. It imports neither jax nor the program.
+
+A configuration whose block this file does not compute brings its own
+reference, a file beside this one with a `logits` of the same signature,
+named by the configuration's `.py` (`harness/coupled.Served.reference`).
 """
 from __future__ import annotations
 
@@ -100,7 +106,9 @@ def _head(model: dict) -> torch.Tensor:
     h = model.get("lm_head")
     if h is None:                                  # tied to the embedding
         return model["embed"].float().t()
-    return dequant(h)
+    if isinstance(h, dict):                        # quantized
+        return dequant(h)
+    return h.float()                               # dense [D, V], untied
 
 
 def _attention(q, k, v) -> torch.Tensor:
@@ -157,7 +165,9 @@ def _logits(shape, model, seqs, wanted, precision, dev):
     D = shape["hidden_size"]
     L = shape["num_hidden_layers"]
     H, Hkv = shape["num_attention_heads"], shape["num_key_value_heads"]
-    hd = D // H
+    # its own copy of the harness's `costs.head_dim`, so that the
+    # reference shares no code with what it judges
+    hd = shape.get("head_dim") or D // H
     eps = shape["rms_norm_eps"]
     theta = shape["rope_theta"]
     layers = model["layers"]

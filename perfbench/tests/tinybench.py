@@ -50,20 +50,30 @@ def read(ctx):
 '''
 
 
-def make_root(tmp: Path) -> Path:
+def make_root(tmp: Path, extra=(), files=None) -> Path:
     """tmp/BENCHMARK.json and tmp/perfbench/ with the repository's metric
-    readers and one new of each piece; returns tmp."""
+    readers and one new of each piece; returns tmp. extra: further
+    configurations [(sizes, the text of their `.py`, or None for the
+    repository's)], each with a cell `<name>.mini`; files: further files
+    {path under perfbench/: text}."""
     pb = tmp / "perfbench"
     for d in ("configs", "traffic", "workloads", "metrics"):
         (pb / d).mkdir(parents=True)
     for f in (PKG / "metrics").glob("*.py"):
         shutil.copy(f, pb / "metrics" / f.name)
     (pb / "metrics" / "blocks.count.py").write_text(METRIC)
+    for rel, text in (files or {}).items():
+        (pb / rel).parent.mkdir(parents=True, exist_ok=True)
+        (pb / rel).write_text(text)
+    configs = [(CONFIG, None), (MOE, None)] + list(extra)
     cells = []
-    for cfg in (CONFIG, MOE):
+    for cfg, py in configs:
         (pb / "configs" / f"{cfg['name']}.json").write_text(json.dumps(cfg))
-        shutil.copy(PKG / "configs" / "qwen2.5-14b-int4.py",
-                    pb / "configs" / f"{cfg['name']}.py")
+        if py is None:
+            shutil.copy(PKG / "configs" / "qwen2.5-14b-int4.py",
+                        pb / "configs" / f"{cfg['name']}.py")
+        else:
+            (pb / "configs" / f"{cfg['name']}.py").write_text(py)
         cell = f"{cfg['name']}.mini"
         (pb / "workloads" / f"{cell}.json").write_text(json.dumps(WORKLOAD))
         cells.append(cell)
@@ -71,10 +81,10 @@ def make_root(tmp: Path) -> Path:
     spec = json.loads((REPO / "BENCHMARK.json").read_text())
     spec["configs"] = [{"name": c["name"], "source": "test",
                         "file": f"perfbench/configs/{c['name']}.json",
-                        "reduced": [], "why": "test"} for c in (CONFIG, MOE)]
+                        "reduced": [], "why": "test"} for c, _ in configs]
     spec["workloads"] = [{"name": f"{c['name']}.mini", "config": c["name"],
                           "traffic": "mini", "chips": 1, "why": "test"}
-                         for c in (CONFIG, MOE)]
+                         for c, _ in configs]
     for m in spec["per_layer"]:
         m["workloads"] = cells
     spec["per_layer"].append({"name": "blocks.count", "unit": "blocks",
